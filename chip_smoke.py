@@ -1,0 +1,330 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (tpudab_torch) on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases, each of which raises on failure (nothing is caught):
+1. identify the card (torch and CUDA versions, nvidia-smi name and power
+   limit); no CUDA device is a failure;
+2. build the CUDA kernels from tpudab_torch/csrc/;
+3. hold each kernel against its plain torch twin at the receive step's
+   shapes: Viterbi (K1+K2) for the MSC and the FIC batch, bytes equal;
+   deinterleave (K4), exact; carve + rotate (K5), within 1 bf16 ulp;
+4. run the receive step at the bench's size (mode I, six 108-CU EEP 3-A
+   subchannels, 32 ensembles x 16 frames per step, bf16 IQ) over three
+   chained steps of a synthesised signal: every FIB CRC must pass, the
+   known payload of subchannel 1 must come out byte for byte, every
+   kernel's launch count must rise, and ensemble 0's first step must equal
+   the same step run on the CPU through the plain twins;
+5. time the step and each kernel beside its plain twin with CUDA events;
+6. trace three more steps with torch.profiler, recording device activity
+   only: device time by kernel, and the device's idle share in the
+   CUDA-event window of those steps.
+The line before the last is a JSON object of the kernels; the last is
+{"ok": true, "device": {...}}. Exits non-zero without it on any failure.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import time
+
+import numpy as np
+import torch
+
+from tpudab.constants.ofdm_params import SAMPLING_RATE, get_ofdm_params
+from tpudab.constants.puncture import FIC_PROFILE, eep_profile
+from tpudab_torch.fec.crc import check_fib_crc
+from tpudab_torch.fec.depuncture import depuncture_index, depuncture_t
+from tpudab_torch.models.step import ReceiveStep, bench_capture, bench_subchannels
+from tpudab_torch.msc.interleave import deinterleave_cuda, deinterleave_ref
+from tpudab_torch.ofdm.demod import demod_frames_split
+from tpudab_torch.ops import _build
+from tpudab_torch.ops.carve import carve_rotate_cuda, carve_rotate_ref
+from tpudab_torch.ops.viterbi import radix_tables
+from tpudab_torch.ops.viterbi_cuda import (viterbi_decode_bytes_t_cuda,
+                                           viterbi_decode_bytes_t_ref)
+
+N_ENS, N_FRAMES, N_STEPS = 32, 16, 3
+SEED = 0
+KERNELS = {  # name -> (source, replaced TPU kernel, wrapper)
+    "viterbi_fwd_traceback": ("tpudab_torch/csrc/viterbi.cu",
+                              "tpudab/ops/viterbi_pallas.py:60",
+                              viterbi_decode_bytes_t_cuda),
+    "deinterleave": ("tpudab_torch/csrc/deinterleave.cu",
+                     "tpudab/msc/interleave.py:97", deinterleave_cuda),
+    "carve_rotate": ("tpudab_torch/csrc/carve.cu", "tpudab/ops/carve.py:96",
+                     carve_rotate_cuda),
+}
+
+
+def cuda_ms(fn, reps: int) -> float:
+    """Mean device ms of fn() over reps calls, after one warm-up call."""
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def bf16_ulp_err(xr, xi, rr, ri) -> float:
+    """Largest |kernel - plain| of a rotated IQ pair in units of the bf16
+    ulp at the pair's magnitude, compared in f32. The rotation keeps
+    |x|, and the two versions round the f32 phase differently, so a
+    component near zero may differ by far more than its own ulp."""
+    xr, xi, rr, ri = xr.float(), xi.float(), rr.float(), ri.float()
+    mag = torch.maximum(torch.hypot(xr, xi), torch.hypot(rr, ri))
+    ulp = torch.exp2(torch.floor(torch.log2(mag.clamp_min(2.0 ** -126))) - 7)
+    err = torch.maximum((xr - rr).abs(), (xi - ri).abs())
+    return (err / ulp).max().item()
+
+
+def identify() -> str:
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
+                         "this run needs an NVIDIA GPU")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True).stdout.strip().splitlines()[0]
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
+          f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
+    print(f"card: {card}")
+    # tpudab's dots accumulate in f32 and round once to bf16; keep cuBLAS
+    # from reducing split-K partial sums in bf16 (and f32 products in TF32)
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return card
+
+
+def build() -> None:
+    t0 = time.perf_counter()
+    _build.load_library()
+    print(f"build: {time.perf_counter() - t0:.2f} s (nvcc {_build.BuildInfo.seconds:.2f} s)"
+          f" -> {_build.BuildInfo.path}")
+    for line in _build.BuildInfo.log.splitlines():
+        if "registers" in line or "spill" in line:
+            print(f"  ptxas: {line.strip()}")
+
+
+def check_kernels(dev, rng, card: str):
+    """Phase 3: each kernel against its plain twin at the step's shapes."""
+    signs = torch.tensor(radix_tables()[0], device=dev)
+    res = {}
+    for label, profile, b in (("msc", eep_profile(108, 3, 0), 6 * N_ENS * 4 * N_FRAMES),
+                              ("fic", FIC_PROFILE, N_ENS * N_FRAMES * 4)):
+        n_punct = int(profile.mask().sum())
+        soft = torch.from_numpy(rng.standard_normal((b, n_punct), dtype=np.float32))
+        soft_t = depuncture_t(soft.to(dev, torch.bfloat16),
+                              torch.tensor(depuncture_index(profile), device=dev))
+        n = profile.data_bits
+        got = viterbi_decode_bytes_t_cuda(soft_t, signs, n)
+        want = viterbi_decode_bytes_t_ref(soft_t, signs, n)
+        torch.cuda.synchronize()
+        err = (got.int() - want.int()).abs().max().item()
+        if err != 0:
+            raise AssertionError(f"viterbi {label}: {(got != want).sum().item()} "
+                                 f"bytes differ from the plain decoder")
+        ms = cuda_ms(lambda: viterbi_decode_bytes_t_cuda(soft_t, signs, n), 10)
+        plain = cuda_ms(lambda: viterbi_decode_bytes_t_ref(soft_t, signs, n), 1)
+        print(f"K1+K2 viterbi {label} B={b} T2p={soft_t.shape[0]}: bytes equal; "
+              f"kernel {ms:.3f} ms ({b * n / ms / 1e3:.1f} Mbit/s decoded), "
+              f"plain {plain:.3f} ms  [{card}]")
+        res[f"viterbi_{label}"] = (err, ms, plain)
+
+    c, s = 4 * N_FRAMES, 108 * 64
+    buf = torch.from_numpy(rng.standard_normal((N_ENS, c + 15, s), dtype=np.float32))
+    buf = buf.to(dev, torch.bfloat16)
+    got, want = deinterleave_cuda(buf, c), deinterleave_ref(buf, c)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError("deinterleave kernel differs from the plain gather")
+    ms = cuda_ms(lambda: deinterleave_cuda(buf, c), 20)
+    plain = cuda_ms(lambda: deinterleave_ref(buf, c), 20)
+    print(f"K4 deinterleave {tuple(buf.shape)} bf16: exact; kernel {ms:.3f} ms, "
+          f"plain {plain:.3f} ms  [{card}]")
+    res["deinterleave"] = (0.0, ms, plain)
+
+    f = N_ENS * N_FRAMES
+    rows = get_ofdm_params(1).nb_frame_length // 128
+    fr = torch.from_numpy(rng.standard_normal((f, rows, 128), dtype=np.float32))
+    fi = torch.from_numpy(rng.standard_normal((f, rows, 128), dtype=np.float32))
+    fr, fi = fr.to(dev, torch.bfloat16), fi.to(dev, torch.bfloat16)
+    freq = torch.from_numpy(rng.uniform(-2000.0, 2000.0, f).astype(np.float32)).to(dev)
+    (xr, xi), (rr, ri) = carve_rotate_cuda(fr, fi, freq), carve_rotate_ref(fr, fi, freq)
+    torch.cuda.synchronize()
+    ulps = bf16_ulp_err(xr, xi, rr, ri)
+    err = max((xr.float() - rr.float()).abs().max().item(),
+              (xi.float() - ri.float()).abs().max().item())
+    if ulps > 1.0:
+        raise AssertionError(f"carve kernel is {ulps} bf16 ulp from the plain version")
+    ms = cuda_ms(lambda: carve_rotate_cuda(fr, fi, freq), 20)
+    plain = cuda_ms(lambda: carve_rotate_ref(fr, fi, freq), 5)
+    print(f"K5 carve_rotate ({f}, {rows}, 128) bf16: max {ulps:.0f} bf16 ulp "
+          f"(max abs {err:.3g}); kernel {ms:.3f} ms, plain {plain:.3f} ms  [{card}]")
+    res["carve_rotate"] = (err, ms, plain)
+    return res
+
+
+def check_outputs(out, payload, k: int, sid: int):
+    fic = out["fic_bytes"].cpu().numpy()
+    ok = check_fib_crc(fic.reshape(-1, 3, 32))
+    if ok.mean() != 1.0:
+        raise AssertionError(f"step {k}: FIB CRC pass rate {ok.mean():.4f} != 1.0")
+    got = out["subch"][sid].cpu().numpy()                     # (E, C, bytes)
+    c = got.shape[1]
+    first = 15 if k == 0 else 0
+    want = payload[k * c + first - 15: (k + 1) * c - 15]
+    if not (got[:, first:] == want[None]).all():
+        raise AssertionError(f"step {k}: subchannel {sid} payload mismatch")
+
+
+def run_main_path(dev, card):
+    """Phases 4 and 5."""
+    subch = bench_subchannels()
+    t0 = time.perf_counter()
+    frames, payload = bench_capture(N_STEPS * N_FRAMES)
+    print(f"synth: {N_STEPS * N_FRAMES} frames in {time.perf_counter() - t0:.1f} s")
+    step = ReceiveStep(1, subch, n_ensembles=N_ENS).to(dev)
+    tiled = step.tile_frames(frames)                          # (T, rows, 128)
+
+    def ens_chunk(k):
+        part = tiled[k * N_FRAMES:(k + 1) * N_FRAMES]
+        re = torch.from_numpy(np.ascontiguousarray(part.real, np.float32)).to(torch.bfloat16)
+        im = torch.from_numpy(np.ascontiguousarray(part.imag, np.float32)).to(torch.bfloat16)
+        return re, im
+    chunks = []
+    for k in range(N_STEPS):
+        re, im = ens_chunk(k)
+        chunks.append(tuple(x.to(dev).expand((N_ENS,) + x.shape).contiguous()
+                            for x in (re, im)))
+    freq = torch.zeros((), dtype=torch.float32, device=dev)
+    carry = step.init_carry(dev)
+    torch.cuda.synchronize()
+
+    for w in KERNELS.values():
+        w[2].launches = 0
+    outs = []
+    for k in range(N_STEPS):
+        carry, out = step(carry, chunks[k][0], chunks[k][1], freq)
+        outs.append(out)
+    torch.cuda.synchronize()
+    launches = {name: w[2].launches for name, w in KERNELS.items()}
+    print(f"main path: {N_STEPS} steps of E={N_ENS} x F={N_FRAMES}; launches {launches}")
+    for name, n in launches.items():
+        if n == 0:
+            raise AssertionError(f"kernel {name} was not launched by the main path")
+    for k, out in enumerate(outs):
+        check_outputs(out, payload, k, subch[0].subch_id)
+    print("main path: FIB CRC 1.0 on every step; subchannel 1 payload byte-equal")
+
+    # the same first step for ensemble 0 on the CPU, through the plain twins
+    cpu_step = ReceiveStep(1, subch)
+    re0, im0 = ens_chunk(0)
+    _, out_cpu = cpu_step(cpu_step.init_carry("cpu"), re0, im0, 0.0)
+    if not torch.equal(out_cpu["fic_bytes"], outs[0]["fic_bytes"][0].cpu()):
+        raise AssertionError("FIC bytes differ between the CUDA and the CPU step")
+    for c in subch:
+        if not torch.equal(out_cpu["subch"][c.subch_id], outs[0]["subch"][c.subch_id][0].cpu()):
+            raise AssertionError(f"subchannel {c.subch_id} differs between CUDA and CPU")
+    print("main path: ensemble 0 step 0 equals the CPU plain-twin step byte for byte")
+
+    # phase 5: timing
+    state = {"carry": carry}
+
+    def one_step():
+        state["carry"], _ = step(state["carry"], chunks[0][0], chunks[0][1], freq)
+    step_ms = cuda_ms(one_step, 5)
+    rtf = N_ENS * N_FRAMES * get_ofdm_params(1).nb_frame_length / SAMPLING_RATE / (step_ms / 1e3)
+    print(f"step: {step_ms:.2f} ms per step of E={N_ENS} x F={N_FRAMES}, "
+          f"real-time factor {rtf:.1f}  [{card}]")
+
+    # step shares, each component timed alone at its in-step shapes
+    x = torch.randn((N_ENS * N_FRAMES, 76, 2048), device=dev).to(torch.bfloat16)
+    dft_ms = cuda_ms(lambda: (torch.matmul(x + x, step.dft_re), torch.matmul(x, step.dft_sum),
+                              torch.matmul(x, step.dft_diff)), 10)
+
+    def demod():
+        return demod_frames_split(chunks[0][0].view(-1, 1536, 128),
+                                  chunks[0][1].view(-1, 1536, 128), freq,
+                                  (step.dft_re, step.dft_sum, step.dft_diff),
+                                  out_dtype=torch.bfloat16)[0]
+    soft = demod()
+    parts = {"dft_matmuls": dft_ms, "demod_total": cuda_ms(demod, 5),
+             "fec_total": cuda_ms(lambda: step.decode_soft(step.init_carry(dev), soft), 5)}
+    print(f"step parts [{card}]: " + ", ".join(
+        f"{k} {v:.2f} ms ({100 * v / step_ms:.1f}%)" for k, v in parts.items()))
+    state["carry"] = device_breakdown(step, state["carry"], chunks[0], freq, step_ms, card)
+    return launches, step_ms
+
+
+def device_breakdown(step, carry, chunk, freq, step_ms: float, card: str):
+    """Phase 6: N_STEPS steps traced with only device activities recorded.
+    Busy time is the sum of device events (one stream, so none overlap);
+    the idle share is of the CUDA-event window around the steps."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        start.record()
+        for _ in range(N_STEPS):
+            carry, _ = step(carry, chunk[0], chunk[1], freq)
+        end.record()
+        torch.cuda.synchronize()
+    window = start.elapsed_time(end) / N_STEPS
+    kernels = [(k.key, k.self_device_time_total / 1e3 / N_STEPS, k.count // N_STEPS)
+               for k in prof.key_averages()
+               if k.device_type == DeviceType.CUDA and k.self_device_time_total > 0]
+    busy = sum(r[1] for r in kernels)
+    if busy == 0.0:
+        print("device breakdown: not measured (the profiler recorded no device time)")
+        return carry
+    print(f"device breakdown [{card}]: window {window:.3f} ms/step traced "
+          f"(untraced {step_ms:.3f}), busy {busy:.3f} ms/step, "
+          f"idle share {1 - busy / window:.4f}")
+    for name, ms, n in sorted(kernels, key=lambda r: -r[1])[:25]:
+        print(f"  {ms:9.3f} ms {100 * ms / busy:5.1f}%  x{n:<4d} {name[:100]}")
+    return carry
+
+
+def main() -> None:
+    card = identify()
+    dev = torch.device("cuda", 0)
+    build()
+    rng = np.random.default_rng(SEED)
+    res = check_kernels(dev, rng, card)
+    launches, step_ms = run_main_path(dev, card)
+    msc, fic = res["viterbi_msc"], res["viterbi_fic"]
+    shares = {
+        "viterbi_fwd_traceback": msc[1] + fic[1],
+        "deinterleave": res["deinterleave"][1] * 6,
+        "carve_rotate": res["carve_rotate"][1],
+    }
+    print(f"kernel shares of the step [{card}]: " + ", ".join(
+        f"{k} {v:.2f} ms ({100 * v / step_ms:.1f}%)" for k, v in shares.items()))
+    measured = {"viterbi_fwd_traceback": msc, "deinterleave": res["deinterleave"],
+                "carve_rotate": res["carve_rotate"]}
+    kernels = []
+    for name, (src, replaces, _) in KERNELS.items():
+        err, ms, plain = measured[name]
+        entry = {"name": name, "route": "cuda", "source": src, "replaces": replaces,
+                 "launches": launches[name], "max_abs_err": err, "ms": ms,
+                 "plain_ms": plain}
+        if name == "viterbi_fwd_traceback":
+            entry["also_replaces"] = "tpudab/ops/viterbi_pallas.py:124"
+        kernels.append(entry)
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main()

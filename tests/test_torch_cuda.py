@@ -1,0 +1,92 @@
+"""The port's CUDA kernels against their plain torch twins, on an NVIDIA GPU.
+
+Marked `cuda`; each test skips where torch sees no CUDA device. They import
+no jax, so on a GPU machine without jax run them without the repository's
+conftest (which pins jax to the CPU):
+
+    python -m pytest --noconftest -q tests/test_torch_cuda.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from tpudab.constants.puncture import FIC_PROFILE, eep_profile
+from tpudab_torch.fec.depuncture import depuncture_index, depuncture_t
+from tpudab_torch.models.step import ReceiveStep, bench_subchannels
+from tpudab_torch.msc.interleave import deinterleave_cuda, deinterleave_ref
+from tpudab_torch.ops.carve import carve_rotate_cuda, carve_rotate_ref
+from tpudab_torch.ops.viterbi import radix_tables
+from tpudab_torch.ops.viterbi_cuda import (viterbi_decode_bytes_t_cuda,
+                                           viterbi_decode_bytes_t_ref)
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is False)")
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    return torch.device("cuda", 0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("profile", [eep_profile(24, 3, 0), FIC_PROFILE], ids=["eep", "fic"])
+def test_viterbi_kernel_equals_plain(dev, profile, dtype):
+    """Bytes equal: same f32 summation order, selects and rebases."""
+    rng = np.random.default_rng(1)
+    n_punct = int(profile.mask().sum())
+    soft = torch.from_numpy(rng.standard_normal((300, n_punct), dtype=np.float32))
+    soft[:7] = 0.0  # all-erasure codewords: every compare-select ties
+    soft_t = depuncture_t(soft.to(dev, dtype), torch.tensor(depuncture_index(profile), device=dev))
+    signs = torch.tensor(radix_tables()[0], device=dev)
+    got = viterbi_decode_bytes_t_cuda(soft_t, signs, profile.data_bits)
+    torch.cuda.synchronize()
+    assert torch.equal(got, viterbi_decode_bytes_t_ref(soft_t, signs, profile.data_bits))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_deinterleave_kernel_exact(dev, dtype):
+    buf = torch.randn((3, 8 + 15, 6912), generator=torch.Generator().manual_seed(0)).to(dev, dtype)
+    got = deinterleave_cuda(buf, 8)
+    torch.cuda.synchronize()
+    assert torch.equal(got, deinterleave_ref(buf, 8))
+    assert torch.equal(deinterleave_cuda(buf[0], 8), deinterleave_ref(buf[0], 8))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_carve_kernel_within_one_ulp(dev, dtype):
+    """Within 1 bf16 ulp at each sample's magnitude."""
+    rng = np.random.default_rng(2)
+    fr = torch.from_numpy(rng.standard_normal((4, 1536, 128), dtype=np.float32)).to(dev, dtype)
+    fi = torch.from_numpy(rng.standard_normal((4, 1536, 128), dtype=np.float32)).to(dev, dtype)
+    freq = torch.tensor([1999.0, -2000.0, 0.0, 731.5], device=dev)
+    (xr, xi), (rr, ri) = carve_rotate_cuda(fr, fi, freq), carve_rotate_ref(fr, fi, freq)
+    torch.cuda.synchronize()
+    xr, xi, rr, ri = xr.float(), xi.float(), rr.float(), ri.float()
+    mag = torch.maximum(torch.hypot(xr, xi), torch.hypot(rr, ri)).clamp_min(2.0 ** -126)
+    ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    assert (torch.maximum((xr - rr).abs(), (xi - ri).abs()) <= ulp).all()
+
+
+def test_step_cuda_equals_cpu(dev):
+    """The step on the card decodes the same bytes as on the CPU."""
+    from tpudab_torch.synth import (ASCTY_DAB_PLUS, EnsembleSpec, EnsembleSynthesizer,
+                                    ServiceSpec, SubchannelSpec, modulate_frame_bits)
+    sub = bench_subchannels()[:2]
+    spec = EnsembleSpec(0xBE9C, "Cuda", [ServiceSpec(0xC201, "C", [(0, ASCTY_DAB_PLUS, 1)])],
+                        [SubchannelSpec(c.subch_id, c.start_cu, c.size_cu, ("eep", 3, 0))
+                         for c in sub])
+    synth = EnsembleSynthesizer(spec, seed=1)
+    frames = np.stack([modulate_frame_bits(synth.frame_bits(i)) for i in range(5)])
+    step = ReceiveStep(1, sub)
+    tiled = step.tile_frames(frames)
+    re = torch.from_numpy(np.ascontiguousarray(tiled.real, np.float32)).to(torch.bfloat16)
+    im = torch.from_numpy(np.ascontiguousarray(tiled.imag, np.float32)).to(torch.bfloat16)
+    _, cpu = step(step.init_carry("cpu"), re, im, 0.0)
+    step = step.to(dev)
+    _, gpu = step(step.init_carry(dev), re.to(dev), im.to(dev), 0.0)
+    assert torch.equal(gpu["fic_bytes"].cpu(), cpu["fic_bytes"])
+    for sid in cpu["subch"]:
+        assert torch.equal(gpu["subch"][sid].cpu(), cpu["subch"][sid])

@@ -1,0 +1,62 @@
+"""tpudab_torch must run where jax and ml_dtypes are not installed (as on a
+GPU machine). A subprocess refuses both imports, imports every module of
+the port, synthesises a 5-frame capture and runs one CPU ReceiveStep."""
+
+import os
+import subprocess
+import sys
+import textwrap
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+SCRIPT = textwrap.dedent("""
+    import importlib, pkgutil, sys
+
+    class Refuse:
+        def find_spec(self, name, path=None, target=None):
+            if name.split(".")[0] in ("jax", "jaxlib", "ml_dtypes"):
+                raise ImportError(f"{name} is refused in this test")
+            return None
+
+    sys.meta_path.insert(0, Refuse())
+
+    import numpy as np
+    import torch
+    import tpudab_torch
+    mods = [m.name for m in pkgutil.walk_packages(tpudab_torch.__path__, "tpudab_torch.")]
+    for m in mods:
+        importlib.import_module(m)
+    import chip_smoke  # the smoke script imports only the port and torch
+
+    from tpudab.constants.puncture import eep_profile
+    from tpudab_torch.fec.crc import check_fib_crc
+    from tpudab_torch.models.step import ReceiveStep
+    from tpudab_torch.msc.subchannel import SubchannelConfig
+    from tpudab_torch.synth import (ASCTY_DAB_PLUS, EnsembleSpec, EnsembleSynthesizer,
+                                    ServiceSpec, SubchannelSpec, modulate_frame_bits)
+    sub = (SubchannelConfig(1, 0, 24, eep_profile(24, 3, 0)),)
+    spec = EnsembleSpec(0xBE9C, "Guard", [ServiceSpec(0xC201, "G", [(0, ASCTY_DAB_PLUS, 1)])],
+                        [SubchannelSpec(1, 0, 24, ("eep", 3, 0))])
+    synth = EnsembleSynthesizer(spec, seed=1)
+    data = np.random.default_rng(2).integers(0, 256, (20, 96)).astype(np.uint8)
+    synth.payload_fn[1] = lambda m: data[m].tobytes()
+    frames = np.stack([modulate_frame_bits(synth.frame_bits(i)) for i in range(5)])
+    step = ReceiveStep(1, sub)
+    tiled = step.tile_frames(frames)
+    re = torch.from_numpy(np.ascontiguousarray(tiled.real, np.float32)).to(torch.bfloat16)
+    im = torch.from_numpy(np.ascontiguousarray(tiled.imag, np.float32)).to(torch.bfloat16)
+    _, out = step(step.init_carry("cpu"), re, im, 0.0)
+    assert check_fib_crc(out["fic_bytes"].numpy().reshape(-1, 3, 32)).all()
+    assert (out["subch"][1].numpy()[15:] == data[:5]).all()
+    bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "ml_dtypes")]
+    assert not bad, bad
+    print("OK", len(mods))
+""")
+
+
+def test_port_runs_without_jax():
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.run([sys.executable, "-c", SCRIPT], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert proc.stdout.startswith("OK")

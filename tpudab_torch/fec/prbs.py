@@ -1,0 +1,36 @@
+"""Energy-dispersal scrambler PRBS: x^9 + x^5 + 1, EN 300 401 sec 10.
+
+Counterpart of tpudab.fec.prbs (numpy). The register starts all ones for
+every FIB group and every MSC logical frame; scrambling == descrambling.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+
+
+@functools.lru_cache(maxsize=None)
+def prbs_bits(n: int) -> np.ndarray:
+    """First n PRBS output bits (register init all-ones)."""
+    reg = np.ones(9, dtype=np.uint8)  # reg[0] input end, reg[8] output end
+    out = np.empty(n, dtype=np.uint8)
+    for i in range(n):
+        bit = reg[8] ^ reg[4]
+        out[i] = bit
+        reg[1:] = reg[:-1]
+        reg[0] = bit
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def prbs_bytes(n: int) -> np.ndarray:
+    """First n PRBS bytes (MSB-first packing of prbs_bits)."""
+    return np.packbits(prbs_bits(8 * n))
+
+
+def descramble_bits(bits: np.ndarray) -> np.ndarray:
+    """XOR a 0/1 bit array (last axis = stream) with the PRBS."""
+    bits = np.asarray(bits, dtype=np.uint8)
+    return bits ^ prbs_bits(bits.shape[-1])

@@ -1,0 +1,194 @@
+"""The receive step: aligned IQ frames -> decoded FIC + MSC bytes.
+
+Counterpart of tpudab.models.step.ReceiveStep, the device program that
+tpudab's bench.py times and its live radio runs: PLL + carve (kernel K5),
+dense-DFT demod, FIC depuncture/Viterbi (K1 + K2)/descramble, and per
+subchannel the CIF slices, the 16-deep time deinterleave with its ring
+carry (K4), depuncture/Viterbi/descramble to packed bytes.
+
+Subchannels with the same coding geometry (profile, slice size, padding)
+batch into one Viterbi call across subchannels and ensembles. Every static
+table is a registered buffer, so `step.to(device)` moves them all; nothing
+else moves tensors between devices.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from tpudab.constants.dab_params import get_dab_params
+from tpudab.constants.ofdm_params import get_ofdm_params
+from tpudab.constants.puncture import FIC_PROFILE, FIC_PROFILE_MODE3, eep_profile
+from tpudab_torch.fec.depuncture import depuncture_index, depuncture_t
+from tpudab_torch.fec.prbs import prbs_bytes
+from tpudab_torch.msc.interleave import TIME_INTERLEAVE_DEPTH, deinterleave_batch
+from tpudab_torch.msc.subchannel import SubchannelConfig, subch_cif_slices
+from tpudab_torch.ofdm.demod import demod_frames_split, dft_operands
+from tpudab_torch.ops.viterbi import radix_tables
+from tpudab_torch.ops.viterbi_cuda import viterbi_decode_bytes_t
+from tpudab_torch.synth import (ASCTY_DAB_PLUS, EnsembleSpec, EnsembleSynthesizer,
+                                ServiceSpec, SubchannelSpec, modulate_frame_bits)
+
+_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+def bench_subchannels() -> Tuple[SubchannelConfig, ...]:
+    """The bench's full-ensemble layout: six 108-CU EEP 3-A subchannels
+    (tpudab's __graft_entry__._bench_subchannels)."""
+    layout = [(1, 0, 108), (2, 108, 108), (3, 216, 108),
+              (4, 324, 108), (5, 432, 108), (6, 540, 108)]
+    return tuple(SubchannelConfig(subch_id=sid, start_cu=start, size_cu=size,
+                                  profile=eep_profile(size, 3, 0))
+                 for sid, start, size in layout)
+
+
+def bench_capture(n_frames: int):
+    """The bench's signal (tpudab bench.py:26-51, same spec and seeds) for
+    bench_subchannels(): (n_frames, frame_len) complex64 frames and the
+    known payload of subchannel 1, (4 * n_frames, frame_bytes) uint8."""
+    subchannels = bench_subchannels()
+    spec = EnsembleSpec(
+        ensemble_id=0xBE9C, label="Bench Ensemble",
+        services=[ServiceSpec(0xC200 + c.subch_id, f"Bench {c.subch_id}",
+                              [(0, ASCTY_DAB_PLUS, c.subch_id)])
+                  for c in subchannels],
+        subchannels=[SubchannelSpec(c.subch_id, start_cu=c.start_cu,
+                                    size_cu=c.size_cu, protection=("eep", 3, 0))
+                     for c in subchannels])
+    synth = EnsembleSynthesizer(spec, seed=1)
+    rng = np.random.default_rng(2)
+    data = rng.integers(0, 256, (n_frames * 4, subchannels[0].data_bits // 8)).astype(np.uint8)
+    synth.payload_fn[subchannels[0].subch_id] = lambda m: data[m].tobytes()
+    frames = np.stack([modulate_frame_bits(synth.frame_bits(i)) for i in range(n_frames)])
+    return frames, data
+
+
+class ReceiveStep(nn.Module):
+    """forward(carry, frames_re, frames_im, freq_hz) -> (carry, outputs).
+
+    frames_re/_im: (F, frame_len//128, 128) or flat (F, frame_len), with a
+    leading E axis when n_ensembles > 1, bf16 or f32; freq_hz a scalar or
+    (E,). carry: {"deint_<id>": ([E,] 15, slice_bits)} in soft_dtype.
+    outputs: fic_bytes ([E,] F*n_groups, group_bytes) uint8 (before the
+    CRC check); subch {id: ([E,] C, frame_bytes) uint8}, row r of a step
+    being logical frame (CIFs seen before the step) + r - 15; mean_power
+    (E*F,); const_re/const_im (480,) constellation tap of the last frame.
+
+    soft_dtype "bfloat16" (default) halves the FEC chain's memory traffic;
+    "float32" gives exact parity with tpudab's f32 chain.
+    """
+
+    def __init__(self, mode: int, subchannels: Tuple[SubchannelConfig, ...],
+                 window_offset: int = 12, n_ensembles: int = 1,
+                 soft_dtype: str = "bfloat16"):
+        super().__init__()
+        self.mode = mode
+        self.subchannels = tuple(subchannels)
+        self.window_offset = window_offset
+        self.n_ensembles = n_ensembles
+        self.soft_dtype = _DTYPES[soft_dtype]
+        self.params = get_ofdm_params(mode)
+        self.dab = get_dab_params(mode)
+        self.fic_profile = FIC_PROFILE_MODE3 if mode == 3 else FIC_PROFILE
+
+        for name, w in zip(("dft_re", "dft_sum", "dft_diff"),
+                           dft_operands(mode, "bfloat16")):
+            self.register_buffer(name, w, persistent=False)
+        self.register_buffer("signs", torch.tensor(radix_tables()[0]),
+                             persistent=False)
+        # one (profile, slice_bits, padding_bits) group per Viterbi call
+        self.groups: Dict[tuple, list] = {}
+        for cfg in self.subchannels:
+            key = (cfg.profile, cfg.slice_bits, cfg.padding_bits)
+            self.groups.setdefault(key, []).append(cfg)
+        self._profile_ids = {}
+        for profile in [self.fic_profile] + [k[0] for k in self.groups]:
+            if profile not in self._profile_ids:
+                i = len(self._profile_ids)
+                self._profile_ids[profile] = i
+                self.register_buffer(f"depunct_{i}", torch.tensor(
+                    depuncture_index(profile)), persistent=False)
+                n_bytes = profile.data_bits // 8
+                self.register_buffer(f"prbs_{i}", torch.tensor(
+                    prbs_bytes(n_bytes)), persistent=False)
+
+    # -------- carry --------
+
+    def init_carry(self, device) -> Dict[str, torch.Tensor]:
+        lead = (self.n_ensembles,) if self.n_ensembles > 1 else ()
+        return {f"deint_{cfg.subch_id}": torch.zeros(
+                    lead + (TIME_INTERLEAVE_DEPTH - 1, cfg.slice_bits),
+                    dtype=self.soft_dtype, device=device)
+                for cfg in self.subchannels}
+
+    # -------- the chain --------
+
+    def _decode_descramble(self, punctured: torch.Tensor, profile) -> torch.Tensor:
+        """(B, n_punct) soft -> (B, data_bits // 8) descrambled bytes."""
+        i = self._profile_ids[profile]
+        soft_t = depuncture_t(punctured, getattr(self, f"depunct_{i}"))
+        by = viterbi_decode_bytes_t(soft_t, self.signs, profile.data_bits)
+        return by ^ getattr(self, f"prbs_{i}")
+
+    def decode_soft(self, carry, soft: torch.Tensor):
+        """The FEC half of the step: flat soft (E*F, nb_frame_bits) in
+        soft_dtype -> (new carry, fic_bytes, subch)."""
+        dab, e = self.dab, self.n_ensembles
+        f = soft.shape[0] // e
+        g = dab.nb_fib_groups
+        fic_groups = soft[:, : dab.nb_fic_bits].reshape(-1, dab.nb_fic_bits_per_group)
+        fic_bytes = self._decode_descramble(fic_groups, self.fic_profile)
+        if e > 1:
+            fic_bytes = fic_bytes.reshape(e, f * g, -1)
+
+        c = f * dab.nb_cifs
+        lead = (e,) if e > 1 else ()
+        new_carry = dict(carry)
+        subch = {}
+        for (profile, slice_bits, padding_bits), cfgs in self.groups.items():
+            logicals = []
+            for cfg in cfgs:
+                sl = subch_cif_slices(soft, cfg, dab.nb_fic_bits, dab.nb_cifs)
+                sl = sl.reshape(lead + (c, slice_bits))
+                buf = torch.cat([carry[f"deint_{cfg.subch_id}"], sl], dim=-2)
+                logicals.append(deinterleave_batch(buf, c).reshape(-1, slice_bits))
+                new_carry[f"deint_{cfg.subch_id}"] = \
+                    buf[..., -(TIME_INTERLEAVE_DEPTH - 1):, :].clone()
+            logical = torch.cat(logicals, dim=0) if len(logicals) > 1 else logicals[0]
+            body = logical[:, : slice_bits - padding_bits] if padding_bits else logical
+            by = self._decode_descramble(body, profile)
+            by = by.reshape((len(cfgs),) + lead + (c, -1))
+            for i, cfg in enumerate(cfgs):
+                subch[cfg.subch_id] = by[i]
+        return new_carry, fic_bytes, subch
+
+    def forward(self, carry, frames_re, frames_im, freq_hz):
+        e = self.n_ensembles
+        rows = self.params.nb_frame_length // 128
+        if e > 1 and frames_re.shape[0] != e:
+            raise ValueError(f"frames {tuple(frames_re.shape)} do not lead "
+                             f"with the step's {e} ensembles")
+        f = frames_re.shape[1] if e > 1 else frames_re.shape[0]
+        flat_re = frames_re.reshape((e * f, rows, 128))
+        flat_im = frames_im.reshape((e * f, rows, 128))
+        freq = torch.as_tensor(freq_hz, dtype=torch.float32, device=frames_re.device)
+        if e > 1:
+            freq = freq.broadcast_to((e,)).repeat_interleave(f)
+        soft, stats = demod_frames_split(
+            flat_re, flat_im, freq, (self.dft_re, self.dft_sum, self.dft_diff),
+            self.mode, self.window_offset, out_dtype=self.soft_dtype)
+        new_carry, fic_bytes, subch = self.decode_soft(carry, soft)
+        outputs = {"fic_bytes": fic_bytes, "subch": subch,
+                   "mean_power": stats["mean_power"],
+                   "const_re": stats["const_re"], "const_im": stats["const_im"]}
+        return new_carry, outputs
+
+    def tile_frames(self, frames_flat: np.ndarray) -> np.ndarray:
+        """Host-side reshape (..., frame_len) -> (..., frame_len//128, 128)."""
+        frames_flat = np.asarray(frames_flat)
+        return frames_flat.reshape(frames_flat.shape[:-1]
+                                   + (self.params.nb_frame_length // 128, 128))

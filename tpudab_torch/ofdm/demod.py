@@ -1,0 +1,122 @@
+"""Complex-free OFDM demod: split re/im IQ frames -> soft bits.
+
+Counterpart of tpudab.ofdm.demod.demod_frames_split. The FFT, active-bin
+select and frequency deinterleave are one dense DFT matmul per split part
+(dense_demod_matrix), left to torch.matmul as tpudab leaves it to XLA.
+
+Two DFT paths, chosen by the operands' dtype (dft_operands):
+- bf16 (the receive step's): carve + rotate to bf16 (kernel K5 on CUDA,
+  tpudab_torch.ops.carve), then the 3-matmul Karatsuba complex product with
+  bf16 outputs. tpudab's dot accumulates in f32 and rounds once to bf16;
+  cuBLAS may instead reduce split-K partial sums in bf16 unless
+  torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction is
+  False, which chip_smoke.py and the GPU tests set so that the card's
+  products round as the reference's do.
+- f32: plain carve + rotate in f32 and two f32 matmuls, for parity with
+  tpudab's f32 path.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from tpudab.constants.interleaver import get_carrier_map_positions
+from tpudab.constants.ofdm_params import get_ofdm_params
+from tpudab_torch.ops.carve import carve_rotate, carve_windows
+
+N_CONST_POINTS = 480  # constellation tap size
+
+
+@functools.lru_cache(maxsize=None)
+def active_bin_indices(mode: int) -> np.ndarray:
+    """fft-bin indices of the active carriers k=-K/2..K/2 except 0."""
+    p = get_ofdm_params(mode)
+    k_half = p.nb_data_carriers // 2
+    ks = np.array([k for k in range(-k_half, k_half + 1) if k != 0])
+    return (ks % p.nb_fft).astype(np.int32)
+
+
+@functools.lru_cache(maxsize=None)
+def dense_demod_matrix(mode: int):
+    """(nb_fft, K) cos and sin parts of the DFT restricted to the active
+    carriers, columns in logical (frequency-deinterleaved) order."""
+    p = get_ofdm_params(mode)
+    cols = active_bin_indices(mode)[get_carrier_map_positions(mode).astype(np.int64)]
+    ang = -2.0 * np.pi * np.outer(np.arange(p.nb_fft), cols) / p.nb_fft
+    return np.cos(ang).astype(np.float32), np.sin(ang).astype(np.float32)
+
+
+def dft_operands(mode: int, dft_dtype: str = "bfloat16"):
+    """DFT operands as tensors: bf16 (Wre, Wre + Wim, Wim - Wre) for the
+    Karatsuba path, or the f32 (nb_fft, 2K) [Wre | Wim] for the f32 path."""
+    wre, wim = dense_demod_matrix(mode)
+    if dft_dtype == "bfloat16":
+        return tuple(torch.from_numpy(w).to(torch.bfloat16)
+                     for w in (wre, wre + wim, wim - wre))
+    if dft_dtype == "float32":
+        return (torch.from_numpy(np.concatenate([wre, wim], axis=1)),)
+    raise ValueError(f"dft_dtype {dft_dtype!r} not in (bfloat16, float32)")
+
+
+def demod_frames_split(frames_re, frames_im, freq_hz, operands, mode: int = 1,
+                       window_offset: int = 12, out_dtype=torch.float32):
+    """frames (F, frame_len//128, 128) or (F, frame_len), bf16 or f32;
+    freq_hz scalar or (F,); operands from dft_operands. Returns
+    (soft (F, nb_frame_bits) out_dtype, stats) with stats holding
+    mean_power (F,) and the const_re/const_im constellation tap (480,)."""
+    p = get_ofdm_params(mode)
+    n_sym, n_fft = p.nb_symbols, p.nb_fft
+    f = frames_re.shape[0]
+
+    if operands[0].dtype == torch.bfloat16:
+        wc, wcd, wdc = operands
+        xr, xi = carve_rotate(frames_re, frames_im, freq_hz, mode, window_offset)
+        ar = xr.view(f, n_sym, n_fft)
+        ai = xi.view(f, n_sym, n_fft)
+        # Karatsuba: three products instead of four, bf16 outputs
+        m1 = torch.matmul(ar + ai, wc)
+        m2 = torch.matmul(ai, wcd)
+        m3 = torch.matmul(ar, wdc)
+        cr = m1 - m2
+        ci = m3 + m1
+    else:
+        (mboth,) = operands
+        ar, ai = carve_windows(frames_re, frames_im, freq_hz, mode,
+                               window_offset, torch.float32)
+        k = mboth.shape[1] // 2
+        p1 = torch.matmul(ar, mboth)          # [ar@Wre | ar@Wim]
+        p2 = torch.matmul(ai, mboth)          # [ai@Wre | ai@Wim]
+        cr = p1[..., :k] - p2[..., k:]
+        ci = p1[..., k:] + p2[..., :k]
+
+    # differential demap z_l * conj(z_{l-1})
+    dr = cr[:, 1:] * cr[:, :-1] + ci[:, 1:] * ci[:, :-1]
+    di = ci[:, 1:] * cr[:, :-1] - cr[:, 1:] * ci[:, :-1]
+
+    if dr.dtype == torch.bfloat16:
+        # normalise the parts before the concat (equal-sized halves, so the
+        # mean over the frame is the average of the halves' means)
+        norm = 0.5 * (dr.abs().float().mean(dim=(1, 2), keepdim=True)
+                      + di.abs().float().mean(dim=(1, 2), keepdim=True))
+        denom = norm.clamp_min(1e-20)
+        soft = torch.cat([(dr.float() / denom).to(out_dtype),
+                          (di.float() / denom).to(out_dtype)], dim=-1)
+        soft = soft.reshape(f, p.nb_frame_bits)
+    else:
+        soft = torch.cat([dr, di], dim=-1).reshape(f, p.nb_frame_bits)
+        norm = soft.abs().mean(dim=-1, keepdim=True)
+        soft = (soft / norm.clamp_min(1e-20)).to(out_dtype)
+
+    # decimated constellation tap of the last frame, unit RMS
+    stride = max(1, ((n_sym - 1) * dr.shape[-1]) // N_CONST_POINTS)
+    cr_pts = dr[-1].reshape(-1)[::stride][:N_CONST_POINTS].float()
+    ci_pts = di[-1].reshape(-1)[::stride][:N_CONST_POINTS].float()
+    scale = torch.rsqrt((cr_pts ** 2 + ci_pts ** 2).mean() + 1e-20)
+    fr = frames_re.reshape(f, -1).float()
+    fi = frames_im.reshape(f, -1).float()
+    stats = {"mean_power": (fr ** 2 + fi ** 2).mean(dim=-1),
+             "const_re": cr_pts * scale, "const_im": ci_pts * scale}
+    return soft, stats

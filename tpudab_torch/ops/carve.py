@@ -1,0 +1,134 @@
+"""Carve + rotate: IQ frames -> PLL-rotated FFT windows, kernel K5.
+
+Counterpart of tpudab.ops.carve.carve_rotate. For each frame and symbol s
+it takes the n_fft window starting at null + s*(n_fft+n_cp) + n_cp -
+window_offset and rotates it by exp(-2 pi j f t_abs / fs); re and im stay
+split. A CPU tensor takes carve_rotate_ref, which follows tpudab's XLA
+slice path (tpudab/ofdm/demod.py:175-194); a CUDA tensor takes the kernel
+in csrc/carve.cu, which builds the rotator by angle addition of two f32
+tables as the Pallas kernel does (tpudab/ops/carve.py:123-136). The two
+agree within one bf16 ulp.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+
+import numpy as np
+import torch
+
+from tpudab.constants.ofdm_params import get_ofdm_params, SAMPLING_RATE
+from tpudab_torch.ops import _build
+
+
+def _geometry(mode: int, window_offset: int):
+    p = get_ofdm_params(mode)
+    first = p.nb_null_period + p.nb_cyclic_prefix - window_offset
+    return p, first, p.nb_fft + p.nb_cyclic_prefix
+
+
+def _flat(x: torch.Tensor, frame_len: int) -> torch.Tensor:
+    if x.shape[-1] != frame_len and x.shape[1:] != (frame_len // 128, 128):
+        raise ValueError(f"frames {tuple(x.shape)} are not (F, {frame_len}) "
+                         f"or (F, {frame_len // 128}, 128)")
+    return x.reshape(x.shape[0], frame_len)
+
+
+def _freq(freq_hz, f: int, device) -> torch.Tensor:
+    return torch.as_tensor(freq_hz, dtype=torch.float32,
+                           device=device).broadcast_to((f,))
+
+
+def carve_windows(frames_re, frames_im, freq_hz, mode: int = 1,
+                  window_offset: int = 12, out_dtype=torch.bfloat16):
+    """Plain torch carve + rotate with the phase taken per sample from the
+    absolute sample time: returns (F, n_sym, n_fft) re/im in out_dtype."""
+    p, first, stride = _geometry(mode, window_offset)
+    n_sym, n_fft = p.nb_symbols, p.nb_fft
+    f = frames_re.shape[0]
+    fr = _flat(frames_re, p.nb_frame_length)
+    fi = _flat(frames_im, p.nb_frame_length)
+    start = first - p.nb_null_period
+
+    def carve(x):
+        sym = x[:, p.nb_null_period:].reshape(f, n_sym, stride)
+        return sym[:, :, start:start + n_fft]
+
+    wr, wi = carve(fr), carve(fi)
+    t_sym = (first + stride * np.arange(n_sym)) / SAMPLING_RATE
+    t_k = np.arange(n_fft) / SAMPLING_RATE
+    t_abs = torch.as_tensor((t_sym[:, None] + t_k[None, :]).astype(np.float32),
+                            device=fr.device)
+    freq = _freq(freq_hz, f, fr.device)
+    ph = (-2.0 * math.pi) * freq[:, None, None] * t_abs[None]
+    c, s = torch.cos(ph), torch.sin(ph)
+    return (wr * c - wi * s).to(out_dtype), (wr * s + wi * c).to(out_dtype)
+
+
+def carve_rotate_ref(frames_re, frames_im, freq_hz, mode: int = 1,
+                     window_offset: int = 12):
+    """Plain torch twin of the kernel: (F, frame_len//128, 128) frames (or
+    flat (F, frame_len)), bf16 or f32, and (F,) or scalar freq ->
+    (F, n_sym * n_fft//128, 128) bf16 re/im, tpudab's layout."""
+    xr, xi = carve_windows(frames_re, frames_im, freq_hz, mode, window_offset)
+    return xr.reshape(xr.shape[0], -1, 128), xi.reshape(xi.shape[0], -1, 128)
+
+
+def rotator_tables(freq: torch.Tensor, mode: int, window_offset: int):
+    """f32 tables of carve.py:123-136 for (F,) freq: the window-start
+    rotator (ca, sa) of shape (F, n_sym) and the in-window ramp (ci, si) of
+    shape (F, n_fft)."""
+    p, first, stride = _geometry(mode, window_offset)
+    scale = (-2.0 * np.pi / SAMPLING_RATE) * freq
+    idx = torch.arange(p.nb_fft, dtype=torch.float32, device=freq.device)
+    ph_idx = scale[:, None] * idx[None, :]
+    a_sym = torch.as_tensor((first + stride * np.arange(p.nb_symbols)
+                             ).astype(np.float32), device=freq.device)
+    ph_a = scale[:, None] * a_sym[None, :]
+    return (torch.cos(ph_a), torch.sin(ph_a),
+            torch.cos(ph_idx), torch.sin(ph_idx))
+
+
+def carve_rotate_cuda(frames_re, frames_im, freq_hz, mode: int = 1,
+                      window_offset: int = 12):
+    """Kernel K5 on CUDA tensors; same contract as carve_rotate_ref."""
+    p, first, stride = _geometry(mode, window_offset)
+    fr = _flat(frames_re, p.nb_frame_length)
+    fi = _flat(frames_im, p.nb_frame_length)
+    if not (fr.is_cuda and fi.is_cuda) or fr.dtype != fi.dtype \
+            or fr.dtype not in (torch.bfloat16, torch.float32) \
+            or not (fr.is_contiguous() and fi.is_contiguous()):
+        raise ValueError(f"carve_rotate_cuda takes contiguous CUDA bf16 or "
+                         f"f32 frames, got {fr.device} {fr.dtype}, "
+                         f"{fi.device} {fi.dtype}")
+    f = fr.shape[0]
+    freq = _freq(freq_hz, f, fr.device).contiguous()
+    ca, sa, ci, si = rotator_tables(freq, mode, window_offset)
+    rows = p.nb_symbols * (p.nb_fft // 128)
+    xr = torch.empty((f, rows, 128), dtype=torch.bfloat16, device=fr.device)
+    xi = torch.empty_like(xr)
+    lib = _build.load_library()
+    ptr = lambda t: ctypes.c_void_p(t.data_ptr())
+    with torch.cuda.device(fr.device):
+        err = lib.tpudab_carve_rotate(
+            ptr(fr), ptr(fi), int(fr.dtype == torch.bfloat16),
+            ptr(ca), ptr(sa), ptr(ci), ptr(si), ptr(xr), ptr(xi),
+            f, p.nb_frame_length, p.nb_symbols, p.nb_fft, stride, first,
+            ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+    _build.check(err, "carve_rotate")
+    carve_rotate_cuda.launches += 1
+    return xr, xi
+
+
+carve_rotate_cuda.launches = 0
+
+
+def carve_rotate(frames_re, frames_im, freq_hz, mode: int = 1,
+                 window_offset: int = 12):
+    """Dispatch on the frames' device: CPU -> plain torch, CUDA -> K5."""
+    if frames_re.device.type == "cpu":
+        return carve_rotate_ref(frames_re, frames_im, freq_hz, mode,
+                                window_offset)
+    return carve_rotate_cuda(frames_re, frames_im, freq_hz, mode,
+                             window_offset)

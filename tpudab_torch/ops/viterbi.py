@@ -1,0 +1,104 @@
+"""Plain torch Viterbi decoder for the K=7 rate-1/4 DAB mother code.
+
+Counterpart of tpudab.ops.viterbi, and the reference that the CUDA kernel
+(tpudab_torch.ops.viterbi_cuda, csrc/viterbi.cu) is held to bit for bit.
+It runs exactly the kernel's schedule, which is the one of tpudab's Pallas
+forward kernel on its transposed path (tpudab/ops/viterbi_pallas.py:60):
+
+- radix-2 trellis: one super-step consumes 8 mother soft bits (two input
+  bits); super-transition reg = (j << 6) | s'' goes from predecessor
+  pred_j(s'') = (s'' >> 2) | (j << 4) to destination state s'';
+- branch metric of reg = sum over i = 0..7 of signs[i, reg] * soft[t, i],
+  taken in f32 in index order (the signs are +-1, so each product is exact);
+- 4-way compare-select as pairwise strict `>` selects (ties keep the lower
+  predecessor index), f32 path metrics starting at 0 for state 0 and -1e9
+  elsewhere, rebased by pm[0] after every 16 super-steps;
+- traceback from state 0, emitting state & 3 per super-step, 4 super-steps
+  (8 decoded bits) per MSB-first output byte.
+
+Soft-bit convention: +1 => bit 0, -1 => bit 1, 0 => erasure.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from tpudab_torch.fec.conv import OUTPUT_SIGNS, N_STATES
+
+NEG = -1e9
+RADIX = 2            # trellis steps per super-step
+REBASE_STEPS = 16    # super-steps between path-metric rebases
+
+
+@functools.lru_cache(maxsize=None)
+def radix_tables(k: int = RADIX):
+    """(signs (4k, 64 << k) f32, preds (2^k, 64) i32) for a radix-2^k
+    trellis; step i of super-transition reg is the single-step transition
+    (reg >> (k-1-i)) & 127. Same tables as tpudab.ops.viterbi._radix_tables."""
+    n_trans = N_STATES << k
+    reg = np.arange(n_trans, dtype=np.int64)
+    rows = [OUTPUT_SIGNS[(reg >> (k - 1 - i)) & 127, :].T for i in range(k)]
+    signs = np.ascontiguousarray(np.concatenate(rows, axis=0))
+    j = np.arange(1 << k, dtype=np.int32)[:, None]
+    spp = np.arange(N_STATES, dtype=np.int32)[None, :]
+    preds = (spp >> k) | (j << (6 - k))
+    return signs, preds
+
+
+def pad_mother_soft(mother_soft: torch.Tensor, target_steps: int,
+                    amplitude: float = 1.0) -> torch.Tensor:
+    """Right-pad (..., T, 4) mother soft bits to (..., target_steps, 4) with
+    +amplitude: perfect evidence for a continued zero-input flush, exact
+    with respect to the decoded prefix."""
+    t = mother_soft.shape[-2]
+    pad = mother_soft.new_full(mother_soft.shape[:-2] + (target_steps - t, 4),
+                               amplitude)
+    return torch.cat([mother_soft, pad], dim=-2)
+
+
+def viterbi_decode_bytes_t_ref(soft_t: torch.Tensor, signs: torch.Tensor,
+                               n_data_bits: int) -> torch.Tensor:
+    """Decode transposed soft bits (T2p, 8, B), bf16 or f32, to MSB-first
+    packed bytes (B, n_data_bits // 8) uint8. signs is radix_tables()[0]
+    as an f32 tensor (8, 256) on soft_t's device."""
+    t2p, eight, b = soft_t.shape
+    if eight != 4 * RADIX or t2p % 4 or n_data_bits % 8 \
+            or n_data_bits > RADIX * t2p:
+        raise ValueError(f"bad Viterbi geometry {tuple(soft_t.shape)}, "
+                         f"n_data_bits={n_data_bits}")
+    dev = soft_t.device
+    x = soft_t.to(torch.float32)
+    preds = torch.as_tensor(radix_tables()[1], dtype=torch.long, device=dev)
+    sg = signs.to(torch.float32)[:, :, None]                  # (8, 256, 1)
+    pm = torch.full((N_STATES, b), NEG, dtype=torch.float32, device=dev)
+    pm[0] = 0.0
+    decs = torch.empty((t2p, N_STATES, b), dtype=torch.uint8, device=dev)
+    for t in range(t2p):
+        xt = x[t]
+        bm = sg[0] * xt[0]
+        for i in range(1, 4 * RADIX):
+            bm = bm + sg[i] * xt[i]
+        c = pm[preds] + bm.view(4, N_STATES, b)                # (4, 64, B)
+        d01 = c[1] > c[0]
+        m01 = torch.where(d01, c[1], c[0])
+        d23 = c[3] > c[2]
+        m23 = torch.where(d23, c[3], c[2])
+        dh = m23 > m01
+        pm = torch.where(dh, m23, m01)
+        decs[t] = torch.where(dh, d23.to(torch.uint8) | 2, d01.to(torch.uint8))
+        if (t + 1) % REBASE_STEPS == 0:
+            pm = pm - pm[0:1]
+
+    state = torch.zeros((1, b), dtype=torch.long, device=dev)
+    pairs = torch.empty((t2p, b), dtype=torch.uint8, device=dev)
+    for t in range(t2p - 1, -1, -1):
+        j = decs[t].gather(0, state).to(torch.long)
+        pairs[t] = (state[0] & 3).to(torch.uint8)
+        state = (state >> RADIX) | (j << (6 - RADIX))
+    q = pairs.view(t2p // 4, 4, b).to(torch.int32)
+    by = (q[:, 0] << 6) | (q[:, 1] << 4) | (q[:, 2] << 2) | q[:, 3]
+    return by.to(torch.uint8).t()[:, : n_data_bits // 8].contiguous()
+

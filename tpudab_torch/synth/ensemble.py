@@ -1,0 +1,263 @@
+"""Ensemble synthesizer: services/subchannels -> FIC FIGs + coded MSC -> frame bits.
+
+Counterpart of tpudab.synth.ensemble without jax, so that the smoke run can
+synthesise the bench's signal on a machine that has no jax. Gives the same
+bits and IQ as tpudab.synth for the same spec and seed. Covers stream
+services, EEP and UEP subchannels; tpudab's packet-mode (FIG 0/3) and
+FM/DRM link FIGs are left out.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+
+from tpudab.constants.dab_params import (get_dab_params, CIF_BITS, CIF_CU,
+                                         CU_BITS, FIB_BYTES)
+from tpudab.constants.puncture import (FIC_PROFILE, FIC_PROFILE_MODE3,
+                                       PunctureProfile, eep_bitrate_kbps,
+                                       eep_profile, get_uep_index_table,
+                                       get_uep_profile)
+from tpudab.msc.interleave import TIME_INTERLEAVE_DEPTH, interleave_np
+from tpudab_torch.fec.conv import conv_encode
+from tpudab_torch.fec.crc import crc16_append
+from tpudab_torch.fec.depuncture import puncture
+from tpudab_torch.fec.prbs import descramble_bits
+from tpudab_torch.synth.modulator import modulate_frame_bits
+from tpudab_torch.utils.bits import unpack_bits
+
+ASCTY_DAB_PLUS = 63  # AAC superframes
+
+
+@dataclasses.dataclass
+class SubchannelSpec:
+    subch_id: int
+    start_cu: int
+    size_cu: int
+    protection: tuple  # ('eep', level 1..4, option 0|1) or ('uep', bitrate, level)
+
+    def profile(self) -> PunctureProfile:
+        kind = self.protection[0]
+        if kind == "eep":
+            return eep_profile(self.size_cu, self.protection[1], self.protection[2])
+        if kind == "uep":
+            return get_uep_profile(self.protection[1], self.protection[2]).to_profile()
+        raise ValueError(self.protection)
+
+    @property
+    def bitrate_kbps(self) -> int:
+        if self.protection[0] == "eep":
+            return eep_bitrate_kbps(self.size_cu, self.protection[1], self.protection[2])
+        return self.protection[1]
+
+    @property
+    def data_bits_per_frame(self) -> int:
+        """Convolutional input bits per 24 ms logical frame."""
+        return self.bitrate_kbps * 24
+
+    @property
+    def uep_padding_bits(self) -> int:
+        if self.protection[0] == "uep":
+            return get_uep_profile(self.protection[1], self.protection[2]).padding_bits
+        return 0
+
+
+@dataclasses.dataclass
+class ServiceSpec:
+    service_id: int
+    label: str
+    components: list  # [(tmid, ascty, subch_id)], stream components
+    programme_type: int = 0
+    language: int = 0x09
+    country_id: int = 0xC
+
+
+@dataclasses.dataclass
+class EnsembleSpec:
+    ensemble_id: int
+    label: str
+    services: list
+    subchannels: list
+    ecc: int = 0xE1
+    lto_half_hours: int = 0
+    inter_table_id: int = 1
+
+
+def _label16(s: str) -> bytes:
+    b = s.encode("latin-1", "replace")[:16]
+    return b + b" " * (16 - len(b))
+
+
+class _FIGWriter:
+    """Accumulates FIGs and packs them into CRC'd FIBs."""
+
+    def __init__(self):
+        self.figs = []
+
+    def add(self, fig_type: int, payload: bytes):
+        assert 1 <= len(payload) <= 29
+        self.figs.append(bytes([(fig_type << 5) | len(payload)]) + payload)
+
+    def add_list(self, fig_type: int, header: bytes, items: list):
+        """Add a list FIG, segmented across FIGs of at most 29 bytes."""
+        body = bytearray(header)
+        for it in items:
+            assert len(header) + len(it) <= 29, "single entry exceeds a FIG"
+            if len(body) + len(it) > 29:
+                self.add(fig_type, bytes(body))
+                body = bytearray(header)
+            body += it
+        if len(body) > len(header):
+            self.add(fig_type, bytes(body))
+
+    def pack_fibs(self, n_fibs: int) -> np.ndarray:
+        """Greedy first-fit packing into n_fibs FIBs of 30 data bytes."""
+        fibs = []
+        queue = list(self.figs)
+        for _ in range(n_fibs):
+            body = b""
+            while queue and len(body) + len(queue[0]) <= 30:
+                body += queue.pop(0)
+            if len(body) < 30:
+                body += b"\xff"  # end marker
+            body += b"\x00" * (30 - len(body))
+            fibs.append(crc16_append(np.frombuffer(body, dtype=np.uint8)))
+        assert not queue, f"{len(queue)} FIGs did not fit in {n_fibs} FIBs"
+        return np.stack(fibs)
+
+
+class EnsembleSynthesizer:
+    """Builds transmission-frame bits (and IQ) for a described ensemble.
+    Payload bytes per subchannel logical frame come from payload_fn or from
+    a seeded PRNG stream."""
+
+    def __init__(self, spec: EnsembleSpec, mode: int = 1, seed: int = 1234):
+        self.spec = spec
+        self.mode = mode
+        self.dab = get_dab_params(mode)
+        self.rng = np.random.default_rng(seed)
+        self.payload_fn = {}   # subch_id -> fn(logical_frame_idx) -> bytes
+        self._payload_cache = {}
+        used = np.zeros(CIF_CU, dtype=bool)
+        for sub in spec.subchannels:
+            seg = used[sub.start_cu: sub.start_cu + sub.size_cu]
+            assert not seg.any(), f"subchannel {sub.subch_id} overlaps"
+            seg[:] = True
+        self.cif_counter = 0
+
+    # ---------------- FIC ----------------
+
+    def _build_figs(self) -> _FIGWriter:
+        w = _FIGWriter()
+        spec = self.spec
+        cif = self.cif_counter % 5000
+        # FIG 0/0 ensemble info: EId(16) Change(2) Al(1) CIFcnt(13)
+        w.add(0, bytes([0x00, spec.ensemble_id >> 8, spec.ensemble_id & 0xFF,
+                        (cif // 250) % 20, cif % 250]))
+        # FIG 0/1 subchannel organisation (long form EEP / short form UEP)
+        uep_index = get_uep_index_table()
+        items = []
+        for sub in spec.subchannels:
+            it = bytes([(sub.subch_id << 2) | (sub.start_cu >> 8),
+                        sub.start_cu & 0xFF])
+            if sub.protection[0] == "eep":
+                level, option = sub.protection[1], sub.protection[2]
+                b0 = 0x80 | (option << 4) | ((level - 1) << 2) | (sub.size_cu >> 8)
+                it += bytes([b0, sub.size_cu & 0xFF])
+            else:
+                it += bytes([uep_index[(sub.protection[1], sub.protection[2])] & 0x3F])
+            items.append(it)
+        w.add_list(0, bytes([0x01]), items)
+        # FIG 0/2 service organisation (primary stream components)
+        items = []
+        for svc in spec.services:
+            it = bytes([svc.service_id >> 8, svc.service_id & 0xFF,
+                        len(svc.components) & 0x0F])
+            for (tmid, ty, subch_id) in svc.components:
+                it += bytes([(tmid << 6) | (ty & 0x3F), (subch_id << 2) | (1 << 1)])
+            items.append(it)
+        w.add_list(0, bytes([0x02]), items)
+        # FIG 0/9 country/LTO/ECC + international table
+        w.add(0, bytes([0x09, abs(spec.lto_half_hours) & 0x3F, spec.ecc,
+                        spec.inter_table_id]))
+        # FIG 0/17 programme type per service
+        for svc in spec.services:
+            w.add(0, bytes([0x11, svc.service_id >> 8, svc.service_id & 0xFF,
+                            0b00000000, svc.programme_type & 0x1F]))
+        # FIG 1/0 ensemble label, FIG 1/1 programme service labels
+        w.add(1, bytes([0x00, spec.ensemble_id >> 8, spec.ensemble_id & 0xFF])
+              + _label16(spec.label) + b"\x00\x00")
+        for svc in spec.services:
+            w.add(1, bytes([0x01, svc.service_id >> 8, svc.service_id & 0xFF])
+                  + _label16(svc.label) + b"\x00\x00")
+        return w
+
+    def build_fic_bits(self) -> np.ndarray:
+        """Punctured FIC bits (0/1) for one transmission frame."""
+        fibs = self._build_figs().pack_fibs(self.dab.nb_fibs)
+        groups = fibs.reshape(self.dab.nb_fib_groups,
+                              self.dab.nb_fibs_per_group * FIB_BYTES)
+        profile = FIC_PROFILE_MODE3 if self.mode == 3 else FIC_PROFILE
+        return np.concatenate([
+            puncture(conv_encode(descramble_bits(unpack_bits(g))), profile)
+            for g in groups])
+
+    # ---------------- MSC ----------------
+
+    def payload_for(self, sub: SubchannelSpec, logical_idx: int) -> bytes:
+        key = (sub.subch_id, logical_idx)
+        if key not in self._payload_cache:
+            fn = self.payload_fn.get(sub.subch_id)
+            nbytes = sub.data_bits_per_frame // 8
+            if fn is None:
+                data = self.rng.integers(0, 256, nbytes).astype(np.uint8).tobytes()
+            else:
+                data = fn(logical_idx)
+                assert len(data) == nbytes, (len(data), nbytes)
+            self._payload_cache[key] = data
+        return self._payload_cache[key]
+
+    def _coded_logical_frame(self, sub: SubchannelSpec, logical_idx: int) -> np.ndarray:
+        """Scramble + encode + puncture one logical frame -> slice bits."""
+        data = np.frombuffer(self.payload_for(sub, logical_idx), dtype=np.uint8)
+        punctured = puncture(conv_encode(descramble_bits(unpack_bits(data))),
+                             sub.profile())
+        pad = sub.uep_padding_bits
+        if pad:
+            punctured = np.concatenate([punctured, np.zeros(pad, dtype=punctured.dtype)])
+        assert punctured.shape[0] == sub.size_cu * CU_BITS
+        return punctured
+
+    def build_cif_bits(self, cif_idx: int) -> np.ndarray:
+        """One CIF (55,296 bits) with every subchannel time-interleaved."""
+        cif = np.zeros(CIF_BITS, dtype=np.uint8)
+        depth = TIME_INTERLEAVE_DEPTH
+        for sub in self.spec.subchannels:
+            lo = max(cif_idx - depth + 1, 0)
+            frames = np.stack([self._coded_logical_frame(sub, m)
+                               for m in range(lo, cif_idx + 1)])
+            interleaved = interleave_np(np.concatenate(
+                [np.zeros((depth - frames.shape[0], frames.shape[1]),
+                          dtype=frames.dtype), frames]))
+            start = sub.start_cu * CU_BITS
+            cif[start: start + interleaved.shape[1]] = interleaved[-1]
+        return cif
+
+    # ---------------- frames ----------------
+
+    def frame_bits(self, frame_idx: int) -> np.ndarray:
+        """All bits (FIC + MSC CIFs) of one transmission frame."""
+        fic = self.build_fic_bits()
+        cifs = [self.build_cif_bits(frame_idx * self.dab.nb_cifs + c)
+                for c in range(self.dab.nb_cifs)]
+        self.cif_counter += self.dab.nb_cifs
+        bits = np.concatenate([fic] + cifs)
+        assert bits.shape[0] == self.dab.nb_frame_bits
+        return bits
+
+    def frames_iq(self, n_frames: int) -> np.ndarray:
+        """n_frames transmission frames of clean baseband IQ, concatenated."""
+        self.cif_counter = 0
+        return np.concatenate([modulate_frame_bits(self.frame_bits(i), self.mode)
+                               for i in range(n_frames)])
