@@ -9,7 +9,11 @@ Phases, each of which raises on failure (nothing is caught):
 2. build the CUDA kernels from tpudab_torch/csrc/;
 3. hold each kernel against its plain torch twin at the receive step's
    shapes: Viterbi (K1+K2) for the MSC and the FIC batch, bytes equal;
-   deinterleave (K4), exact; carve + rotate (K5), within 1 bf16 ulp;
+   deinterleave (K4), exact; carve + rotate (K5), within 1 bf16 ulp; and
+   the bit-level Viterbi (K1+K3) at the host path's three shapes (FIC
+   (64, 774, 4), MSC (64, 3462, 4), UEP calibration (260, 3078, 4)), bits
+   equal; and K4 again as the host path runs it, on f32 (79, 108 * 64)
+   and (79, 96 * 64) subchannel buffers, exact;
 4. run the receive step at the bench's size (mode I, six 108-CU EEP 3-A
    subchannels, 32 ensembles x 16 frames per step, bf16 IQ) over three
    chained steps of a synthesised signal: every FIB CRC must pass, the
@@ -19,7 +23,17 @@ Phases, each of which raises on failure (nothing is caught):
 5. time the step and each kernel beside its plain twin with CUDA events;
 6. trace three more steps with torch.profiler, recording device activity
    only: device time by kernel, and the device's idle share in the
-   CUDA-event window of those steps.
+   CUDA-event window of those steps;
+7. the host per-stage path (Receiver, the path behind decode-bits) on one
+   full multiplex: six 108-CU EEP 3-A DAB+ services and one UEP 128 kbps
+   PL3 MP2-type service (744 of 864 CU), 64 frames of f32 soft bits
+   (1 - 2b + N(0, 0.5^2)) in batches of 16. Gate: every FIB CRC passes;
+   the database holds the ensemble, 7 services and 7 subchannels; the UEP
+   calibration locks the shipped table; every DAB+ AU comes out byte-equal
+   with Fire code, RS and AU CRC ok; the UEP subchannel's frames equal its
+   payload; K3 and K4 were launched; the CPU Receiver (plain twins) gives
+   identical outputs. Prints wall seconds per batch, the real-time factor
+   and the device busy time over a traced rerun's wall window.
 The line before the last is a JSON object of the kernels; the last is
 {"ok": true, "device": {...}}. Exits non-zero without it on any failure.
 """
@@ -34,17 +48,24 @@ import numpy as np
 import torch
 
 from tpudab.constants.ofdm_params import SAMPLING_RATE, get_ofdm_params
-from tpudab.constants.puncture import FIC_PROFILE, eep_profile
+from tpudab.constants.puncture import FIC_PROFILE, eep_profile, get_uep_profile
+from tpudab_torch.fec.conv import conv_encode
 from tpudab_torch.fec.crc import check_fib_crc
-from tpudab_torch.fec.depuncture import depuncture_index, depuncture_t
+from tpudab_torch.fec.depuncture import (depuncture_index, depuncture_np, depuncture_t,
+                                         puncture)
+from tpudab_torch.models.receiver import Receiver
 from tpudab_torch.models.step import ReceiveStep, bench_capture, bench_subchannels
 from tpudab_torch.msc.interleave import deinterleave_cuda, deinterleave_ref
 from tpudab_torch.ofdm.demod import demod_frames_split
 from tpudab_torch.ops import _build
 from tpudab_torch.ops.carve import carve_rotate_cuda, carve_rotate_ref
 from tpudab_torch.ops.viterbi import radix_tables
-from tpudab_torch.ops.viterbi_cuda import (viterbi_decode_bytes_t_cuda,
-                                           viterbi_decode_bytes_t_ref)
+from tpudab_torch.ops.viterbi_cuda import (viterbi_decode_bits_cuda,
+                                           viterbi_decode_bytes_t_cuda,
+                                           viterbi_decode_bytes_t_ref, viterbi_decode_ref)
+from tpudab_torch.synth import (ASCTY_DAB, ASCTY_DAB_PLUS, EnsembleSpec,
+                                EnsembleSynthesizer, ServiceSpec, SubchannelSpec)
+from tpudab_torch.synth.payload import dabplus_stream
 
 N_ENS, N_FRAMES, N_STEPS = 32, 16, 3
 SEED = 0
@@ -52,11 +73,17 @@ KERNELS = {  # name -> (source, replaced TPU kernel, wrapper)
     "viterbi_fwd_traceback": ("tpudab_torch/csrc/viterbi.cu",
                               "tpudab/ops/viterbi_pallas.py:60",
                               viterbi_decode_bytes_t_cuda),
+    "viterbi_bits": ("tpudab_torch/csrc/viterbi.cu",
+                     "tpudab/ops/viterbi_pallas.py:153", viterbi_decode_bits_cuda),
     "deinterleave": ("tpudab_torch/csrc/deinterleave.cu",
                      "tpudab/msc/interleave.py:97", deinterleave_cuda),
     "carve_rotate": ("tpudab_torch/csrc/carve.cu", "tpudab/ops/carve.py:96",
                      carve_rotate_cuda),
 }
+STEP_KERNELS = ("viterbi_fwd_traceback", "deinterleave", "carve_rotate")
+HOST_KERNELS = ("viterbi_bits", "deinterleave")
+HOST_FRAMES, HOST_BATCH, HOST_SIGMA = 64, 16, 0.5
+HOST_UEP = (7, 648, 96, 128, 3)   # subch id, start CU, size CU, kbps, protection level
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -137,6 +164,29 @@ def check_kernels(dev, rng, card: str):
               f"plain {plain:.3f} ms  [{card}]")
         res[f"viterbi_{label}"] = (err, ms, plain)
 
+    for label, profile, b in (("fic", FIC_PROFILE, 64),
+                              ("msc", eep_profile(108, 3, 0), 64),
+                              ("calibration", get_uep_profile(128, 3).to_profile(), 260)):
+        mother = awgn_mother(rng, profile, b)
+        n = profile.data_bits
+        x = torch.from_numpy(mother).to(dev)
+        got = viterbi_decode_bits_cuda(x, signs, n)
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        want = viterbi_decode_ref(x, signs, n)     # timed once: ~10^4 small launches
+        end.record()
+        torch.cuda.synchronize()
+        plain = start.elapsed_time(end)
+        if not torch.equal(got, want):
+            raise AssertionError(f"viterbi bits {label}: {(got != want).sum().item()} "
+                                 f"bits differ from the plain decoder")
+        ms = cuda_ms(lambda: viterbi_decode_bits_cuda(x, signs, n), 10)
+        print(f"K1+K3 viterbi bits {label} {tuple(x.shape)} f32: bits equal; kernel "
+              f"{ms:.3f} ms ({b * n / ms / 1e3:.1f} Mbit/s decoded), plain {plain:.3f} ms"
+              f"  [{card}]")
+        res[f"viterbi_bits_{label}"] = (0.0, ms, plain)
+
     c, s = 4 * N_FRAMES, 108 * 64
     buf = torch.from_numpy(rng.standard_normal((N_ENS, c + 15, s), dtype=np.float32))
     buf = buf.to(dev, torch.bfloat16)
@@ -168,7 +218,34 @@ def check_kernels(dev, rng, card: str):
     print(f"K5 carve_rotate ({f}, {rows}, 128) bf16: max {ulps:.0f} bf16 ulp "
           f"(max abs {err:.3g}); kernel {ms:.3f} ms, plain {plain:.3f} ms  [{card}]")
     res["carve_rotate"] = (err, ms, plain)
+
+    # K4 as the host path runs it: a SubchannelDecoder's f32 (15 + C, S)
+    # buffer, 4-byte elements, for the 108-CU EEP and the 96-CU UEP subchannel
+    c = 4 * HOST_BATCH
+    for size_cu in (108, 96):
+        buf = torch.from_numpy(rng.standard_normal((c + 15, size_cu * 64), dtype=np.float32))
+        buf = buf.to(dev)
+        got, want = deinterleave_cuda(buf, c), deinterleave_ref(buf, c)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"deinterleave kernel differs from the plain gather "
+                                 f"at {tuple(buf.shape)} f32")
+        ms = cuda_ms(lambda: deinterleave_cuda(buf, c), 20)
+        plain = cuda_ms(lambda: deinterleave_ref(buf, c), 20)
+        print(f"K4 deinterleave {tuple(buf.shape)} f32: exact; kernel {ms:.3f} ms, "
+              f"plain {plain:.3f} ms  [{card}]")
+        res[f"deinterleave_host_{size_cu}cu"] = (0.0, ms, plain)
     return res
+
+
+def awgn_mother(rng, profile, b: int) -> np.ndarray:
+    """b AWGN-coded codewords of profile as the host path feeds the
+    decoder: random bits, conv encode, puncture, 1 - 2c + N(0, 0.5^2),
+    depuncture with 0.0 erasures -> (b, data_bits + 6, 4) f32."""
+    bits = rng.integers(0, 2, (b, profile.data_bits)).astype(np.uint8)
+    tx = 1.0 - 2.0 * puncture(np.stack([conv_encode(r) for r in bits]), profile)
+    rx = (tx + 0.5 * rng.standard_normal(tx.shape)).astype(np.float32)
+    return depuncture_np(rx, profile).reshape(b, -1, 4)
 
 
 def check_outputs(out, payload, k: int, sid: int):
@@ -214,7 +291,7 @@ def run_main_path(dev, card):
         carry, out = step(carry, chunks[k][0], chunks[k][1], freq)
         outs.append(out)
     torch.cuda.synchronize()
-    launches = {name: w[2].launches for name, w in KERNELS.items()}
+    launches = {name: KERNELS[name][2].launches for name in STEP_KERNELS}
     print(f"main path: {N_STEPS} steps of E={N_ENS} x F={N_FRAMES}; launches {launches}")
     for name, n in launches.items():
         if n == 0:
@@ -294,6 +371,161 @@ def device_breakdown(step, carry, chunk, freq, step_ms: float, card: str):
     return carry
 
 
+def host_capture(n_frames: int):
+    """Phase 7's input: the multiplex of six 108-CU EEP 3-A DAB+ services
+    (bench_subchannels(), superframes of seeded random AUs) and one UEP
+    128 kbps PL3 MP2-type service (seeded random bytes), as n_frames frames
+    of f32 soft bits 1 - 2b + N(0, HOST_SIGMA^2). Returns (soft, {subch id:
+    AUs}, UEP payload (4 * n_frames, 384) uint8)."""
+    sid, start, size, kbps, level = HOST_UEP
+    subch = bench_subchannels()
+    subs = [SubchannelSpec(c.subch_id, c.start_cu, c.size_cu, ("eep", 3, 0)) for c in subch]
+    subs.append(SubchannelSpec(sid, start, size, ("uep", kbps, level)))
+    spec = EnsembleSpec(
+        ensemble_id=0xBE9D, label="Host Ensemble",
+        services=[ServiceSpec(0xC200 + c.subch_id, f"Host {c.subch_id}",
+                              [(0, ASCTY_DAB_PLUS, c.subch_id)]) for c in subch]
+        + [ServiceSpec(0xC200 + sid, "Host MP2", [(0, ASCTY_DAB, sid)])],
+        subchannels=subs)
+    synth = EnsembleSynthesizer(spec, seed=1)
+    n_logical = 4 * n_frames
+    aus = {}
+    for sub in subs[:-1]:
+        stream, aus[sub.subch_id] = dabplus_stream(sub.bitrate_kbps, n_logical,
+                                                   seed=10 + sub.subch_id)
+        synth.payload_fn[sub.subch_id] = lambda m, st=stream: st[m].tobytes()
+    rng = np.random.default_rng(3)
+    uep = rng.integers(0, 256, (n_logical, kbps * 3)).astype(np.uint8)
+    synth.payload_fn[sid] = lambda m: uep[m].tobytes()
+    bits = np.stack([synth.frame_bits(i) for i in range(n_frames)])
+    soft = (1.0 - 2.0 * bits + HOST_SIGMA * rng.standard_normal(bits.shape)).astype(np.float32)
+    return soft, aus, uep
+
+
+def decode_host(dev, soft):
+    """Phase 7's run: Receiver(1, dev) over soft in batches of HOST_BATCH,
+    then finalize. Returns (receiver, {subch id: [outputs]}, wall seconds
+    of each batch (finalize in the last), total wall seconds)."""
+    rx = Receiver(1, dev)
+    acc, walls = {}, []
+    t_all = time.perf_counter()
+    for lo in range(0, soft.shape[0], HOST_BATCH):
+        t0 = time.perf_counter()
+        outs = rx.process_frame_bits(soft[lo: lo + HOST_BATCH])   # bytes come back: synced
+        if lo + HOST_BATCH >= soft.shape[0]:
+            outs = [outs, rx.finalize()]
+        else:
+            outs = [outs]
+        walls.append(time.perf_counter() - t0)
+        for o in outs:
+            for sid, out in o.items():
+                acc.setdefault(sid, []).append(out)
+    return rx, acc, walls, time.perf_counter() - t_all
+
+
+def host_result(rx, acc):
+    """What phase 7 holds equal between devices: stats, database labels,
+    calibration, and per subchannel the raw frames, AUs and flags."""
+    res = {"stats": dict(rx.stats), "ensemble": rx.db.ensemble.label,
+           "services": sorted((k, v.label) for k, v in rx.db.services.items()),
+           "subchannels": sorted(rx.db.subchannels),
+           "calibration": {k: (c.chosen, c.locked, c.swapped, c.best_score,
+                               c.runner_up_score) for k, c in rx.uep_calibrations.items()}}
+    for sid, outs in acc.items():
+        raw = [o.raw_frames for o in outs if o.raw_frames is not None and len(o.raw_frames)]
+        sfs = [sf for o in outs for sf in o.superframes]
+        res[sid] = (np.concatenate(raw).tobytes() if raw else b"",
+                    [(sf.firecode_ok, sf.rs_ok, tuple(sf.au_crc_ok),
+                      tuple(bytes(a) for a in sf.access_units)) for sf in sfs])
+    return res
+
+
+def check_host(res, aus, uep, n_frames: int) -> None:
+    """Phase 7's gate on the card's result."""
+    sid_uep = HOST_UEP[0]
+    stats = res["stats"]
+    if stats["fibs"] != 12 * n_frames or stats["fib_crc_errors"] != 0:
+        raise AssertionError(f"host path FIC: {stats}")
+    if res["ensemble"] != "Host Ensemble" or len(res["services"]) != 7 \
+            or len(res["subchannels"]) != 7:
+        raise AssertionError(f"host path database: {res['ensemble']!r} "
+                             f"{res['services']} {res['subchannels']}")
+    cal = res["calibration"].get(sid_uep)
+    if cal is None or not cal[1] or cal[2]:
+        raise AssertionError(f"UEP calibration did not lock the shipped table: {cal}")
+    complete = 4 * n_frames - 15            # logical frames with all 16 CIFs
+    for sid, want in aus.items():
+        sfs = res[sid][1]
+        if len(sfs) != complete // 5:
+            raise AssertionError(f"subch {sid}: {len(sfs)} superframes, want {complete // 5}")
+        if not all(f and r and all(a) for f, r, a, _ in sfs):
+            raise AssertionError(f"subch {sid}: a Fire code, RS or AU CRC failed")
+        got = [a for *_, sf_aus in sfs for a in sf_aus]
+        if got != want[: len(got)]:
+            raise AssertionError(f"subch {sid}: AUs differ from the payload")
+    raw = np.frombuffer(res[sid_uep][0], np.uint8).reshape(-1, uep.shape[1])
+    if raw.shape[0] != complete or not np.array_equal(raw, uep[:complete]):
+        raise AssertionError(f"UEP subchannel: {raw.shape[0]} frames, payload mismatch")
+
+
+def run_host_path(dev, card):
+    """Phase 7."""
+    t0 = time.perf_counter()
+    soft, aus, uep = host_capture(HOST_FRAMES)
+    print(f"host path synth: {HOST_FRAMES} frames in {time.perf_counter() - t0:.1f} s")
+    torch.cuda.synchronize()
+    for name in HOST_KERNELS:
+        KERNELS[name][2].launches = 0
+    rx, acc, walls, wall = decode_host(dev, soft)
+    launches = {name: KERNELS[name][2].launches for name in HOST_KERNELS}
+    print(f"host path: {HOST_FRAMES} frames in batches of {HOST_BATCH}; launches {launches}")
+    for name, n in launches.items():
+        if n == 0:
+            raise AssertionError(f"kernel {name} was not launched by the host path")
+    res = host_result(rx, acc)
+    check_host(res, aus, uep, HOST_FRAMES)
+    for sid, cal in sorted(rx.uep_calibrations.items()):
+        print(f"host path: subch {sid}: {cal.summary()}")
+    print("host path: FIB CRC 1.0; database 7 services / 7 subchannels; UEP shipped "
+          "table locked; every AU byte-equal with Fire code, RS, AU CRC ok; UEP "
+          "payload byte-equal")
+    signal_s = HOST_FRAMES * get_ofdm_params(1).nb_frame_length / SAMPLING_RATE
+    print(f"host path [{card}]: wall per {HOST_BATCH}-frame batch "
+          + ", ".join(f"{w:.3f}" for w in walls) + f" s (finalize in the last); "
+          f"total {wall:.3f} s for {signal_s:.3f} s of signal, real-time factor "
+          f"{signal_s / wall:.2f}")
+
+    busy, traced = host_device_busy(dev, soft)
+    print(f"host path device busy [{card}]: {busy:.3f} s of a traced rerun's "
+          f"{traced:.3f} s wall (busy share {busy / traced:.4f}; "
+          f"{busy / wall:.4f} of the untraced wall)")
+
+    t0 = time.perf_counter()
+    rx_cpu, acc_cpu, _, _ = decode_host("cpu", soft)
+    if host_result(rx_cpu, acc_cpu) != res:
+        raise AssertionError("the CPU Receiver's outputs differ from the CUDA Receiver's")
+    print(f"host path: the CPU Receiver (plain twins) gives identical outputs "
+          f"({time.perf_counter() - t0:.1f} s)")
+    return launches, signal_s / wall
+
+
+def host_device_busy(dev, soft):
+    """Device busy seconds of a traced rerun of the host path (device
+    activity only, summed over kernels and copies), and its wall seconds."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _, _, _, wall = decode_host(dev, soft)
+        torch.cuda.synchronize()
+    rows = [(k.key, k.self_device_time_total / 1e6, k.count) for k in prof.key_averages()
+            if k.device_type == DeviceType.CUDA and k.self_device_time_total > 0]
+    busy = sum(r[1] for r in rows)
+    for name, sec, n in sorted(rows, key=lambda r: -r[1])[:12]:
+        print(f"  {1e3 * sec:10.3f} ms  x{n:<6d} {name[:90]}")
+    return busy, wall
+
+
 def main() -> None:
     card = identify()
     dev = torch.device("cuda", 0)
@@ -301,6 +533,12 @@ def main() -> None:
     rng = np.random.default_rng(SEED)
     res = check_kernels(dev, rng, card)
     launches, step_ms = run_main_path(dev, card)
+    host_launches, _ = run_host_path(dev, card)
+    launches["viterbi_bits"] = host_launches["viterbi_bits"]   # K3 runs on the host path only
+    host_k4 = [(cu, *res[f"deinterleave_host_{cu}cu"][1:]) for cu in (108, 96)]
+    print(f"K4 deinterleave on the host path: {host_launches['deinterleave']} launches; "
+          + ", ".join(f"f32 ({4 * HOST_BATCH + 15}, {cu * 64}) kernel {ms:.3f} ms, "
+                      f"plain {plain:.3f} ms" for cu, ms, plain in host_k4) + f"  [{card}]")
     msc, fic = res["viterbi_msc"], res["viterbi_fic"]
     shares = {
         "viterbi_fwd_traceback": msc[1] + fic[1],
@@ -309,8 +547,8 @@ def main() -> None:
     }
     print(f"kernel shares of the step [{card}]: " + ", ".join(
         f"{k} {v:.2f} ms ({100 * v / step_ms:.1f}%)" for k, v in shares.items()))
-    measured = {"viterbi_fwd_traceback": msc, "deinterleave": res["deinterleave"],
-                "carve_rotate": res["carve_rotate"]}
+    measured = {"viterbi_fwd_traceback": msc, "viterbi_bits": res["viterbi_bits_msc"],
+                "deinterleave": res["deinterleave"], "carve_rotate": res["carve_rotate"]}
     kernels = []
     for name, (src, replaces, _) in KERNELS.items():
         err, ms, plain = measured[name]
@@ -319,6 +557,13 @@ def main() -> None:
                  "plain_ms": plain}
         if name == "viterbi_fwd_traceback":
             entry["also_replaces"] = "tpudab/ops/viterbi_pallas.py:124"
+        if name == "viterbi_bits":
+            entry["ms_by_shape"] = {k: res[f"viterbi_bits_{k}"][1:]
+                                    for k in ("fic", "msc", "calibration")}
+        if name == "deinterleave":
+            entry["host_path_launches"] = host_launches["deinterleave"]
+            entry["host_path_ms_by_shape"] = {k: res[f"deinterleave_host_{k}"][1:]
+                                              for k in ("108cu", "96cu")}
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

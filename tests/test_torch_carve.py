@@ -6,6 +6,7 @@ import pytest
 import jax.numpy as jnp
 import torch
 
+from test_torch_parsers import one_torch_thread  # noqa: F401  (autouse fixture)
 from tpudab.constants.ofdm_params import get_ofdm_params
 from tpudab.ops.carve import carve_rotate as jax_carve_rotate
 from tpudab_torch.ops.carve import carve_rotate, rotator_tables

@@ -17,8 +17,9 @@ from tpudab_torch.models.step import ReceiveStep, bench_subchannels
 from tpudab_torch.msc.interleave import deinterleave_cuda, deinterleave_ref
 from tpudab_torch.ops.carve import carve_rotate_cuda, carve_rotate_ref
 from tpudab_torch.ops.viterbi import radix_tables
-from tpudab_torch.ops.viterbi_cuda import (viterbi_decode_bytes_t_cuda,
-                                           viterbi_decode_bytes_t_ref)
+from tpudab_torch.ops.viterbi_cuda import (signs_on, viterbi_decode_bits_cuda,
+                                           viterbi_decode_bytes_t_cuda,
+                                           viterbi_decode_bytes_t_ref, viterbi_decode_ref)
 
 pytestmark = pytest.mark.cuda
 
@@ -90,3 +91,56 @@ def test_step_cuda_equals_cpu(dev):
     assert torch.equal(gpu["fic_bytes"].cpu(), cpu["fic_bytes"])
     for sid in cpu["subch"]:
         assert torch.equal(gpu["subch"][sid].cpu(), cpu["subch"][sid])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,n", [(1, 256), (5, 101), (3, 774 - 6), (70, 3456)],
+                         ids=["batch1", "n_odd_T_odd", "fic", "msc"])
+def test_viterbi_bits_kernel_equals_plain(dev, b, n, dtype):
+    """K1+K3: bits equal to the plain twin, for n not a multiple of 8, an
+    odd T (= n + 6), a batch of 1, and all-erasure codewords."""
+    rng = np.random.default_rng(b + n)
+    mother = torch.from_numpy(rng.standard_normal((b, n + 6, 4), dtype=np.float32))
+    mother[: b // 3] = 0.0   # all-erasure codewords: every compare-select ties
+    x = mother.to(dev, dtype)
+    got = viterbi_decode_bits_cuda(x, signs_on(x.device), n)
+    torch.cuda.synchronize()
+    want = viterbi_decode_ref(x, signs_on(x.device), n)
+    assert got.shape == (b, n) and torch.equal(got, want)
+    assert not got[: b // 3].any()
+
+
+def test_receiver_cuda_equals_cpu(dev):
+    """The host per-stage Receiver on the card decodes a 5-frame capture
+    (two DAB+ services and a UEP MP2-type one) to the same outputs as on
+    the CPU."""
+    from tpudab_torch.models.receiver import Receiver
+    from tpudab_torch.synth import (ASCTY_DAB, ASCTY_DAB_PLUS, EnsembleSpec,
+                                    EnsembleSynthesizer, ServiceSpec, SubchannelSpec)
+    from tpudab_torch.synth.payload import dabplus_stream
+
+    spec = EnsembleSpec(0xC0DA, "Cuda Rx",
+                        [ServiceSpec(0xC201, "A", [(0, ASCTY_DAB_PLUS, 1)]),
+                         ServiceSpec(0xC202, "B", [(0, ASCTY_DAB_PLUS, 2)]),
+                         ServiceSpec(0xC203, "C", [(0, ASCTY_DAB, 3)])],
+                        [SubchannelSpec(1, 0, 36, ("eep", 3, 0)),
+                         SubchannelSpec(2, 36, 72, ("eep", 3, 0)),
+                         SubchannelSpec(3, 108, 96, ("uep", 128, 3))])
+    synth = EnsembleSynthesizer(spec, seed=1)
+    for sid, kbps in ((1, 48), (2, 96)):
+        stream, _ = dabplus_stream(kbps, 40, seed=sid, with_pad=True)
+        synth.payload_fn[sid] = lambda m, st=stream: st[m].tobytes()
+    rng = np.random.default_rng(5)
+    bits = np.stack([synth.frame_bits(i) for i in range(5)])
+    soft = (1.0 - 2.0 * bits + 0.5 * rng.standard_normal(bits.shape)).astype(np.float32)
+    res = {}
+    for d in ("cpu", dev):
+        rx = Receiver(1, d)
+        outs = [rx.process_frame_bits(soft[:3]), rx.process_frame_bits(soft[3:]), rx.finalize()]
+        res[str(d)] = (rx.stats, {sid: [(o.raw_frames.tobytes(), [tuple(sf.access_units)
+                                                                  for sf in o.superframes])
+                                        for o in [out[sid] for out in outs if sid in out]]
+                                  for sid in (1, 2, 3)},
+                       {k: (c.chosen, c.locked) for k, c in rx.uep_calibrations.items()})
+    assert res["cpu"][0]["fib_crc_errors"] == 0
+    assert res[str(dev)] == res["cpu"]

@@ -1,6 +1,7 @@
 """tpudab_torch must run where jax and ml_dtypes are not installed (as on a
 GPU machine). A subprocess refuses both imports, imports every module of
-the port, synthesises a 5-frame capture and runs one CPU ReceiveStep."""
+the port, synthesises a 5-frame capture and runs one CPU ReceiveStep and
+the CPU Receiver (the host per-stage path) on it."""
 
 import os
 import subprocess
@@ -48,6 +49,14 @@ SCRIPT = textwrap.dedent("""
     _, out = step(step.init_carry("cpu"), re, im, 0.0)
     assert check_fib_crc(out["fic_bytes"].numpy().reshape(-1, 3, 32)).all()
     assert (out["subch"][1].numpy()[15:] == data[:5]).all()
+
+    from tpudab_torch.models.receiver import Receiver
+    bits = np.stack([synth.frame_bits(i) for i in range(5)])
+    rx = Receiver(1, "cpu")
+    outs = rx.process_frame_bits(1.0 - 2.0 * bits.astype(np.float32))
+    assert rx.stats["fibs"] == 60 and rx.stats["fib_crc_errors"] == 0
+    assert rx.db.ensemble.label == "Guard" and 1 in rx.subch_decoders
+    assert (outs[1].raw_frames == data[:5]).all()
     bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "ml_dtypes")]
     assert not bad, bad
     print("OK", len(mods))
@@ -55,7 +64,7 @@ SCRIPT = textwrap.dedent("""
 
 
 def test_port_runs_without_jax():
-    env = dict(os.environ, PYTHONPATH=ROOT)
+    env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1")   # see one_torch_thread
     proc = subprocess.run([sys.executable, "-c", SCRIPT], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr

@@ -17,6 +17,7 @@ import pytest
 import jax.numpy as jnp
 import torch
 
+from test_torch_parsers import one_torch_thread  # noqa: F401  (autouse fixture)
 from tpudab.constants.puncture import eep_profile
 from tpudab.models.step import ReceiveStep as JaxStep
 from tpudab.msc.subchannel import SubchannelConfig as JaxConfig

@@ -1,9 +1,9 @@
-"""Puncturing (synthesizer, numpy) and transposed depuncturing (torch).
+"""Puncturing (synthesizer, numpy) and depuncturing (torch and numpy).
 
-Counterpart of tpudab.fec.depuncture's puncture and depuncture_t. tpudab
-depunctures with a one-hot matmul per puncture run; every output position
-takes at most one input value, so here it is an index gather, exact in any
-dtype.
+Counterpart of tpudab.fec.depuncture's puncture, depuncture, depuncture_t
+and depuncture_np. tpudab depunctures with a one-hot matmul per puncture
+run; every output position takes at most one input value, so here it is
+an index gather, exact in any dtype.
 """
 
 from __future__ import annotations
@@ -42,6 +42,38 @@ def depuncture_index(profile: PunctureProfile) -> np.ndarray:
     idx[:n_mother] = n_punct
     idx[_keep_indices(profile)] = np.arange(n_punct)
     return idx
+
+
+@functools.lru_cache(maxsize=None)
+def _mother_index(profile: PunctureProfile) -> np.ndarray:
+    """Gather map over the mother positions (4 * (I + 6),), int64: index
+    k < n_punct takes punctured input k, n_punct is an erasure (0.0)."""
+    mask = profile.mask()
+    n_punct = int(mask.sum())
+    idx = np.full(mask.shape[0], n_punct, dtype=np.int64)
+    idx[_keep_indices(profile)] = np.arange(n_punct)
+    return idx
+
+
+@functools.lru_cache(maxsize=None)
+def _mother_index_on(profile: PunctureProfile, device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(_mother_index(profile)).to(device)
+
+
+def depuncture(soft_bits: torch.Tensor, profile: PunctureProfile) -> torch.Tensor:
+    """Punctured soft (..., n_punct) -> mother (..., 4 * (I + 6)) in the same
+    dtype and on the same device, 0.0 at the punctured positions."""
+    ext = torch.cat([soft_bits, soft_bits.new_zeros(soft_bits.shape[:-1] + (1,))], dim=-1)
+    return ext.index_select(-1, _mother_index_on(profile, soft_bits.device))
+
+
+def depuncture_np(soft_bits: np.ndarray, profile: PunctureProfile) -> np.ndarray:
+    """Numpy depuncture to f32, as tpudab.fec.depuncture.depuncture_np."""
+    idx = _keep_indices(profile)
+    n_mother = profile.mask().shape[0]
+    out = np.zeros(soft_bits.shape[:-1] + (n_mother,), dtype=np.float32)
+    out[..., idx] = soft_bits
+    return out
 
 
 def depuncture_t(soft_bits: torch.Tensor, index: torch.Tensor) -> torch.Tensor:

@@ -1,6 +1,7 @@
 """Energy-dispersal scrambler PRBS: x^9 + x^5 + 1, EN 300 401 sec 10.
 
-Counterpart of tpudab.fec.prbs (numpy). The register starts all ones for
+Counterpart of tpudab.fec.prbs (numpy), with the PRBS bytes as a tensor
+for descrambling on the device. The register starts all ones for
 every FIB group and every MSC logical frame; scrambling == descrambling.
 """
 
@@ -9,6 +10,7 @@ from __future__ import annotations
 import functools
 
 import numpy as np
+import torch
 
 
 @functools.lru_cache(maxsize=None)
@@ -34,3 +36,9 @@ def descramble_bits(bits: np.ndarray) -> np.ndarray:
     """XOR a 0/1 bit array (last axis = stream) with the PRBS."""
     bits = np.asarray(bits, dtype=np.uint8)
     return bits ^ prbs_bits(bits.shape[-1])
+
+
+@functools.lru_cache(maxsize=None)
+def prbs_bytes_on(n: int, device: torch.device) -> torch.Tensor:
+    """prbs_bytes(n) as a uint8 tensor on device, made once per device."""
+    return torch.from_numpy(prbs_bytes(n).copy()).to(device)

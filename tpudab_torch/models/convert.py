@@ -1,12 +1,18 @@
-"""Carry conversion between tpudab's ReceiveStep and the port's.
+"""State carried across from tpudab to the port, mid-stream.
 
-tpudab's carry is a dict of jax arrays; np.asarray turns it into numpy
-arrays of float32 or of ml_dtypes' bfloat16. Those bf16 arrays are read
-here through a 16-bit integer view, so nothing of ml_dtypes is imported.
+- The ReceiveStep carry: tpudab's is a dict of jax arrays; np.asarray
+  turns it into numpy arrays of float32 or of ml_dtypes' bfloat16. Those
+  bf16 arrays are read here through a 16-bit integer view, so nothing of
+  ml_dtypes is imported.
+- A host per-stage SubchannelDecoder: its deinterleave history, CIF count,
+  geometry and UEP calibration state.
+
+Only attributes are read, and nothing of jax is imported.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict
 
 import numpy as np
@@ -45,4 +51,27 @@ def carry_to_numpy(carry: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
             out[k] = t.numpy()
         else:
             raise TypeError(f"carry {k!r} has dtype {t.dtype}, not f32 or bf16")
+    return out
+
+
+def subchannel_state_from_jax(dec, device):
+    """A tpudab.msc.subchannel.SubchannelDecoder -> a port SubchannelDecoder
+    on device that continues the same stream: the same config (after any
+    calibration swap), the f32 history, the CIF count, the calibration
+    result and the frames a pending calibration holds."""
+    from tpudab_torch.fec.uep_calibrate import CalibrationResult
+    from tpudab_torch.msc.subchannel import SubchannelConfig, SubchannelDecoder
+
+    c = dec.config
+    cfg = SubchannelConfig(c.subch_id, c.start_cu, c.size_cu, c.profile,
+                           c.padding_bits, c.uep_key)
+    out = SubchannelDecoder(cfg, device)
+    out._history = torch.from_numpy(np.array(dec._history, dtype=np.float32)).to(out.device)
+    out._n_seen = int(dec._n_seen)
+    cal = dec.calibration
+    out.calibration = None if cal is None else CalibrationResult(
+        **{f.name: getattr(cal, f.name) for f in dataclasses.fields(cal)})
+    out._cal_pending = bool(dec._cal_pending)
+    out._cal_buf = [torch.from_numpy(np.array(b, dtype=np.float32)).to(out.device)
+                    for b in dec._cal_buf]
     return out

@@ -1,11 +1,13 @@
 """Build and load the port's CUDA kernels (csrc/*.cu) as one shared library.
 
 The library is compiled on first use with nvcc for sm_90a (plain C
-interface, no PyTorch headers, so a build takes seconds) and loaded with
-ctypes; pointers and the CUDA stream go in as c_void_p. The file name holds
-a hash of the sources and the flags, so a changed source builds anew. A
-failed build raises. Nothing here runs at import time: the CPU tests import
-every module on machines without nvcc.
+interface, no PyTorch headers, so a build takes seconds): one nvcc per
+source, all started together, then one link, so a source added to csrc/
+does not add its compile time to the others'. It is loaded with ctypes;
+pointers and the CUDA stream go in as c_void_p. The file name holds a hash
+of the sources and the flags, so a changed source builds anew. A failed
+build raises. Nothing here runs at import time: the CPU tests import every
+module on machines without nvcc.
 """
 
 from __future__ import annotations
@@ -24,13 +26,14 @@ PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 # C entry points: name -> argtypes. Each returns cudaGetLastError() as int.
 SIGNATURES = {
     "tpudab_viterbi_decode_bytes_t": (_P, _I, _P, _P, _P, _I, _I, _I, _P),
+    "tpudab_viterbi_decode_bits": (_P, _I, _P, _P, _P, _I, _I, _I, _I, _P),
     "tpudab_deinterleave": (_P, _P, _I, _I, _I, _I, _P),
     "tpudab_carve_rotate": (_P, _P, _I, _P, _P, _P, _P, _P, _P,
                             _I, _I, _I, _I, _I, _I, _P),
@@ -76,19 +79,24 @@ def load_library() -> ctypes.CDLL:
     BuildInfo.path = str(so)
     if not so.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-               *[str(p) for p in _sources()]]
-        t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        BuildInfo.seconds = time.perf_counter() - t0
-        BuildInfo.log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{' '.join(cmd)}\n{BuildInfo.log}")
-        os.replace(tmp, so)
+        srcs = _sources()
+        with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+            t0 = time.perf_counter()
+            objs = [f"{tmp}/{p.stem}.o" for p in srcs]
+            cmds = [[_nvcc(), *NVCC_FLAGS, "-c", "-o", o, str(p)] for o, p in zip(objs, srcs)]
+            procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                      text=True) for c in cmds]
+            runs = [(c, p.communicate()[0], p.returncode) for c, p in zip(cmds, procs)]
+            if all(rc == 0 for *_, rc in runs):
+                link = [_nvcc(), "-shared", "-o", f"{tmp}/lib.so", *objs]
+                proc = subprocess.run(link, capture_output=True, text=True)
+                runs.append((link, proc.stdout + proc.stderr, proc.returncode))
+            BuildInfo.seconds = time.perf_counter() - t0
+            BuildInfo.log = "".join(log for _, log, _ in runs)
+            for cmd, log, rc in runs:
+                if rc != 0:
+                    raise RuntimeError(f"nvcc failed ({rc}):\n{' '.join(cmd)}\n{log}")
+            os.replace(f"{tmp}/lib.so", so)
     lib = ctypes.CDLL(str(so))
     for name, argtypes in SIGNATURES.items():
         fn = getattr(lib, name)

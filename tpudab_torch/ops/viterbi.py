@@ -13,8 +13,13 @@ forward kernel on its transposed path (tpudab/ops/viterbi_pallas.py:60):
 - 4-way compare-select as pairwise strict `>` selects (ties keep the lower
   predecessor index), f32 path metrics starting at 0 for state 0 and -1e9
   elsewhere, rebased by pm[0] after every 16 super-steps;
-- traceback from state 0, emitting state & 3 per super-step, 4 super-steps
-  (8 decoded bits) per MSB-first output byte.
+- traceback from state 0, emitting state & 3 = (u_2t << 1) | u_2t+1 per
+  super-step; the bytes entry packs 4 super-steps (8 decoded bits) per
+  MSB-first output byte (K2), the bits entry unpacks them (K3).
+
+Two layouts go in: the transposed (T2p, 8, B) of the receive step, and
+the (B, T, 4) mother soft bits of the host per-stage path, flush-padded
+and transposed by mother_to_t. Both run the one forward pass below.
 
 Soft-bit convention: +1 => bit 0, -1 => bit 1, 0 => erasure.
 """
@@ -59,16 +64,14 @@ def pad_mother_soft(mother_soft: torch.Tensor, target_steps: int,
     return torch.cat([mother_soft, pad], dim=-2)
 
 
-def viterbi_decode_bytes_t_ref(soft_t: torch.Tensor, signs: torch.Tensor,
-                               n_data_bits: int) -> torch.Tensor:
-    """Decode transposed soft bits (T2p, 8, B), bf16 or f32, to MSB-first
-    packed bytes (B, n_data_bits // 8) uint8. signs is radix_tables()[0]
-    as an f32 tensor (8, 256) on soft_t's device."""
+def viterbi_forward_ref(soft_t: torch.Tensor, signs: torch.Tensor) -> torch.Tensor:
+    """Forward pass (the plain twin of kernel K1): transposed soft bits
+    (T2p, 8, B), bf16 or f32 -> decisions (T2p, 64, B) uint8, one 2-bit
+    predecessor index j per super-step and destination state. signs is
+    radix_tables()[0] as an f32 tensor (8, 256) on soft_t's device."""
     t2p, eight, b = soft_t.shape
-    if eight != 4 * RADIX or t2p % 4 or n_data_bits % 8 \
-            or n_data_bits > RADIX * t2p:
-        raise ValueError(f"bad Viterbi geometry {tuple(soft_t.shape)}, "
-                         f"n_data_bits={n_data_bits}")
+    if eight != 4 * RADIX:
+        raise ValueError(f"bad Viterbi soft layout {tuple(soft_t.shape)}")
     dev = soft_t.device
     x = soft_t.to(torch.float32)
     preds = torch.as_tensor(radix_tables()[1], dtype=torch.long, device=dev)
@@ -91,14 +94,57 @@ def viterbi_decode_bytes_t_ref(soft_t: torch.Tensor, signs: torch.Tensor,
         decs[t] = torch.where(dh, d23.to(torch.uint8) | 2, d01.to(torch.uint8))
         if (t + 1) % REBASE_STEPS == 0:
             pm = pm - pm[0:1]
+    return decs
 
-    state = torch.zeros((1, b), dtype=torch.long, device=dev)
-    pairs = torch.empty((t2p, b), dtype=torch.uint8, device=dev)
+
+def viterbi_traceback_ref(decs: torch.Tensor) -> torch.Tensor:
+    """Traceback from state 0 over (T2p, 64, B) decisions -> (T2p, B) uint8,
+    one value (u_2t << 1) | u_2t+1 per super-step t (kernel K3's output)."""
+    t2p, _, b = decs.shape
+    state = torch.zeros((1, b), dtype=torch.long, device=decs.device)
+    pairs = torch.empty((t2p, b), dtype=torch.uint8, device=decs.device)
     for t in range(t2p - 1, -1, -1):
         j = decs[t].gather(0, state).to(torch.long)
         pairs[t] = (state[0] & 3).to(torch.uint8)
         state = (state >> RADIX) | (j << (6 - RADIX))
+    return pairs
+
+
+def viterbi_decode_bytes_t_ref(soft_t: torch.Tensor, signs: torch.Tensor,
+                               n_data_bits: int) -> torch.Tensor:
+    """Plain twin of kernels K1 + K2: transposed soft bits (T2p, 8, B),
+    bf16 or f32 -> MSB-first packed bytes (B, n_data_bits // 8) uint8."""
+    t2p, _, b = soft_t.shape
+    if t2p % 4 or n_data_bits % 8 or n_data_bits > RADIX * t2p:
+        raise ValueError(f"bad Viterbi geometry {tuple(soft_t.shape)}, "
+                         f"n_data_bits={n_data_bits}")
+    pairs = viterbi_traceback_ref(viterbi_forward_ref(soft_t, signs))
     q = pairs.view(t2p // 4, 4, b).to(torch.int32)
     by = (q[:, 0] << 6) | (q[:, 1] << 4) | (q[:, 2] << 2) | q[:, 3]
     return by.to(torch.uint8).t()[:, : n_data_bits // 8].contiguous()
 
+
+def mother_to_t(mother_soft: torch.Tensor) -> torch.Tensor:
+    """(B, T, 4) mother soft bits -> the transposed layout (T2p, 8, B) in
+    the same dtype, T flush-padded with +1.0 to a multiple of 32 mother
+    steps (T2p % 16 == 0), as tpudab's Pallas path pads
+    (tpudab/ops/viterbi_pallas.py:201)."""
+    b, t, four = mother_soft.shape
+    if four != 4:
+        raise ValueError(f"mother soft bits {tuple(mother_soft.shape)} are not (B, T, 4)")
+    tp = -(-t // (RADIX * REBASE_STEPS)) * RADIX * REBASE_STEPS
+    x = pad_mother_soft(mother_soft, tp) if tp != t else mother_soft
+    return x.reshape(b, tp // RADIX, 4 * RADIX).permute(1, 2, 0).contiguous()
+
+
+def viterbi_decode_ref(mother_soft: torch.Tensor, signs: torch.Tensor,
+                       n_data_bits: int) -> torch.Tensor:
+    """Plain twin of kernels K1 + K3: mother soft bits (B, T, 4), bf16 or
+    f32 -> decoded bits (B, n_data_bits) uint8, the traceback's pairs
+    unpacked as tpudab/ops/viterbi_pallas.py:308-311 does."""
+    b, t, _ = mother_soft.shape
+    if n_data_bits > t:
+        raise ValueError(f"n_data_bits={n_data_bits} exceeds T={t}")
+    pairs = viterbi_traceback_ref(viterbi_forward_ref(mother_to_t(mother_soft), signs))
+    bits = torch.stack([(pairs >> 1) & 1, pairs & 1], dim=-1)     # (T2p, B, 2)
+    return bits.permute(1, 0, 2).reshape(b, -1)[:, :n_data_bits].contiguous()

@@ -1,24 +1,51 @@
-"""Viterbi decode of transposed soft bits to packed bytes, kernels K1 + K2.
+"""Viterbi decode entries, kernels K1 + K2 and K1 + K3.
 
-Counterpart of tpudab.ops.viterbi_pallas.viterbi_decode_bytes_best_t and
-viterbi_decode_pallas_bytes_t. A CPU tensor takes the plain torch decoder
-viterbi_decode_bytes_t_ref (tpudab_torch/ops/viterbi.py); a CUDA tensor
-takes the fused forward + traceback kernel in csrc/viterbi.cu, which
-matches the plain decoder bit for bit.
+Counterparts of tpudab.ops.viterbi_pallas:
+- viterbi_decode_bytes_t: transposed soft bits (T2p, 8, B) -> packed bytes
+  (viterbi_decode_bytes_best_t / viterbi_decode_pallas_bytes_t), the
+  receive step's entry;
+- viterbi_decode_best: mother soft bits (B, T, 4) -> bits (B, n)
+  (viterbi_decode_best / viterbi_decode_pallas), the host per-stage path's
+  entry;
+- viterbi_decode_bytes_best: mother soft bits (B, T, 4) -> packed bytes
+  (viterbi_decode_bytes_best / viterbi_decode_pallas_bytes).
+
+Each dispatches on the soft bits' device: a CPU tensor takes the plain
+torch decoder (tpudab_torch/ops/viterbi.py), a CUDA tensor the fused
+forward + traceback kernels in csrc/viterbi.cu, which match the plain
+decoder bit for bit. There is no fallback from one to the other.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from tpudab_torch.ops import _build
-from tpudab_torch.ops.viterbi import (N_STATES, RADIX, REBASE_STEPS,
-                                      viterbi_decode_bytes_t_ref)
+from tpudab_torch.ops.viterbi import (N_STATES, RADIX, REBASE_STEPS, mother_to_t,
+                                      radix_tables, viterbi_decode_bytes_t_ref,
+                                      viterbi_decode_ref)
 
 __all__ = ["viterbi_decode_bytes_t", "viterbi_decode_bytes_t_cuda",
-           "viterbi_decode_bytes_t_ref"]
+           "viterbi_decode_bytes_t_ref", "viterbi_decode_best",
+           "viterbi_decode_bytes_best", "viterbi_decode_bits_cuda",
+           "viterbi_decode_ref", "signs_on"]
+
+
+@functools.lru_cache(maxsize=None)
+def signs_on(device: torch.device) -> torch.Tensor:
+    """The radix-2 sign table (8, 256) f32 on device, made once per device."""
+    return torch.tensor(radix_tables()[0], device=device)
+
+
+def _check_signs(signs: torch.Tensor, device: torch.device) -> None:
+    if signs.device != device or signs.dtype != torch.float32 \
+            or signs.shape != (4 * RADIX, N_STATES << RADIX) \
+            or not signs.is_contiguous():
+        raise ValueError("signs must be the contiguous (8, 256) f32 radix-2 "
+                         "sign table on the soft bits' device")
 
 
 def viterbi_decode_bytes_t_cuda(soft_t: torch.Tensor, signs: torch.Tensor,
@@ -35,11 +62,7 @@ def viterbi_decode_bytes_t_cuda(soft_t: torch.Tensor, signs: torch.Tensor,
                          f"bf16/f32 (T2p % {REBASE_STEPS} == 0, 8, B), got "
                          f"{soft_t.device} {soft_t.dtype} "
                          f"{tuple(soft_t.shape)}, n_data_bits={n_data_bits}")
-    if signs.device != soft_t.device or signs.dtype != torch.float32 \
-            or signs.shape != (4 * RADIX, N_STATES << RADIX) \
-            or not signs.is_contiguous():
-        raise ValueError("signs must be the contiguous (8, 256) f32 radix-2 "
-                         "sign table on the soft bits' device")
+    _check_signs(signs, soft_t.device)
     dec = torch.empty((b, t2p // 4, N_STATES), dtype=torch.uint8,
                       device=soft_t.device)
     out = torch.empty((b, n_data_bits // 8), dtype=torch.uint8,
@@ -67,3 +90,62 @@ def viterbi_decode_bytes_t(soft_t: torch.Tensor, signs: torch.Tensor,
     if soft_t.device.type == "cpu":
         return viterbi_decode_bytes_t_ref(soft_t, signs, n_data_bits)
     return viterbi_decode_bytes_t_cuda(soft_t, signs, n_data_bits)
+
+
+def viterbi_decode_bits_cuda(mother_soft: torch.Tensor, signs: torch.Tensor,
+                             n_data_bits: int) -> torch.Tensor:
+    """Kernels K1 + K3 on a CUDA tensor: mother soft bits (B, T, 4) bf16 or
+    f32, contiguous; signs (8, 256) f32 -> bits (B, n_data_bits) uint8.
+    The kernel reads +1.0 (the flush) past T up to T2p = 16 * ceil(T / 32)
+    super-steps, so nothing is padded or transposed here."""
+    if not mother_soft.is_cuda or mother_soft.dtype not in (torch.bfloat16, torch.float32) \
+            or not mother_soft.is_contiguous() or mother_soft.dim() != 3 \
+            or mother_soft.shape[-1] != 4 or n_data_bits > mother_soft.shape[1]:
+        raise ValueError(f"viterbi_decode_bits_cuda takes contiguous CUDA bf16/f32 "
+                         f"(B, T >= n_data_bits, 4), got {mother_soft.device} "
+                         f"{mother_soft.dtype} {tuple(mother_soft.shape)}, "
+                         f"n_data_bits={n_data_bits}")
+    _check_signs(signs, mother_soft.device)
+    b, t, _ = mother_soft.shape
+    t2p = -(-t // (RADIX * REBASE_STEPS)) * REBASE_STEPS
+    out = torch.empty((b, n_data_bits), dtype=torch.uint8, device=mother_soft.device)
+    dec = torch.empty((b, t2p // 4, N_STATES), dtype=torch.uint8,
+                      device=mother_soft.device)
+    lib = _build.load_library()
+    with torch.cuda.device(mother_soft.device):
+        err = lib.tpudab_viterbi_decode_bits(
+            ctypes.c_void_p(mother_soft.data_ptr()),
+            int(mother_soft.dtype == torch.bfloat16),
+            ctypes.c_void_p(signs.data_ptr()), ctypes.c_void_p(dec.data_ptr()),
+            ctypes.c_void_p(out.data_ptr()), t, t2p, b, n_data_bits,
+            ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+    _build.check(err, "viterbi bits")
+    viterbi_decode_bits_cuda.launches += 1
+    return out
+
+
+viterbi_decode_bits_cuda.launches = 0
+
+
+def _as_soft(mother_soft) -> torch.Tensor:
+    x = torch.as_tensor(mother_soft)
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        x = x.to(torch.float32)
+    return x
+
+
+def viterbi_decode_best(mother_soft, n_data_bits: int) -> torch.Tensor:
+    """(B, T, 4) mother soft bits (a tensor, or numpy for the CPU) ->
+    (B, n_data_bits) uint8 bits on the same device; dispatches on it."""
+    x = _as_soft(mother_soft)
+    if x.device.type == "cpu":
+        return viterbi_decode_ref(x, signs_on(x.device), n_data_bits)
+    return viterbi_decode_bits_cuda(x.contiguous(), signs_on(x.device), n_data_bits)
+
+
+def viterbi_decode_bytes_best(mother_soft, n_data_bits: int) -> torch.Tensor:
+    """(B, T, 4) mother soft bits -> MSB-first packed bytes
+    (B, n_data_bits // 8) uint8 on the same device: the flush-padded,
+    transposed copy goes through viterbi_decode_bytes_t (K1 + K2 on CUDA)."""
+    x = _as_soft(mother_soft)
+    return viterbi_decode_bytes_t(mother_to_t(x), signs_on(x.device), n_data_bits)

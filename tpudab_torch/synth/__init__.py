@@ -3,5 +3,5 @@
 from tpudab_torch.synth.modulator import modulate_frame_bits
 from tpudab_torch.synth.ensemble import (
     EnsembleSpec, ServiceSpec, SubchannelSpec, EnsembleSynthesizer,
-    ASCTY_DAB_PLUS,
+    ASCTY_DAB, ASCTY_DAB_PLUS,
 )

@@ -27,6 +27,7 @@ from tpudab_torch.fec.prbs import descramble_bits
 from tpudab_torch.synth.modulator import modulate_frame_bits
 from tpudab_torch.utils.bits import unpack_bits
 
+ASCTY_DAB = 0        # MPEG-1/2 layer II audio
 ASCTY_DAB_PLUS = 63  # AAC superframes
 
 
@@ -112,18 +113,29 @@ class _FIGWriter:
             self.add(fig_type, bytes(body))
 
     def pack_fibs(self, n_fibs: int) -> np.ndarray:
-        """Greedy first-fit packing into n_fibs FIBs of 30 data bytes."""
+        """Pack into n_fibs FIBs of 30 data bytes: greedy in FIG order (as
+        tpudab's synthesizer, so the bits are the same), or, where that
+        overflows (more services than tpudab's synthesizer fits in a
+        frame), first-fit decreasing: each FIG, largest first, into the
+        first FIB with room for it."""
+        bodies = [b""]
+        for fig in self.figs:
+            if len(bodies[-1]) + len(fig) > 30:
+                bodies.append(b"")
+            bodies[-1] += fig
+        if len(bodies) > n_fibs:
+            bodies = [b""] * n_fibs
+            for fig in sorted(self.figs, key=len, reverse=True):
+                k = next((i for i, b in enumerate(bodies) if len(b) + len(fig) <= 30), None)
+                assert k is not None, f"the FIGs do not fit in {n_fibs} FIBs"
+                bodies[k] += fig
+        bodies += [b""] * (n_fibs - len(bodies))
         fibs = []
-        queue = list(self.figs)
-        for _ in range(n_fibs):
-            body = b""
-            while queue and len(body) + len(queue[0]) <= 30:
-                body += queue.pop(0)
+        for body in bodies:
             if len(body) < 30:
                 body += b"\xff"  # end marker
             body += b"\x00" * (30 - len(body))
             fibs.append(crc16_append(np.frombuffer(body, dtype=np.uint8)))
-        assert not queue, f"{len(queue)} FIGs did not fit in {n_fibs} FIBs"
         return np.stack(fibs)
 
 
@@ -139,6 +151,7 @@ class EnsembleSynthesizer:
         self.rng = np.random.default_rng(seed)
         self.payload_fn = {}   # subch_id -> fn(logical_frame_idx) -> bytes
         self._payload_cache = {}
+        self._coded_cache = {}   # (subch_id, logical_idx) -> slice bits
         used = np.zeros(CIF_CU, dtype=bool)
         for sub in spec.subchannels:
             seg = used[sub.start_cu: sub.start_cu + sub.size_cu]
@@ -219,7 +232,14 @@ class EnsembleSynthesizer:
         return self._payload_cache[key]
 
     def _coded_logical_frame(self, sub: SubchannelSpec, logical_idx: int) -> np.ndarray:
-        """Scramble + encode + puncture one logical frame -> slice bits."""
+        """Scramble + encode + puncture one logical frame -> slice bits,
+        made once: each logical frame is spread over 16 CIFs."""
+        key = (sub.subch_id, logical_idx)
+        if key not in self._coded_cache:
+            self._coded_cache[key] = self._code_logical_frame(sub, logical_idx)
+        return self._coded_cache[key]
+
+    def _code_logical_frame(self, sub: SubchannelSpec, logical_idx: int) -> np.ndarray:
         data = np.frombuffer(self.payload_for(sub, logical_idx), dtype=np.uint8)
         punctured = puncture(conv_encode(descramble_bits(unpack_bits(data))),
                              sub.profile())
