@@ -33,7 +33,24 @@ Phases, each of which raises on failure (nothing is caught):
    with Fire code, RS and AU CRC ok; the UEP subchannel's frames equal its
    payload; K3 and K4 were launched; the CPU Receiver (plain twins) gives
    identical outputs. Prints wall seconds per batch, the real-time factor
-   and the device busy time over a traced rerun's wall window.
+   and the device busy time over a traced rerun's wall window;
+8. the kernel-experiment tools (tpudab_torch/tools/, the port of tpudab's
+   tools/exp_*.py, X1-X7) at their own shapes (B = 6144 codewords of 3456
+   bits, chunk 32; X6 at 6144 x 6912 punctured bf16; X7 at 256 frames):
+   every forward variant and traceback mode equal to its plain twin on the
+   first 128 codewords; full, prefetch, dbuf and gmm4 (X1's wide) equal to
+   full on the whole batch; int16 (X3) equal to f32 full from the second
+   group on; fwd_t + shuffle traceback (X6) equal to the fused K1+K2; the
+   three traceback modes (X5) equal; every int16 probe op (X4) equal to
+   torch; the carve ablations (X7) within 1 bf16 ulp of their twins where
+   they rotate, exact where not, and full within 1 bf16 ulp of K5. Prints
+   each kernel's ms, plain ms and bound; then runs each tool's main as
+   `python -m tpudab_torch.tools.<name>` would (the Viterbi decomposition
+   among them), with the launch counts set to 0 before and read after.
+Every line with a device time carries the card's name and power limit. A
+bound is the least time the card could take for the work: the larger of
+its bytes over the HBM rate and its operations over the ALU rate (see
+HBM_BYTES_PER_S).
 The line before the last is a JSON object of the kernels; the last is
 {"ok": true, "device": {...}}. Exits non-zero without it on any failure.
 """
@@ -41,31 +58,39 @@ The line before the last is a JSON object of the kernels; the last is
 from __future__ import annotations
 
 import json
-import subprocess
 import time
 
 import numpy as np
 import torch
 
-from tpudab.constants.ofdm_params import SAMPLING_RATE, get_ofdm_params
-from tpudab.constants.puncture import FIC_PROFILE, eep_profile, get_uep_profile
+from tpudab_torch.constants.ofdm_params import SAMPLING_RATE, get_ofdm_params
+from tpudab_torch.constants.puncture import FIC_PROFILE, eep_profile, get_uep_profile
 from tpudab_torch.fec.conv import conv_encode
 from tpudab_torch.fec.crc import check_fib_crc
 from tpudab_torch.fec.depuncture import (depuncture_index, depuncture_np, depuncture_t,
                                          puncture)
 from tpudab_torch.models.receiver import Receiver
 from tpudab_torch.models.step import ReceiveStep, bench_capture, bench_subchannels
-from tpudab_torch.msc.interleave import deinterleave_cuda, deinterleave_ref
+from tpudab_torch.msc.interleave import deinterleave_cuda, deinterleave_ref, interleave_delays
 from tpudab_torch.ofdm.demod import demod_frames_split
 from tpudab_torch.ops import _build
 from tpudab_torch.ops.carve import carve_rotate_cuda, carve_rotate_ref
-from tpudab_torch.ops.viterbi import radix_tables
-from tpudab_torch.ops.viterbi_cuda import (viterbi_decode_bits_cuda,
+from tpudab_torch.ops.carve_exp import carve_variant_cuda, carve_variant_ref
+from tpudab_torch.ops.i16_probe import OPS as I16_OPS
+from tpudab_torch.ops.i16_probe import i16_probe_cuda, i16_probe_ref
+from tpudab_torch.ops.viterbi import mother_to_t, radix_tables
+from tpudab_torch.ops.viterbi_cuda import (signs_on, viterbi_decode_bits_cuda,
                                            viterbi_decode_bytes_t_cuda,
                                            viterbi_decode_bytes_t_ref, viterbi_decode_ref)
+from tpudab_torch.ops.viterbi_exp import (fwd_variant_cuda, fwd_variant_ref, traceback_bytes_cuda,
+                                          traceback_bytes_ref)
 from tpudab_torch.synth import (ASCTY_DAB, ASCTY_DAB_PLUS, EnsembleSpec,
                                 EnsembleSynthesizer, ServiceSpec, SubchannelSpec)
 from tpudab_torch.synth.payload import dabplus_stream
+from tpudab_torch.tools import (exp_carve, exp_depunct_t, exp_i16_probe, exp_tb_tree,
+                                exp_viterbi, exp_viterbi_decompose, exp_viterbi_i16)
+from tpudab_torch.tools._common import card as card_name
+from tpudab_torch.tools._common import timer
 
 N_ENS, N_FRAMES, N_STEPS = 32, 16, 3
 SEED = 0
@@ -79,24 +104,76 @@ KERNELS = {  # name -> (source, replaced TPU kernel, wrapper)
                      "tpudab/msc/interleave.py:97", deinterleave_cuda),
     "carve_rotate": ("tpudab_torch/csrc/carve.cu", "tpudab/ops/carve.py:96",
                      carve_rotate_cuda),
+    "viterbi_fwd_variant": ("tpudab_torch/csrc/viterbi_exp.cu",
+                            "tools/exp_viterbi_decompose.py:42", fwd_variant_cuda),
+    "viterbi_traceback": ("tpudab_torch/csrc/viterbi_exp.cu", "tools/exp_tb_tree.py:42",
+                          traceback_bytes_cuda),
+    "i16_probe": ("tpudab_torch/csrc/i16_probe.cu", "tools/exp_i16_probe.py:7", i16_probe_cuda),
+    "carve_variant": ("tpudab_torch/csrc/carve_exp.cu", "tools/exp_carve.py:33",
+                      carve_variant_cuda),
+}
+ALSO_REPLACES = {   # the other TPU kernels each wrapper's kernel stands for
+    "viterbi_fwd_traceback": ["tpudab/ops/viterbi_pallas.py:124"],
+    "viterbi_fwd_variant": ["tools/exp_viterbi_decompose.py:103",
+                            "tools/exp_viterbi_decompose.py:154",
+                            "tools/exp_viterbi_decompose.py:202", "tools/exp_viterbi.py:35",
+                            "tools/exp_viterbi_i16.py:45", "tools/exp_depunct_t.py:42"],
+    "viterbi_traceback": ["tools/exp_tb_tree.py:14", "tools/exp_viterbi_decompose.py:406",
+                          "tools/exp_depunct_t.py:68"],
 }
 STEP_KERNELS = ("viterbi_fwd_traceback", "deinterleave", "carve_rotate")
 HOST_KERNELS = ("viterbi_bits", "deinterleave")
+TOOL_KERNELS = ("viterbi_fwd_variant", "viterbi_traceback", "i16_probe", "carve_variant")
+TOOLS = (exp_viterbi_decompose, exp_viterbi, exp_viterbi_i16, exp_tb_tree, exp_depunct_t,
+         exp_i16_probe, exp_carve)
 HOST_FRAMES, HOST_BATCH, HOST_SIGMA = 64, 16, 0.5
 HOST_UEP = (7, 648, 96, 128, 3)   # subch id, start CU, size CU, kbps, protection level
 
+# Bounds: the least time the card could take for a kernel's work, the
+# larger of its bytes (each input read once, each output written once) over
+# the HBM rate and its operations over the ALU rate (H100 SXM, NVIDIA's
+# data sheet: 3.35 TB/s; 67 TFLOP/s of f32 counts an FMA as 2, so 33.5e12
+# simple f32 ops/s, used for the integer ops too).
+HBM_BYTES_PER_S, ALU_OPS_PER_S = 3.35e12, 33.5e12
+# Simple ops per radix-2 super-step and codeword (64 states, 256
+# super-transitions). Branch metrics: 8 distinct 4-bit step metrics per
+# trellis step (the other 8 are their negations), 3 adds each, for both
+# steps, then one add per super-transition. ACS: per state 4 adds, 3
+# compares, 3 selects. Decisions: per state the 2-bit index and its packing
+# (4 ops). noacs: the branch metrics of j = 0, 1 only and, per state, a
+# compare and its packing. Traceback: per super-step select, extract, pack,
+# shift (4 ops).
+BM_OPS, ACS_OPS, DEC_OPS, TB_OPS = 2 * 8 * 3 + 256, 64 * 10, 64 * 4, 4
+FWD_OPS = {"full": BM_OPS + ACS_OPS + DEC_OPS, "nodec": BM_OPS + ACS_OPS,
+           "noacs": 2 * 8 * 3 + 128 + 64 * 3}
+FWD_OPS.update(prefetch=FWD_OPS["full"], dbuf=FWD_OPS["full"], gmm4=FWD_OPS["full"],
+               bmonly=FWD_OPS["noacs"])
+# The serial bound of one codeword: per super-step the dependent chain
+# add -> compare -> select -> compare -> select, 4 cycles each at the
+# H100 SXM's 1.98 GHz boost clock.
+SERIAL_STEP_S = 5 * 4 / 1.98e9
+CARVE_OPS = 12    # per output sample: rotator by angle addition (6), rotation (6)
 
-def cuda_ms(fn, reps: int) -> float:
-    """Mean device ms of fn() over reps calls, after one warm-up call."""
-    fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+EXP_B, EXP_BITS, EXP_CHUNK, TWIN_B = 6144, 3456, 32, 128   # the Viterbi tools' shapes
+EXP_FRAMES = 256                                            # exp_carve's frames
+
+
+cuda_ms = timer(torch.device("cuda", 0))   # cuda_ms(fn, reps): mean device ms after a warm-up
+
+
+def bound(n_bytes: float, n_ops: float):
+    """(least ms, "bytes" or "operations"): see HBM_BYTES_PER_S."""
+    tb, to = n_bytes / HBM_BYTES_PER_S, n_ops / ALU_OPS_PER_S
+    return max(tb, to) * 1e3, ("bytes" if tb >= to else "operations")
+
+
+def carve_bound(frames: torch.Tensor, out: torch.Tensor, rotate: bool = True):
+    """Bound of a carve kernel: re and im frames in, the f32 rotator tables
+    (F x (n_sym + n_fft) x 2) when it rotates, re and im bf16 windows out."""
+    p = get_ofdm_params(1)
+    tables = frames.shape[0] * (p.nb_symbols + p.nb_fft) * 2 * 4 if rotate else 0
+    return bound(2 * frames.numel() * frames.element_size() + tables + 2 * out.numel() * 2,
+                 out.numel() * CARVE_OPS if rotate else 0)
 
 
 def bf16_ulp_err(xr, xi, rr, ri) -> float:
@@ -115,9 +192,7 @@ def identify() -> str:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
                          "this run needs an NVIDIA GPU")
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        check=True, capture_output=True, text=True).stdout.strip().splitlines()[0]
+    card = card_name(torch.device("cuda", 0))
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
     print(f"card: {card}")
@@ -134,8 +209,8 @@ def build() -> None:
     _build.load_library()
     print(f"build: {time.perf_counter() - t0:.2f} s (nvcc {_build.BuildInfo.seconds:.2f} s)"
           f" -> {_build.BuildInfo.path}")
-    for line in _build.BuildInfo.log.splitlines():
-        if "registers" in line or "spill" in line:
+    for line in _build.BuildInfo.log.splitlines():   # each kernel's name, then its resources
+        if "Compiling entry function" in line or "registers" in line or "spill" in line:
             print(f"  ptxas: {line.strip()}")
 
 
@@ -159,10 +234,14 @@ def check_kernels(dev, rng, card: str):
                                  f"bytes differ from the plain decoder")
         ms = cuda_ms(lambda: viterbi_decode_bytes_t_cuda(soft_t, signs, n), 10)
         plain = cuda_ms(lambda: viterbi_decode_bytes_t_ref(soft_t, signs, n), 1)
-        print(f"K1+K2 viterbi {label} B={b} T2p={soft_t.shape[0]}: bytes equal; "
+        t2p = soft_t.shape[0]
+        bnd = bound(soft_t.numel() * soft_t.element_size() + got.numel(),
+                    b * t2p * (FWD_OPS["full"] + TB_OPS))
+        print(f"K1+K2 viterbi {label} B={b} T2p={t2p}: bytes equal; "
               f"kernel {ms:.3f} ms ({b * n / ms / 1e3:.1f} Mbit/s decoded), "
-              f"plain {plain:.3f} ms  [{card}]")
+              f"plain {plain:.3f} ms, bound {bnd[0]:.3f} ms ({bnd[1]})  [{card}]")
         res[f"viterbi_{label}"] = (err, ms, plain)
+        res[f"bound_viterbi_{label}"] = bnd
 
     for label, profile, b in (("fic", FIC_PROFILE, 64),
                               ("msc", eep_profile(108, 3, 0), 64),
@@ -182,10 +261,14 @@ def check_kernels(dev, rng, card: str):
             raise AssertionError(f"viterbi bits {label}: {(got != want).sum().item()} "
                                  f"bits differ from the plain decoder")
         ms = cuda_ms(lambda: viterbi_decode_bits_cuda(x, signs, n), 10)
+        t2p = -(-x.shape[1] // 32) * 16
+        bnd = bound(x.numel() * 4 + got.numel(), b * t2p * (FWD_OPS["full"] + TB_OPS))
+        serial = t2p * SERIAL_STEP_S * 1e3
         print(f"K1+K3 viterbi bits {label} {tuple(x.shape)} f32: bits equal; kernel "
-              f"{ms:.3f} ms ({b * n / ms / 1e3:.1f} Mbit/s decoded), plain {plain:.3f} ms"
-              f"  [{card}]")
+              f"{ms:.3f} ms ({b * n / ms / 1e3:.1f} Mbit/s decoded), plain {plain:.3f} ms, "
+              f"bound {bnd[0]:.4f} ms ({bnd[1]}), serial bound {serial:.4f} ms  [{card}]")
         res[f"viterbi_bits_{label}"] = (0.0, ms, plain)
+        res[f"bound_viterbi_bits_{label}"] = (*bnd, serial)
 
     c, s = 4 * N_FRAMES, 108 * 64
     buf = torch.from_numpy(rng.standard_normal((N_ENS, c + 15, s), dtype=np.float32))
@@ -196,9 +279,19 @@ def check_kernels(dev, rng, card: str):
         raise AssertionError("deinterleave kernel differs from the plain gather")
     ms = cuda_ms(lambda: deinterleave_cuda(buf, c), 20)
     plain = cuda_ms(lambda: deinterleave_ref(buf, c), 20)
+    # the library yardstick: one torch.gather with a precomputed index
+    idx = (torch.arange(c, device=dev)[:, None] + torch.as_tensor(
+        interleave_delays(s), dtype=torch.long, device=dev)[None, :]).expand(N_ENS, -1, -1)
+    if not torch.equal(torch.gather(buf, 1, idx), want):
+        raise AssertionError("torch.gather differs from the plain deinterleave")
+    library = cuda_ms(lambda: torch.gather(buf, 1, idx), 20)
+    bnd = bound(2 * (buf.numel() + want.numel()), 0)
     print(f"K4 deinterleave {tuple(buf.shape)} bf16: exact; kernel {ms:.3f} ms, "
-          f"plain {plain:.3f} ms  [{card}]")
+          f"plain {plain:.3f} ms, torch.gather {library:.3f} ms, bound {bnd[0]:.4f} ms "
+          f"({bnd[1]})  [{card}]")
     res["deinterleave"] = (0.0, ms, plain)
+    res["bound_deinterleave"] = bnd
+    res["library_deinterleave"] = library
 
     f = N_ENS * N_FRAMES
     rows = get_ofdm_params(1).nb_frame_length // 128
@@ -215,9 +308,12 @@ def check_kernels(dev, rng, card: str):
         raise AssertionError(f"carve kernel is {ulps} bf16 ulp from the plain version")
     ms = cuda_ms(lambda: carve_rotate_cuda(fr, fi, freq), 20)
     plain = cuda_ms(lambda: carve_rotate_ref(fr, fi, freq), 5)
+    bnd = carve_bound(fr, xr)
     print(f"K5 carve_rotate ({f}, {rows}, 128) bf16: max {ulps:.0f} bf16 ulp "
-          f"(max abs {err:.3g}); kernel {ms:.3f} ms, plain {plain:.3f} ms  [{card}]")
+          f"(max abs {err:.3g}); kernel {ms:.3f} ms, plain {plain:.3f} ms, bound "
+          f"{bnd[0]:.3f} ms ({bnd[1]})  [{card}]")
     res["carve_rotate"] = (err, ms, plain)
+    res["bound_carve_rotate"] = bnd
 
     # K4 as the host path runs it: a SubchannelDecoder's f32 (15 + C, S)
     # buffer, 4-byte elements, for the 108-CU EEP and the 96-CU UEP subchannel
@@ -526,6 +622,183 @@ def host_device_busy(dev, soft):
     return busy, wall
 
 
+def timed_once(fn):
+    """(fn(), device ms of that one call): for the plain twins, thousands of
+    small launches each."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def require(ok: bool, what: str) -> None:
+    if not ok:
+        raise AssertionError(what)
+
+
+def check_tool_forward(dev, rng, card):
+    """Phase 8, Viterbi forward variants (X1, X2, X3, X6) and the traceback
+    modes (X2 tbonly, X5, X6 tb_t) at the tools' shapes: each against its
+    plain twin on the first TWIN_B codewords, the exact variants against
+    full on the whole batch, full + shuffle against the fused K1+K2."""
+    signs = signs_on(dev)
+    soft = torch.from_numpy(rng.standard_normal((EXP_B, EXP_BITS + 6, 4), dtype=np.float32))
+    soft_t = mother_to_t(soft.to(dev), 8 * EXP_CHUNK)
+    t2p = soft_t.shape[0]
+    full = {}
+    res = {}
+
+    def one(label, x, variant, rebase, compare_to=None):
+        d, pm = fwd_variant_cuda(x, signs, variant, rebase)
+        torch.cuda.synchronize()
+        (td, tpm), plain = timed_once(
+            lambda: fwd_variant_ref(x[:, :, :TWIN_B].contiguous(), signs, variant, rebase))
+        require(torch.equal(d[:TWIN_B], td) and torch.equal(pm[:TWIN_B], tpm),
+                f"forward {label}: kernel differs from its plain twin")
+        if compare_to is not None:
+            require(torch.equal(d, compare_to[0]) and torch.equal(pm, compare_to[1]),
+                    f"forward {label}: decisions differ from full's")
+        ms = cuda_ms(lambda: fwd_variant_cuda(x, signs, variant, rebase), 10)
+        bnd = bound(x.numel() * x.element_size() + d.numel() + pm.numel() * 4,
+                    x.shape[2] * x.shape[0] * FWD_OPS[variant])
+        print(f"X forward {label} {tuple(x.shape)} {str(x.dtype)[6:]} rebase {rebase}: equal to "
+              f"its twin ({TWIN_B} codewords){' and to full' if compare_to else ''}; kernel "
+              f"{ms:.3f} ms, plain {plain:.3f} ms ({TWIN_B} codewords), bound {bnd[0]:.3f} ms "
+              f"({bnd[1]})  [{card}]")
+        res[label] = {"ms": ms, "plain_ms": plain, "bound_ms": bnd[0], "bound_by": bnd[1]}
+        return d, pm
+
+    for dt in (torch.float32, torch.bfloat16):
+        x = soft_t.to(dt)
+        full[dt] = one("full" if dt == torch.float32 else "full_bf16", x, "full", EXP_CHUNK)
+    for name in ("prefetch", "dbuf", "gmm4"):
+        one(name, soft_t, name, EXP_CHUNK, full[torch.float32])
+    one("dbuf_bf16", soft_t.to(torch.bfloat16), "dbuf", EXP_CHUNK, full[torch.bfloat16])
+    d, pm = one("nodec", soft_t, "nodec", EXP_CHUNK)
+    require(torch.equal(pm, full[torch.float32][1]) and not d.any(),
+            "forward nodec: metrics differ from full's or decisions are not zero")
+    one("noacs", soft_t, "noacs", EXP_CHUNK)
+
+    # X3: int16 on integer soft bits, equal to f32's full from the second group on
+    soft_i = torch.from_numpy(rng.integers(-127, 128, (EXP_B, EXP_BITS + 6, 4)).astype(np.int16))
+    d32 = fwd_variant_cuda(mother_to_t(soft_i.to(dev, torch.float32), 8 * EXP_CHUNK), signs, "full",
+                           EXP_CHUNK)[0]
+    d16, _ = one("int16", mother_to_t(soft_i.to(dev), 8 * EXP_CHUNK, value=1), "full", 4)
+    require(torch.equal(d16[:, 1:], d32[:, 1:]), "forward int16 differs from f32 past group 0")
+    print(f"X forward int16: equal to f32 full from the second group on; in the first, "
+          f"{int((d16[:, 0] != d32[:, 0]).any(1).sum())} of {EXP_B} codewords differ "
+          f"(f32's -1e9 start rounds the branch metrics of unreachable states)")
+
+    # X6: fwd_t on depuncture_t's bf16 layout (EEP 3-A, 108 CU), rebase 16;
+    # with the shuffle traceback it gives the fused K1+K2's bytes
+    prof = eep_profile(108, 3, 0)
+    punct = torch.from_numpy(rng.standard_normal((EXP_B, prof.punctured_bits), dtype=np.float32))
+    x6 = depuncture_t(punct.to(dev, torch.bfloat16),
+                      torch.as_tensor(depuncture_index(prof), device=dev))
+    d6, _ = one("fwd_t", x6, "full", 16)
+    n = prof.data_bits
+    fused = viterbi_decode_bytes_t_cuda(x6, signs, n)
+    require(torch.equal(traceback_bytes_cuda(d6, "shuffle")[:, : n // 8], fused),
+            "fwd_t + shuffle traceback differ from the fused K1+K2 bytes")
+    print("X fwd_t + tb_t: bytes equal to the fused K1+K2 (viterbi_decode_bytes_t)")
+
+    # tracebacks on full's decisions: the three modes agree, each = its twin
+    decs = full[torch.float32][0]
+    want = traceback_bytes_cuda(decs, "shuffle")
+    tb = {}
+    for mode in ("shuffle", "masked", "tree"):
+        got = traceback_bytes_cuda(decs, mode)
+        torch.cuda.synchronize()
+        twin, plain = timed_once(lambda: traceback_bytes_ref(decs[:TWIN_B], mode))
+        require(torch.equal(got, want) and torch.equal(got[:TWIN_B], twin),
+                f"traceback {mode}: differs from shuffle or from its twin")
+        ms = cuda_ms(lambda: traceback_bytes_cuda(decs, mode), 10)
+        bnd = bound(decs.numel() + got.numel(), EXP_B * t2p * TB_OPS)
+        print(f"X traceback {mode} {tuple(decs.shape)}: equal to shuffle and to its twin; "
+              f"kernel {ms:.3f} ms, plain {plain:.3f} ms ({TWIN_B} codewords), bound "
+              f"{bnd[0]:.4f} ms ({bnd[1]})  [{card}]")
+        tb[mode] = {"ms": ms, "plain_ms": plain, "bound_ms": bnd[0], "bound_by": bnd[1]}
+    return res, tb
+
+
+def check_tool_probe_carve(dev, rng, card):
+    """Phase 8, the int16 probe (X4) on every op and the carve ablations
+    (X7) at exp_carve's 256 frames: each against its twin on the card, the
+    rotating ones within 1 bf16 ulp (full also against K5), the others
+    exact."""
+    x, y = exp_i16_probe.inputs(dev)
+    probe = {}
+    for op in I16_OPS:
+        got = i16_probe_cuda(x, y, op)
+        require(torch.equal(got, i16_probe_ref(x, y, op)), f"int16 probe {op} differs")
+        bnd = bound(3 * x.numel() * 2, x.numel())
+        probe[op] = {"ms": cuda_ms(lambda: i16_probe_cuda(x, y, op), 20),
+                     "plain_ms": cuda_ms(lambda: i16_probe_ref(x, y, op), 20),
+                     "bound_ms": bnd[0], "bound_by": bnd[1]}
+    probe["add"]["library_ms"] = cuda_ms(lambda: torch.add(x, y), 20)
+    print(f"X int16 probe {tuple(x.shape)}: all {len(I16_OPS)} ops equal to the twin; kernel "
+          + ", ".join(f"{op} {v['ms']:.4f}" for op, v in probe.items())
+          + f" ms; add: plain {probe['add']['plain_ms']:.4f} ms, torch.add "
+          f"{probe['add']['library_ms']:.4f} ms, bound {probe['add']['bound_ms']:.6f} ms  [{card}]")
+
+    rows = get_ofdm_params(1).nb_frame_length // 128
+    fr = torch.from_numpy(rng.standard_normal((EXP_FRAMES, rows, 128), dtype=np.float32)).to(dev)
+    fi = torch.from_numpy(rng.standard_normal((EXP_FRAMES, rows, 128), dtype=np.float32)).to(dev)
+    freq = torch.from_numpy(rng.uniform(-2000.0, 2000.0, EXP_FRAMES).astype(np.float32)).to(dev)
+    k5 = carve_rotate_cuda(fr, fi, freq)
+    carve = {}
+    for label, fb, roll, rotate in (("fb4", 4, True, True), ("fb8", 8, True, True),
+                                    ("fb16", 16, True, True), ("noroll", 8, False, True),
+                                    ("norotate", 8, True, False), ("copy", 8, False, False)):
+        xr, xi = carve_variant_cuda(fr, fi, freq, fb, roll, rotate)
+        torch.cuda.synchronize()
+        (rr, ri), plain = timed_once(lambda: carve_variant_ref(fr, fi, freq, fb, roll, rotate))
+        ulps = bf16_ulp_err(xr, xi, rr, ri)
+        require(ulps <= 1.0 if rotate else (torch.equal(xr, rr) and torch.equal(xi, ri)),
+                f"carve {label}: {ulps} bf16 ulp from its twin")
+        k5_ulps = bf16_ulp_err(xr, xi, *k5) if roll and rotate else None
+        require(k5_ulps is None or k5_ulps <= 1.0, f"carve {label}: {k5_ulps} bf16 ulp from K5")
+        ms = cuda_ms(lambda: carve_variant_cuda(fr, fi, freq, fb, roll, rotate), 10)
+        bnd = carve_bound(fr, xr, rotate)
+        print(f"X carve {label} (fb={fb}, roll={roll}, rotate={rotate}) {tuple(fr.shape)} f32: "
+              f"{ulps:.0f} bf16 ulp from its twin"
+              + (f", {k5_ulps:.0f} from K5" if k5_ulps is not None else "")
+              + f"; kernel {ms:.3f} ms, plain {plain:.3f} ms, bound {bnd[0]:.3f} ms ({bnd[1]})"
+              f"  [{card}]")
+        err = max((xr.float() - rr.float()).abs().max().item(),
+                  (xi.float() - ri.float()).abs().max().item())
+        carve[label] = {"ms": ms, "plain_ms": plain, "bound_ms": bnd[0], "bound_by": bnd[1],
+                        "max_ulp": ulps, "max_abs_err": err}
+    return probe, carve
+
+
+def run_tools(card):
+    """Phase 8, the slice's main path: each tool's entry point as
+    `python -m tpudab_torch.tools.<name>` runs it, at its own shapes, with
+    the launch counts set to 0 just before and read just after."""
+    torch.cuda.synchronize()
+    for name in TOOL_KERNELS:
+        KERNELS[name][2].launches = 0
+    checks = {}
+    results = {}
+    for mod in TOOLS:
+        name = mod.__name__.rsplit(".", 1)[1]
+        print(f"--- python -m {mod.__name__}")
+        out = mod.main([])
+        results[name], checks[name] = out["ms"], out["checks"]
+    torch.cuda.synchronize()
+    launches = {name: KERNELS[name][2].launches for name in TOOL_KERNELS}
+    print(f"tools: launches {launches}")
+    for name, n in launches.items():
+        require(n > 0, f"kernel {name} was not launched by the tools")
+    for name, c in checks.items():
+        require(all(c.values()), f"tool {name}: a check failed: {c}")
+    print(f"tools: every check held [{card}]")
+    return launches, results
+
+
 def main() -> None:
     card = identify()
     dev = torch.device("cuda", 0)
@@ -547,23 +820,61 @@ def main() -> None:
     }
     print(f"kernel shares of the step [{card}]: " + ", ".join(
         f"{k} {v:.2f} ms ({100 * v / step_ms:.1f}%)" for k, v in shares.items()))
-    measured = {"viterbi_fwd_traceback": msc, "viterbi_bits": res["viterbi_bits_msc"],
-                "deinterleave": res["deinterleave"], "carve_rotate": res["carve_rotate"]}
+
+    # phase 8: the kernel-experiment tools
+    rng8 = np.random.default_rng(SEED + 8)
+    fwd, tb = check_tool_forward(dev, rng8, card)
+    probe, carve = check_tool_probe_carve(dev, rng8, card)
+    tool_launches, _ = run_tools(card)
+    launches.update(tool_launches)
+
+    def old(key, bound_key, library=None):
+        err, ms, plain = res[key]
+        bnd = res[bound_key]
+        return {"max_abs_err": err, "ms": ms, "plain_ms": plain, "bound_ms": bnd[0],
+                "bound_by": bnd[1], "library_ms": library}
+
+    def new(row, err=0.0):
+        return {"max_abs_err": err, "ms": row["ms"], "plain_ms": row["plain_ms"],
+                "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+                "library_ms": row.get("library_ms")}
+
+    measured = {
+        "viterbi_fwd_traceback": old("viterbi_msc", "bound_viterbi_msc"),
+        "viterbi_bits": old("viterbi_bits_msc", "bound_viterbi_bits_msc"),
+        "deinterleave": old("deinterleave", "bound_deinterleave", res["library_deinterleave"]),
+        "carve_rotate": old("carve_rotate", "bound_carve_rotate"),
+        "viterbi_fwd_variant": new(fwd["full"]),
+        "viterbi_traceback": new(tb["shuffle"]),
+        "i16_probe": new(probe["add"]),
+        "carve_variant": new(carve["fb8"], carve["fb8"]["max_abs_err"]),
+    }
     kernels = []
     for name, (src, replaces, _) in KERNELS.items():
-        err, ms, plain = measured[name]
         entry = {"name": name, "route": "cuda", "source": src, "replaces": replaces,
-                 "launches": launches[name], "max_abs_err": err, "ms": ms,
-                 "plain_ms": plain}
-        if name == "viterbi_fwd_traceback":
-            entry["also_replaces"] = "tpudab/ops/viterbi_pallas.py:124"
+                 "launches": launches[name], **measured[name]}
+        if name in ALSO_REPLACES:
+            entry["also_replaces"] = ALSO_REPLACES[name]
         if name == "viterbi_bits":
             entry["ms_by_shape"] = {k: res[f"viterbi_bits_{k}"][1:]
                                     for k in ("fic", "msc", "calibration")}
+            entry["serial_bound_ms"] = res["bound_viterbi_bits_msc"][2]
         if name == "deinterleave":
             entry["host_path_launches"] = host_launches["deinterleave"]
             entry["host_path_ms_by_shape"] = {k: res[f"deinterleave_host_{k}"][1:]
                                               for k in ("108cu", "96cu")}
+        if name == "viterbi_fwd_variant":
+            entry["shape"] = [EXP_B, "T2p 1792", "f32, chunk 32"]
+            entry["plain_codewords"] = TWIN_B
+            entry["by_variant"] = fwd
+        if name == "viterbi_traceback":
+            entry["plain_codewords"] = TWIN_B
+            entry["by_mode"] = tb
+        if name == "i16_probe":
+            entry["library_call"] = "torch.add"
+            entry["by_op"] = probe
+        if name == "carve_variant":
+            entry["by_variant"] = carve
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

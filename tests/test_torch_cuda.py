@@ -11,15 +11,20 @@ import numpy as np
 import pytest
 import torch
 
-from tpudab.constants.puncture import FIC_PROFILE, eep_profile
+from tpudab_torch.constants.puncture import FIC_PROFILE, eep_profile
 from tpudab_torch.fec.depuncture import depuncture_index, depuncture_t
 from tpudab_torch.models.step import ReceiveStep, bench_subchannels
 from tpudab_torch.msc.interleave import deinterleave_cuda, deinterleave_ref
 from tpudab_torch.ops.carve import carve_rotate_cuda, carve_rotate_ref
+from tpudab_torch.ops.carve_exp import carve_variant_cuda, carve_variant_ref
+from tpudab_torch.ops.i16_probe import OPS as I16_OPS
+from tpudab_torch.ops.i16_probe import i16_probe_cuda, i16_probe_ref
 from tpudab_torch.ops.viterbi import radix_tables
 from tpudab_torch.ops.viterbi_cuda import (signs_on, viterbi_decode_bits_cuda,
                                            viterbi_decode_bytes_t_cuda,
                                            viterbi_decode_bytes_t_ref, viterbi_decode_ref)
+from tpudab_torch.ops.viterbi_exp import (VARIANTS, fwd_variant_cuda, fwd_variant_ref,
+                                          traceback_bytes_cuda, traceback_bytes_ref)
 
 pytestmark = pytest.mark.cuda
 
@@ -144,3 +149,86 @@ def test_receiver_cuda_equals_cpu(dev):
                        {k: (c.chosen, c.locked) for k, c in rx.uep_calibrations.items()})
     assert res["cpu"][0]["fib_crc_errors"] == 0
     assert res[str(dev)] == res["cpu"]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int16])
+@pytest.mark.parametrize("variant", sorted(VARIANTS))
+def test_forward_variant_equals_plain(dev, variant, dtype):
+    """Every forward variant, in every soft dtype, equals its twin
+    (decisions and path metrics), and counts one launch per call."""
+    rng = np.random.default_rng(11)
+    if dtype == torch.int16:
+        x = torch.from_numpy(rng.integers(-127, 128, (64, 8, 70)).astype(np.int16))
+    else:
+        x = torch.from_numpy(rng.standard_normal((64, 8, 70), dtype=np.float32)).to(dtype)
+    x[:, :, :5] = 0   # all-erasure codewords: every compare-select ties
+    signs = signs_on(dev)
+    rebase = 4 if dtype == torch.int16 else 16
+    n0 = fwd_variant_cuda.launches
+    d, pm = fwd_variant_cuda(x.to(dev), signs, variant, rebase)
+    torch.cuda.synchronize()
+    assert fwd_variant_cuda.launches == n0 + 1
+    td, tpm = fwd_variant_ref(x.to(dev), signs, variant, rebase)
+    assert torch.equal(d, td) and torch.equal(pm, tpm)
+
+
+@pytest.mark.parametrize("mode", ["shuffle", "masked", "tree"])
+def test_traceback_mode_equals_plain(dev, mode):
+    rng = np.random.default_rng(12)
+    x = torch.from_numpy(rng.standard_normal((64, 8, 133), dtype=np.float32)).to(dev)
+    decs, _ = fwd_variant_cuda(x, signs_on(dev), "full", 16)
+    n0 = traceback_bytes_cuda.launches
+    got = traceback_bytes_cuda(decs, mode, n_out=15)
+    torch.cuda.synchronize()
+    assert traceback_bytes_cuda.launches == n0 + 1
+    assert torch.equal(got, traceback_bytes_ref(decs, mode, n_out=15))
+
+
+@pytest.mark.parametrize("op", list(I16_OPS))
+def test_i16_probe_equals_plain(dev, op):
+    rng = np.random.default_rng(13)
+    x, y = (torch.from_numpy(rng.integers(-32768, 32768, (64, 256)).astype(np.int16)).to(dev)
+            for _ in range(2))
+    n0 = i16_probe_cuda.launches
+    got = i16_probe_cuda(x, y, op)
+    torch.cuda.synchronize()
+    assert i16_probe_cuda.launches == n0 + 1
+    assert torch.equal(got, i16_probe_ref(x, y, op))
+
+
+@pytest.mark.parametrize("fb,roll,rotate", [(3, True, True), (8, False, True),
+                                            (1, True, False), (16, False, False)])
+def test_carve_variant_equals_plain(dev, fb, roll, rotate):
+    """Within 1 bf16 ulp where it rotates (the twin rounds the same f32
+    products, so usually equal), exact where it copies."""
+    rng = np.random.default_rng(14)
+    fr, fi = (torch.from_numpy(rng.standard_normal((5, 1536, 128), dtype=np.float32)).to(dev)
+              for _ in range(2))
+    freq = torch.tensor([1999.0, -2000.0, 0.0, 731.5, 12.25], device=dev)
+    n0 = carve_variant_cuda.launches
+    xr, xi = carve_variant_cuda(fr, fi, freq, fb, roll, rotate)
+    torch.cuda.synchronize()
+    assert carve_variant_cuda.launches == n0 + 1
+    rr, ri = carve_variant_ref(fr, fi, freq, fb, roll, rotate)
+    if not rotate:
+        assert torch.equal(xr, rr) and torch.equal(xi, ri)
+        return
+    xr, xi, rr, ri = xr.float(), xi.float(), rr.float(), ri.float()
+    mag = torch.maximum(torch.hypot(xr, xi), torch.hypot(rr, ri)).clamp_min(2.0 ** -126)
+    ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    assert (torch.maximum((xr - rr).abs(), (xi - ri).abs()) <= ulp).all()
+
+
+def test_entry_points_default_to_the_card(dev):
+    """Receiver, SubchannelDecoder and the FIC decode of a numpy input run
+    on the card when no device is given."""
+    from tpudab_torch.constants.dab_params import get_dab_params
+    from tpudab_torch.fic.fib import decode_fic_frame
+    from tpudab_torch.models.receiver import Receiver
+    from tpudab_torch.msc.subchannel import SubchannelConfig, SubchannelDecoder
+    assert Receiver(1).device.type == "cuda"
+    cfg = SubchannelConfig(1, 0, 24, eep_profile(24, 3, 0))
+    assert SubchannelDecoder(cfg).device.type == "cuda"
+    n0 = viterbi_decode_bits_cuda.launches
+    fibs, _ = decode_fic_frame(np.ones((1, get_dab_params(1).nb_fic_bits), np.float32))
+    assert fibs.shape == (12, 32) and viterbi_decode_bits_cuda.launches == n0 + 1

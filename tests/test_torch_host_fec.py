@@ -4,6 +4,8 @@ depuncture / depuncture_np (EEP, UEP and FIC profiles), the FIC decode
 calibration (tests/test_uep_calibration.py's _logical_soft fixtures).
 Tolerance: none, values, bytes, winners and scores equal."""
 
+import dataclasses
+
 import numpy as np
 import pytest
 import jax.numpy as jnp
@@ -59,7 +61,7 @@ def test_decode_fic_frame_matches(mode):
     bits = np.stack([synth.build_fic_bits(i) for i in range(3)])
     rng = np.random.default_rng(mode)
     soft = (1.0 - 2.0 * bits + 0.5 * rng.standard_normal(bits.shape)).astype(np.float32)
-    fibs, ok = decode_fic_frame(soft, mode)
+    fibs, ok = decode_fic_frame(soft, mode, device="cpu")
     want_fibs, want_ok = jax_decode(soft, mode)
     np.testing.assert_array_equal(fibs, want_fibs)
     np.testing.assert_array_equal(ok, want_ok)
@@ -69,6 +71,30 @@ def test_decode_fic_frame_matches(mode):
     np.testing.assert_array_equal(f1, want_fibs[: f1.shape[0]])
     f2, _ = decode_fic_frame(soft[1:], mode, device="cpu")
     np.testing.assert_array_equal(f2, want_fibs[f1.shape[0]:])
+
+
+
+def test_entry_points_default_to_the_card(monkeypatch):
+    """Receiver, MSCDecoder, SubchannelDecoder and the FIC decode of a numpy
+    input run on cuda unless told "cpu": with no card each refuses to run,
+    and "cpu" (or a CPU tensor) still decodes."""
+    from tpudab_torch.constants.dab_params import CIF_BITS, get_dab_params
+    from tpudab_torch.constants.puncture import eep_profile
+    from tpudab_torch.fic.fib import decode_fic_frame
+    from tpudab_torch.models.receiver import Receiver
+    from tpudab_torch.msc.subchannel import MSCDecoder, SubchannelConfig, SubchannelDecoder
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = SubchannelConfig(1, 0, 24, eep_profile(24, 3, 0))
+    soft = np.ones((1, get_dab_params(1).nb_fic_bits), np.float32)
+    for make in (lambda: Receiver(1), lambda: SubchannelDecoder(cfg),
+                 lambda: MSCDecoder([cfg], 4, CIF_BITS), lambda: decode_fic_frame(soft)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+    assert Receiver(1, "cpu").device.type == "cpu"
+    assert SubchannelDecoder(cfg, "cpu").device.type == "cpu"
+    assert MSCDecoder([cfg], 4, CIF_BITS, "cpu").decoders[1].device.type == "cpu"
+    assert decode_fic_frame(torch.from_numpy(soft))[0].shape == (12, 32)
 
 
 KEY = (128, 2)
@@ -91,8 +117,10 @@ def _logical_soft(prof, n_frames, seed, snr_amp):
 
 
 def _fields(res):
-    return (res.bitrate_kbps, res.protection_level, res.chosen, res.swapped,
-            res.locked, res.best_score, res.runner_up_score, res.n_candidates)
+    """The result's fields; the chosen profile as a tuple, since the port's
+    UEPProfile is its own class (tpudab_torch.constants.puncture)."""
+    return (res.bitrate_kbps, res.protection_level, dataclasses.astuple(res.chosen),
+            res.swapped, res.locked, res.best_score, res.runner_up_score, res.n_candidates)
 
 
 @pytest.mark.parametrize("case", ["shipped", "alt1", "alt5", "deep"])
@@ -101,7 +129,8 @@ def test_calibrate_matches(case):
     from tpudab_torch.fec import uep_calibrate as puc
 
     cands = juc.candidate_profiles(*KEY)
-    assert puc.candidate_profiles(*KEY) == cands
+    assert [dataclasses.astuple(c) for c in puc.candidate_profiles(*KEY)] == \
+        [dataclasses.astuple(c) for c in cands]
     if case == "shipped":
         soft = _logical_soft(get_uep_profile(*KEY), 4, 0, 0.15)
     elif case == "deep":

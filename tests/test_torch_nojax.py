@@ -1,7 +1,10 @@
 """tpudab_torch must run where jax and ml_dtypes are not installed (as on a
-GPU machine). A subprocess refuses both imports, imports every module of
-the port, synthesises a 5-frame capture and runs one CPU ReceiveStep and
-the CPU Receiver (the host per-stage path) on it."""
+GPU machine), and imports nothing of tpudab. A subprocess refuses jax,
+jaxlib, ml_dtypes and tpudab (by the first name component, so tpudab_torch
+passes), imports every module of the port, its tools and the smoke script,
+synthesises a 5-frame capture and runs one CPU ReceiveStep and the CPU
+Receiver (the host per-stage path) on it, and finds no tpudab module
+loaded at the end."""
 
 import os
 import subprocess
@@ -13,9 +16,11 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SCRIPT = textwrap.dedent("""
     import importlib, pkgutil, sys
 
+    REFUSED = ("jax", "jaxlib", "ml_dtypes", "tpudab")
+
     class Refuse:
         def find_spec(self, name, path=None, target=None):
-            if name.split(".")[0] in ("jax", "jaxlib", "ml_dtypes"):
+            if name.split(".")[0] in REFUSED:
                 raise ImportError(f"{name} is refused in this test")
             return None
 
@@ -25,11 +30,12 @@ SCRIPT = textwrap.dedent("""
     import torch
     import tpudab_torch
     mods = [m.name for m in pkgutil.walk_packages(tpudab_torch.__path__, "tpudab_torch.")]
+    assert any(m.startswith("tpudab_torch.tools.") for m in mods), mods
     for m in mods:
         importlib.import_module(m)
     import chip_smoke  # the smoke script imports only the port and torch
 
-    from tpudab.constants.puncture import eep_profile
+    from tpudab_torch.constants.puncture import eep_profile
     from tpudab_torch.fec.crc import check_fib_crc
     from tpudab_torch.models.step import ReceiveStep
     from tpudab_torch.msc.subchannel import SubchannelConfig
@@ -57,7 +63,7 @@ SCRIPT = textwrap.dedent("""
     assert rx.stats["fibs"] == 60 and rx.stats["fib_crc_errors"] == 0
     assert rx.db.ensemble.label == "Guard" and 1 in rx.subch_decoders
     assert (outs[1].raw_frames == data[:5]).all()
-    bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "ml_dtypes")]
+    bad = [m for m in sys.modules if m.split(".")[0] in REFUSED]
     assert not bad, bad
     print("OK", len(mods))
 """)

@@ -12,8 +12,8 @@ import dataclasses
 import enum
 from typing import List, Optional
 
-from tpudab.constants.tables import country_str, language_str, programme_type_str
-from tpudab.constants.puncture import eep_bitrate_kbps, uep_index_order
+from tpudab_torch.constants.tables import country_str, language_str, programme_type_str
+from tpudab_torch.constants.puncture import eep_bitrate_kbps, uep_index_order
 
 
 class TransportMode(enum.IntEnum):

@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from tpudab.constants.puncture import TAIL_BITS
+from tpudab_torch.constants.puncture import TAIL_BITS
 
 # Tap masks with bit k = tap on u_{t-k} (time-reversed octal polys).
 TAP_MASKS = np.array([0b1101101, 0b1001111, 0b1010011, 0b1101101], dtype=np.int64)

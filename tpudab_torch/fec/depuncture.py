@@ -13,7 +13,7 @@ import functools
 import numpy as np
 import torch
 
-from tpudab.constants.puncture import PunctureProfile
+from tpudab_torch.constants.puncture import PunctureProfile
 
 BLOCK = 128  # mother bits per puncture block = 16 radix-2 super-steps
 

@@ -43,7 +43,7 @@ import functools
 import numpy as np
 import torch
 
-from tpudab.constants.puncture import UEPProfile, get_uep_profile, uep_row_confidence
+from tpudab_torch.constants.puncture import UEPProfile, get_uep_profile, uep_row_confidence
 from tpudab_torch.fec.conv import conv_encode
 from tpudab_torch.fec.depuncture import depuncture
 
@@ -78,7 +78,7 @@ def _induced_priors(slack: int = 1):
     rows — the same derivation tools/uep_ambiguity.py documents: per-
     protection-level PI ranges (+- slack), L1 values per bitrate family,
     observed L4 values, observed paddings."""
-    from tpudab.constants.puncture import _UEP_ROWS
+    from tpudab_torch.constants.puncture import _UEP_ROWS
 
     def fam(br):
         return "small" if br <= 48 else ("mid" if br <= 96 else "large")
@@ -106,7 +106,7 @@ def candidate_profiles(bitrate_kbps: int, protection_level: int,
     """Shipped row first, then the FULL enumeration of budget+structure-
     exact alternatives (the same 10^2-10^3 candidate sets UEP_AMBIGUITY.json
     quantifies — not a truncated sample)."""
-    from tpudab.constants.puncture import _UEP_ROWS
+    from tpudab_torch.constants.puncture import _UEP_ROWS
 
     shipped = get_uep_profile(bitrate_kbps, protection_level)
     # calibrate() relies on index 0 BEING the shipped row (fallback +
@@ -226,7 +226,7 @@ def _g01_positions(pi: int):
     """Within one 128-mother-bit block punctured at PI: received-stream
     positions of the 32 g0 outputs, and of the 32 g1 outputs (or None if
     any g1 is punctured, i.e. PI < 8)."""
-    from tpudab.constants.puncture import puncture_vector
+    from tpudab_torch.constants.puncture import puncture_vector
 
     k32 = np.nonzero(puncture_vector(pi))[0]
     idx32 = {int(b): i for i, b in enumerate(k32)}

@@ -12,13 +12,14 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from tpudab.constants.dab_params import FIB_BYTES, get_dab_params
-from tpudab.constants.puncture import FIC_PROFILE, FIC_PROFILE_MODE3
+from tpudab_torch.constants.dab_params import FIB_BYTES, get_dab_params
+from tpudab_torch.constants.puncture import FIC_PROFILE, FIC_PROFILE_MODE3
 from tpudab_torch.fec.crc import check_fib_crc
 from tpudab_torch.fec.depuncture import depuncture
 from tpudab_torch.fec.prbs import prbs_bytes_on
 from tpudab_torch.ops.viterbi_cuda import viterbi_decode_best
 from tpudab_torch.utils.bits import torch_pack_bits
+from tpudab_torch.utils.device import DEFAULT_DEVICE, resolve_device
 
 
 def fic_profile(mode: int):
@@ -28,10 +29,13 @@ def fic_profile(mode: int):
 def fic_soft_to_fib_bytes(fic_soft, mode: int = 1, device=None) -> np.ndarray:
     """(F, nb_fic_bits) or (nb_fic_bits,) soft bits -> (F*G, group_bytes)
     uint8. fic_soft is a tensor or a numpy array; it is decoded on device,
-    or where it lies when device is None (numpy: the CPU)."""
+    or, when device is None, where a tensor lies and on the card for a
+    numpy array."""
     dab = get_dab_params(mode)
     profile = fic_profile(mode)
-    soft = torch.as_tensor(fic_soft, device=device)
+    if device is None:
+        device = fic_soft.device if torch.is_tensor(fic_soft) else DEFAULT_DEVICE
+    soft = torch.as_tensor(fic_soft, device=resolve_device(device))
     if soft.ndim == 1:
         soft = soft[None]
     f = soft.shape[0]

@@ -25,9 +25,9 @@ import torch
 
 
 def _print_db(receiver) -> None:
-    from tpudab.constants.provenance import caveats_for_subchannel
-    from tpudab.constants.puncture import uep_index_order
-    from tpudab.constants.tables import programme_type_str
+    from tpudab_torch.constants.provenance import caveats_for_subchannel
+    from tpudab_torch.constants.puncture import uep_index_order
+    from tpudab_torch.constants.tables import programme_type_str
 
     db = receiver.db
     e = db.ensemble
@@ -113,7 +113,7 @@ def cmd_decode_bits(args) -> int:
     Formats: s8 (viterbi_bit_t: positive = bit 1, negated into the
     package's sign convention), u8 (hard bits 0/1), f32 (soft: positive =
     bit 0)."""
-    from tpudab.constants.dab_params import get_dab_params
+    from tpudab_torch.constants.dab_params import get_dab_params
     from tpudab_torch.models.receiver import Receiver
 
     device = torch.device(args.device)

@@ -18,7 +18,7 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 import torch
 
-from tpudab.constants.dab_params import get_dab_params, CIF_BITS, CU_BITS
+from tpudab_torch.constants.dab_params import get_dab_params, CIF_BITS, CU_BITS
 from tpudab_torch.audio.mp2 import DABChannel
 from tpudab_torch.audio.superframe import DABPlusChannel, SuperFrameResult
 from tpudab_torch.database.entities import AudioServiceType, TransportMode
@@ -27,6 +27,7 @@ from tpudab_torch.fec.crc import check_fib_crc
 from tpudab_torch.fic.fib import decode_fic_frame
 from tpudab_torch.fic.fig_parser import parse_fib
 from tpudab_torch.msc.subchannel import SubchannelConfig, SubchannelDecoder
+from tpudab_torch.utils.device import DEFAULT_DEVICE, resolve_device
 
 
 @dataclasses.dataclass
@@ -70,15 +71,15 @@ class Receiver:
 
     process_frame_bits() accepts a batch (F, nb_frame_bits) of soft bits
     (numpy or a tensor) and returns {subch_id: AudioChannelOutput} for
-    running channels. device is where the FEC runs: "cpu" takes the plain
-    torch twins, "cuda" the kernels.
+    running channels. device is where the FEC runs: "cuda" (the default)
+    the kernels, "cpu" the plain torch twins; no card is an error.
     """
 
-    def __init__(self, mode: int = 1, device="cpu",
+    def __init__(self, mode: int = 1, device=DEFAULT_DEVICE,
                  on_audio_channel: Optional[Callable] = None,
                  decode_audio: bool = True):
         self.mode = mode
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.dab = get_dab_params(mode)
         self.updater = DatabaseUpdater()
         self.on_audio_channel = on_audio_channel

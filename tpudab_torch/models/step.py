@@ -20,9 +20,9 @@ import numpy as np
 import torch
 from torch import nn
 
-from tpudab.constants.dab_params import get_dab_params
-from tpudab.constants.ofdm_params import get_ofdm_params
-from tpudab.constants.puncture import FIC_PROFILE, FIC_PROFILE_MODE3, eep_profile
+from tpudab_torch.constants.dab_params import get_dab_params
+from tpudab_torch.constants.ofdm_params import get_ofdm_params
+from tpudab_torch.constants.puncture import FIC_PROFILE, FIC_PROFILE_MODE3, eep_profile
 from tpudab_torch.fec.depuncture import depuncture_index, depuncture_t
 from tpudab_torch.fec.prbs import prbs_bytes
 from tpudab_torch.msc.interleave import TIME_INTERLEAVE_DEPTH, deinterleave_batch

@@ -1,8 +1,8 @@
 """MSC time deinterleave (EN 300 401 sec 12): the ring gather, kernel K4.
 
-Counterpart of tpudab.msc.interleave.deinterleave_batch. The numpy parts
-of tpudab.msc.interleave (delay table, synthesizer-side interleave_np) are
-jax-free and are imported from there.
+Counterpart of tpudab.msc.interleave.deinterleave_batch, with the port's
+own copy of that module's numpy parts (the delay table and the
+synthesizer-side interleave_np).
 
     out[..., i, col] = buf[..., i + d(col mod 16), col]
 
@@ -15,14 +15,43 @@ csrc/deinterleave.cu.
 from __future__ import annotations
 
 import ctypes
+import functools
 
+import numpy as np
 import torch
 
-from tpudab.msc.interleave import TIME_INTERLEAVE_DEPTH, interleave_delays
 from tpudab_torch.ops import _build
 
-__all__ = ["TIME_INTERLEAVE_DEPTH", "interleave_delays", "deinterleave_batch",
-           "deinterleave_ref", "deinterleave_cuda"]
+__all__ = ["TIME_INTERLEAVE_DEPTH", "interleave_delays", "interleave_np",
+           "deinterleave_batch", "deinterleave_ref", "deinterleave_cuda"]
+
+TIME_INTERLEAVE_DEPTH = 16
+
+# d(i mod 16): bit-reversed 0..15 sequence
+_DELAYS = np.array([0, 8, 4, 12, 2, 10, 6, 14, 1, 9, 5, 13, 3, 11, 7, 15],
+                   dtype=np.int32)
+
+
+@functools.lru_cache(maxsize=None)
+def interleave_delays(n_bits: int) -> np.ndarray:
+    """Per-bit delay vector d(i mod 16) of length n_bits."""
+    reps = -(-n_bits // 16)
+    return np.tile(_DELAYS, reps)[:n_bits].copy()
+
+
+def interleave_np(logical_frames: np.ndarray) -> np.ndarray:
+    """Synthesizer-side interleave.
+
+    logical_frames: (n_frames, n_bits) punctured codewords u_m (0/1 or soft).
+    Returns transmitted CIF slices C_n of identical shape; frames with
+    m < 0 contribute zeros.
+    """
+    n_frames, n_bits = logical_frames.shape
+    d = interleave_delays(n_bits)
+    rows = np.arange(n_frames)[:, None] - d[None, :]
+    cols = np.broadcast_to(np.arange(n_bits)[None, :], rows.shape)
+    valid = rows >= 0
+    return np.where(valid, logical_frames[np.maximum(rows, 0), cols], 0)
 
 
 def _check(buf: torch.Tensor, c: int):

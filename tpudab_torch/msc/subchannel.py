@@ -18,13 +18,14 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from tpudab.constants.dab_params import CIF_BITS, CU_BITS
-from tpudab.constants.puncture import PunctureProfile, eep_profile
+from tpudab_torch.constants.dab_params import CIF_BITS, CU_BITS
+from tpudab_torch.constants.puncture import PunctureProfile, eep_profile
 from tpudab_torch.fec.depuncture import depuncture
 from tpudab_torch.fec.prbs import prbs_bytes_on
 from tpudab_torch.msc.interleave import TIME_INTERLEAVE_DEPTH, deinterleave_batch
 from tpudab_torch.ops.viterbi_cuda import viterbi_decode_best
 from tpudab_torch.utils.bits import torch_pack_bits
+from tpudab_torch.utils.device import DEFAULT_DEVICE, resolve_device
 
 HISTORY = TIME_INTERLEAVE_DEPTH - 1
 
@@ -53,7 +54,7 @@ class SubchannelConfig:
     def from_db(cls, sub) -> "SubchannelConfig":
         """From a database Subchannel (tpudab_torch.database.entities)."""
         if sub.is_uep:
-            from tpudab.constants.puncture import get_uep_profile_by_index
+            from tpudab_torch.constants.puncture import get_uep_profile_by_index
             uep = get_uep_profile_by_index(sub.uep_index)
             return cls(sub.subch_id, sub.start_cu, uep.size_cu,
                        uep.to_profile(), uep.padding_bits,
@@ -85,9 +86,9 @@ class SubchannelDecoder:
     of each row.
     """
 
-    def __init__(self, config: SubchannelConfig, device="cpu"):
+    def __init__(self, config: SubchannelConfig, device=DEFAULT_DEVICE):
         self.config = config
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self._history = torch.zeros((HISTORY, config.slice_bits),
                                     dtype=torch.float32, device=self.device)
         self._n_seen = 0
@@ -196,12 +197,12 @@ class MSCDecoder:
     on one device."""
 
     def __init__(self, configs: List[SubchannelConfig], nb_cifs: int, cif_bits: int,
-                 device="cpu"):
+                 device=DEFAULT_DEVICE):
+        self.device = resolve_device(device)
         self.configs = {c.subch_id: c for c in configs}
-        self.decoders = {c.subch_id: SubchannelDecoder(c, device) for c in configs}
+        self.decoders = {c.subch_id: SubchannelDecoder(c, self.device) for c in configs}
         self.nb_cifs = nb_cifs
         self.cif_bits = cif_bits
-        self.device = torch.device(device)
 
     def process_frames(self, msc_soft) -> Dict[int, tuple]:
         """msc_soft: (F, nb_cifs * cif_bits) -> {subch_id: (bytes, valid, idx)}."""

@@ -23,8 +23,8 @@ import functools
 import numpy as np
 import torch
 
-from tpudab.constants.interleaver import get_carrier_map_positions
-from tpudab.constants.ofdm_params import get_ofdm_params
+from tpudab_torch.constants.interleaver import get_carrier_map_positions
+from tpudab_torch.constants.ofdm_params import get_ofdm_params
 from tpudab_torch.ops.carve import carve_rotate, carve_windows
 
 N_CONST_POINTS = 480  # constellation tap size

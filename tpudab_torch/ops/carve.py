@@ -18,7 +18,7 @@ import math
 import numpy as np
 import torch
 
-from tpudab.constants.ofdm_params import get_ofdm_params, SAMPLING_RATE
+from tpudab_torch.constants.ofdm_params import get_ofdm_params, SAMPLING_RATE
 from tpudab_torch.ops import _build
 
 

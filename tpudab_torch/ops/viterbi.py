@@ -64,37 +64,59 @@ def pad_mother_soft(mother_soft: torch.Tensor, target_steps: int,
     return torch.cat([mother_soft, pad], dim=-2)
 
 
-def viterbi_forward_ref(soft_t: torch.Tensor, signs: torch.Tensor) -> torch.Tensor:
-    """Forward pass (the plain twin of kernel K1): transposed soft bits
-    (T2p, 8, B), bf16 or f32 -> decisions (T2p, 64, B) uint8, one 2-bit
-    predecessor index j per super-step and destination state. signs is
-    radix_tables()[0] as an f32 tensor (8, 256) on soft_t's device."""
+def forward_ref(soft_t: torch.Tensor, signs: torch.Tensor, rebase: int = REBASE_STEPS,
+                acs: bool = True, decisions: bool = True):
+    """The forward pass with its parts switchable, for the kernel
+    experiments (tpudab_torch/ops/viterbi_exp.py): transposed soft bits
+    (T2p, 8, B) -> (decisions (T2p, 64, B) uint8, path metrics (64, B)).
+
+    bf16 or f32 soft runs f32 metrics (start -1e9); int16 soft runs int16
+    metrics with int16 wrap-around (start -16000, tools/exp_viterbi_i16.py).
+    Metrics are rebased by state 0 after every `rebase` super-steps.
+    acs=False keeps the metrics at their start and takes the decision
+    bm[j=0] > bm[j=1] from the branch metrics alone; decisions=False runs
+    the ACS chain and leaves the decisions zero."""
     t2p, eight, b = soft_t.shape
     if eight != 4 * RADIX:
         raise ValueError(f"bad Viterbi soft layout {tuple(soft_t.shape)}")
     dev = soft_t.device
-    x = soft_t.to(torch.float32)
+    i16 = soft_t.dtype == torch.int16
+    mt = torch.int16 if i16 else torch.float32
+    x = soft_t.to(mt)
     preds = torch.as_tensor(radix_tables()[1], dtype=torch.long, device=dev)
-    sg = signs.to(torch.float32)[:, :, None]                  # (8, 256, 1)
-    pm = torch.full((N_STATES, b), NEG, dtype=torch.float32, device=dev)
-    pm[0] = 0.0
-    decs = torch.empty((t2p, N_STATES, b), dtype=torch.uint8, device=dev)
+    sg = signs.to(mt)[:, :, None]                             # (8, 256, 1)
+    pm = torch.full((N_STATES, b), -16000 if i16 else NEG, dtype=mt, device=dev)
+    pm[0] = 0
+    decs = torch.zeros((t2p, N_STATES, b), dtype=torch.uint8, device=dev)
     for t in range(t2p):
         xt = x[t]
         bm = sg[0] * xt[0]
         for i in range(1, 4 * RADIX):
             bm = bm + sg[i] * xt[i]
-        c = pm[preds] + bm.view(4, N_STATES, b)                # (4, 64, B)
+        bm = bm.view(4, N_STATES, b)
+        if not acs:
+            decs[t] = (bm[0] > bm[1]).to(torch.uint8)
+            continue
+        c = pm[preds] + bm                                    # (4, 64, B)
         d01 = c[1] > c[0]
         m01 = torch.where(d01, c[1], c[0])
         d23 = c[3] > c[2]
         m23 = torch.where(d23, c[3], c[2])
         dh = m23 > m01
         pm = torch.where(dh, m23, m01)
-        decs[t] = torch.where(dh, d23.to(torch.uint8) | 2, d01.to(torch.uint8))
-        if (t + 1) % REBASE_STEPS == 0:
+        if decisions:
+            decs[t] = torch.where(dh, d23.to(torch.uint8) | 2, d01.to(torch.uint8))
+        if (t + 1) % rebase == 0:
             pm = pm - pm[0:1]
-    return decs
+    return decs, pm
+
+
+def viterbi_forward_ref(soft_t: torch.Tensor, signs: torch.Tensor) -> torch.Tensor:
+    """Forward pass (the plain twin of kernel K1): transposed soft bits
+    (T2p, 8, B), bf16 or f32 -> decisions (T2p, 64, B) uint8, one 2-bit
+    predecessor index j per super-step and destination state. signs is
+    radix_tables()[0] as an f32 tensor (8, 256) on soft_t's device."""
+    return forward_ref(soft_t.to(torch.float32), signs)[0]
 
 
 def viterbi_traceback_ref(decs: torch.Tensor) -> torch.Tensor:
@@ -124,16 +146,18 @@ def viterbi_decode_bytes_t_ref(soft_t: torch.Tensor, signs: torch.Tensor,
     return by.to(torch.uint8).t()[:, : n_data_bits // 8].contiguous()
 
 
-def mother_to_t(mother_soft: torch.Tensor) -> torch.Tensor:
+def mother_to_t(mother_soft: torch.Tensor, steps: int = RADIX * REBASE_STEPS,
+                value: float = 1.0) -> torch.Tensor:
     """(B, T, 4) mother soft bits -> the transposed layout (T2p, 8, B) in
-    the same dtype, T flush-padded with +1.0 to a multiple of 32 mother
-    steps (T2p % 16 == 0), as tpudab's Pallas path pads
-    (tpudab/ops/viterbi_pallas.py:201)."""
+    the same dtype, T padded with `value` to a multiple of `steps` mother
+    steps: by default the +1.0 flush to a multiple of 32 (T2p % 16 == 0),
+    as tpudab's Pallas path pads (tpudab/ops/viterbi_pallas.py:201; chunk
+    c pads to 8c there)."""
     b, t, four = mother_soft.shape
     if four != 4:
         raise ValueError(f"mother soft bits {tuple(mother_soft.shape)} are not (B, T, 4)")
-    tp = -(-t // (RADIX * REBASE_STEPS)) * RADIX * REBASE_STEPS
-    x = pad_mother_soft(mother_soft, tp) if tp != t else mother_soft
+    tp = -(-t // steps) * steps
+    x = pad_mother_soft(mother_soft, tp, value) if tp != t else mother_soft
     return x.reshape(b, tp // RADIX, 4 * RADIX).permute(1, 2, 0).contiguous()
 
 

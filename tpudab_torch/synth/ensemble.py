@@ -13,13 +13,13 @@ import dataclasses
 
 import numpy as np
 
-from tpudab.constants.dab_params import (get_dab_params, CIF_BITS, CIF_CU,
+from tpudab_torch.constants.dab_params import (get_dab_params, CIF_BITS, CIF_CU,
                                          CU_BITS, FIB_BYTES)
-from tpudab.constants.puncture import (FIC_PROFILE, FIC_PROFILE_MODE3,
+from tpudab_torch.constants.puncture import (FIC_PROFILE, FIC_PROFILE_MODE3,
                                        PunctureProfile, eep_bitrate_kbps,
                                        eep_profile, get_uep_index_table,
                                        get_uep_profile)
-from tpudab.msc.interleave import TIME_INTERLEAVE_DEPTH, interleave_np
+from tpudab_torch.msc.interleave import TIME_INTERLEAVE_DEPTH, interleave_np
 from tpudab_torch.fec.conv import conv_encode
 from tpudab_torch.fec.crc import crc16_append
 from tpudab_torch.fec.depuncture import puncture

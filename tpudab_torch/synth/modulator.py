@@ -8,9 +8,9 @@ from __future__ import annotations
 
 import numpy as np
 
-from tpudab.constants.interleaver import get_carrier_map_positions
-from tpudab.constants.ofdm_params import get_ofdm_params
-from tpudab.constants.prs import get_prs_carriers
+from tpudab_torch.constants.interleaver import get_carrier_map_positions
+from tpudab_torch.constants.ofdm_params import get_ofdm_params
+from tpudab_torch.constants.prs import get_prs_carriers
 
 
 def _active_bins(mode: int) -> np.ndarray:

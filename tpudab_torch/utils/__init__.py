@@ -1,1 +1,1 @@
-"""Bit packing helpers (counterpart of tpudab.utils.bits)."""
+"""Bit packing (counterpart of tpudab.utils.bits) and device helpers."""
