@@ -104,9 +104,9 @@ KERNELS = {  # name -> (source, replaced TPU kernel, wrapper)
                      "tpudab/msc/interleave.py:97", deinterleave_cuda),
     "carve_rotate": ("tpudab_torch/csrc/carve.cu", "tpudab/ops/carve.py:96",
                      carve_rotate_cuda),
-    "viterbi_fwd_variant": ("tpudab_torch/csrc/viterbi_exp.cu",
+    "viterbi_fwd_variant": ("tpudab_torch/csrc/viterbi.cu",
                             "tools/exp_viterbi_decompose.py:42", fwd_variant_cuda),
-    "viterbi_traceback": ("tpudab_torch/csrc/viterbi_exp.cu", "tools/exp_tb_tree.py:42",
+    "viterbi_traceback": ("tpudab_torch/csrc/viterbi.cu", "tools/exp_tb_tree.py:42",
                           traceback_bytes_cuda),
     "i16_probe": ("tpudab_torch/csrc/i16_probe.cu", "tools/exp_i16_probe.py:7", i16_probe_cuda),
     "carve_variant": ("tpudab_torch/csrc/carve_exp.cu", "tools/exp_carve.py:33",
@@ -140,18 +140,21 @@ HBM_BYTES_PER_S, ALU_OPS_PER_S = 3.35e12, 33.5e12
 # trellis step (the other 8 are their negations), 3 adds each, for both
 # steps, then one add per super-transition. ACS: per state 4 adds, 3
 # compares, 3 selects. Decisions: per state the 2-bit index and its packing
-# (4 ops). noacs: the branch metrics of j = 0, 1 only and, per state, a
-# compare and its packing. Traceback: per super-step select, extract, pack,
-# shift (4 ops).
+# (4 ops). noacs: the branch metrics and, per state, a compare and its
+# packing (3 ops) and the running max that keeps j = 2, 3 (2 ops).
+# Traceback: per super-step select, extract, pack, shift (4 ops).
 BM_OPS, ACS_OPS, DEC_OPS, TB_OPS = 2 * 8 * 3 + 256, 64 * 10, 64 * 4, 4
 FWD_OPS = {"full": BM_OPS + ACS_OPS + DEC_OPS, "nodec": BM_OPS + ACS_OPS,
-           "noacs": 2 * 8 * 3 + 128 + 64 * 3}
+           "noacs": BM_OPS + 64 * 5}
 FWD_OPS.update(prefetch=FWD_OPS["full"], dbuf=FWD_OPS["full"], gmm4=FWD_OPS["full"],
                bmonly=FWD_OPS["noacs"])
 # The serial bound of one codeword: per super-step the dependent chain
 # add -> compare -> select -> compare -> select, 4 cycles each at the
 # H100 SXM's 1.98 GHz boost clock.
 SERIAL_STEP_S = 5 * 4 / 1.98e9
+# A traceback's: per super-step its TB_OPS ops, each on the last one's result
+TB_SERIAL_STEP_S = TB_OPS * 4 / 1.98e9
+SECTOR = 32       # bytes: the least a load from device memory moves
 CARVE_OPS = 12    # per output sample: rotator by angle addition (6), rotation (6)
 
 EXP_B, EXP_BITS, EXP_CHUNK, TWIN_B = 6144, 3456, 32, 128   # the Viterbi tools' shapes
@@ -168,11 +171,13 @@ def bound(n_bytes: float, n_ops: float):
 
 
 def carve_bound(frames: torch.Tensor, out: torch.Tensor, rotate: bool = True):
-    """Bound of a carve kernel: re and im frames in, the f32 rotator tables
-    (F x (n_sym + n_fft) x 2) when it rotates, re and im bf16 windows out."""
+    """Bound of a carve kernel: the re and im samples of the windows in (F x
+    n_sym x n_fft each; the null symbol and the cyclic prefixes are never
+    read), the f32 rotator tables (F x (n_sym + n_fft) x 2) when it
+    rotates, re and im bf16 windows out."""
     p = get_ofdm_params(1)
     tables = frames.shape[0] * (p.nb_symbols + p.nb_fft) * 2 * 4 if rotate else 0
-    return bound(2 * frames.numel() * frames.element_size() + tables + 2 * out.numel() * 2,
+    return bound(2 * out.numel() * frames.element_size() + tables + 2 * out.numel() * 2,
                  out.numel() * CARVE_OPS if rotate else 0)
 
 
@@ -285,7 +290,7 @@ def check_kernels(dev, rng, card: str):
     if not torch.equal(torch.gather(buf, 1, idx), want):
         raise AssertionError("torch.gather differs from the plain deinterleave")
     library = cuda_ms(lambda: torch.gather(buf, 1, idx), 20)
-    bnd = bound(2 * (buf.numel() + want.numel()), 0)
+    bnd = bound(2 * 2 * want.numel(), 0)    # bf16: c of the c + 15 rows read, c written
     print(f"K4 deinterleave {tuple(buf.shape)} bf16: exact; kernel {ms:.3f} ms, "
           f"plain {plain:.3f} ms, torch.gather {library:.3f} ms, bound {bnd[0]:.4f} ms "
           f"({bnd[1]})  [{card}]")
@@ -667,7 +672,8 @@ def check_tool_forward(dev, rng, card):
               f"its twin ({TWIN_B} codewords){' and to full' if compare_to else ''}; kernel "
               f"{ms:.3f} ms, plain {plain:.3f} ms ({TWIN_B} codewords), bound {bnd[0]:.3f} ms "
               f"({bnd[1]})  [{card}]")
-        res[label] = {"ms": ms, "plain_ms": plain, "bound_ms": bnd[0], "bound_by": bnd[1]}
+        res[label] = {"ms": ms, "plain_ms": plain, "bound_ms": bnd[0], "bound_by": bnd[1],
+                      "shape": list(x.shape), "dtype": str(x.dtype)[6:], "rebase": rebase}
         return d, pm
 
     for dt in (torch.float32, torch.bfloat16):
@@ -715,11 +721,14 @@ def check_tool_forward(dev, rng, card):
         require(torch.equal(got, want) and torch.equal(got[:TWIN_B], twin),
                 f"traceback {mode}: differs from shuffle or from its twin")
         ms = cuda_ms(lambda: traceback_bytes_cuda(decs, mode), 10)
-        bnd = bound(decs.numel() + got.numel(), EXP_B * t2p * TB_OPS)
+        # the path reads one byte of each group's 64: one sector per group
+        bnd = bound(EXP_B * decs.shape[1] * SECTOR + got.numel(), EXP_B * t2p * TB_OPS)
+        serial = t2p * TB_SERIAL_STEP_S * 1e3
         print(f"X traceback {mode} {tuple(decs.shape)}: equal to shuffle and to its twin; "
               f"kernel {ms:.3f} ms, plain {plain:.3f} ms ({TWIN_B} codewords), bound "
-              f"{bnd[0]:.4f} ms ({bnd[1]})  [{card}]")
-        tb[mode] = {"ms": ms, "plain_ms": plain, "bound_ms": bnd[0], "bound_by": bnd[1]}
+              f"{bnd[0]:.4f} ms ({bnd[1]}), serial bound {serial:.4f} ms  [{card}]")
+        tb[mode] = {"ms": ms, "plain_ms": plain, "bound_ms": bnd[0], "bound_by": bnd[1],
+                    "serial_bound_ms": serial}
     return res, tb
 
 
@@ -864,10 +873,12 @@ def main() -> None:
             entry["host_path_ms_by_shape"] = {k: res[f"deinterleave_host_{k}"][1:]
                                               for k in ("108cu", "96cu")}
         if name == "viterbi_fwd_variant":
-            entry["shape"] = [EXP_B, "T2p 1792", "f32, chunk 32"]
+            entry["shape"] = fwd["full"]["shape"]
+            entry["dtype"] = fwd["full"]["dtype"]
             entry["plain_codewords"] = TWIN_B
             entry["by_variant"] = fwd
         if name == "viterbi_traceback":
+            entry["serial_bound_ms"] = tb["shuffle"]["serial_bound_ms"]
             entry["plain_codewords"] = TWIN_B
             entry["by_mode"] = tb
         if name == "i16_probe":

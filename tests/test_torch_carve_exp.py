@@ -83,7 +83,7 @@ def test_full_variant_within_one_ulp_of_k5(in_dtype):
 
 
 def test_tool_main_rehearses_on_cpu(capsys):
-    from tpudab_torch.tools.exp_carve import main
-    res = main(["1", "--batch", "2", "--device", "cpu"])
+    from tpudab_torch.tools.exp_carve import run
+    res = run(torch.device("cpu"), 1, 2)
     out = capsys.readouterr().out
     assert len(res["ms"]) == 7 and "copy-only" in out and "host times" in out

@@ -117,15 +117,20 @@ def test_tpudab_noacs_is_bmonly(interpret):
 
 def test_variant_path_metrics():
     """The port's own (B, 64) path-metric output: every variant that runs
-    the ACS chain ends at the same metrics; noacs keeps the start values."""
+    the ACS chain ends at the same metrics; noacs, with no recursion, ends
+    at the running max of the start values and the branch metrics of
+    j = 2, 3 (those the decisions do not read), here computed in numpy."""
     x = torch.from_numpy(transposed(int_mother(3)))
     pms = {v: fwd_variant(x, SIGNS, v, CHUNK)[1] for v in ("full", "nodec", "prefetch",
                                                             "dbuf", "gmm4")}
     for v, pm in pms.items():
         assert torch.equal(pm, pms["full"]), v
-    start = torch.full((N_STATES,), -1e9)
+    start = np.full((N_STATES,), -1e9)
     start[0] = 0.0
-    assert torch.equal(fwd_variant(x, SIGNS, "noacs", CHUNK)[1], start.expand(B, -1))
+    bm = np.einsum("ir,tib->trb", SIGNS.numpy().astype(np.float64), x.numpy().astype(np.float64))
+    m23 = bm[:, 2 * N_STATES:].reshape(bm.shape[0], 2, N_STATES, B).max(axis=(0, 1))
+    want = np.maximum(start[:, None], m23).T.astype(np.float32)
+    np.testing.assert_array_equal(fwd_variant(x, SIGNS, "noacs", CHUNK)[1].numpy(), want)
 
 
 def test_wide_equals_tpudab(interpret):
@@ -301,19 +306,21 @@ def test_i16_probe_equals_tpudab(op):
         np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
-@pytest.mark.parametrize("name,argv", [
-    ("exp_viterbi_decompose", ["1", "--batch", "4", "--bits", "200"]),
-    ("exp_viterbi", ["1", "--batch", "4", "--bits", "58"]),
-    ("exp_viterbi_i16", ["1", "--batch", "4", "--bits", "58"]),
-    ("exp_tb_tree", ["1", "--batch", "4", "--bits", "58"]),
-    ("exp_depunct_t", ["1", "--batch", "2"]),
-    ("exp_i16_probe", []),
+@pytest.mark.parametrize("name,size", [
+    ("exp_viterbi_decompose", (4, 200)),
+    ("exp_viterbi", (4, 58)),
+    ("exp_viterbi_i16", (4, 58)),
+    ("exp_tb_tree", (4, 58)),
+    ("exp_depunct_t", (2,)),
+    ("exp_i16_probe", None),
 ])
-def test_tool_main_rehearses_on_cpu(name, argv, capsys):
-    """Each tool's main runs end to end on the CPU (--device cpu, the plain
-    twins, host times) at a small size, and its checks hold."""
+def test_tool_main_rehearses_on_cpu(name, size, capsys):
+    """Each tool's work runs end to end on the CPU (the plain twins, host
+    times) at a small size, and its checks hold: run() at that size, or
+    main itself with --device cpu where the tool is small already."""
     mod = importlib.import_module(f"tpudab_torch.tools.{name}")
-    res = mod.main(argv + ["--device", "cpu"])
+    cpu = torch.device("cpu")
+    res = mod.main(["--device", "cpu"]) if size is None else mod.run(cpu, 1, *size)
     out = capsys.readouterr().out
     assert res["checks"] and all(res["checks"].values()) and "host times" in out
     assert "False" not in out.replace("identical to production: False", "") \
@@ -324,3 +331,28 @@ def test_tool_main_rehearses_on_cpu(name, argv, capsys):
         assert "before the pad (groups < 25): True" in out and "Decomposition" in out
         assert set(res["ms"]) == {"dbuf", "dbuf_bf16", "full", "nodec", "noacs", "bmonly",
                                   "tbonly", "e2e"}
+
+
+@pytest.mark.parametrize("name", ["exp_viterbi_decompose", "exp_viterbi", "exp_viterbi_i16",
+                                  "exp_tb_tree", "exp_depunct_t", "exp_carve"])
+def test_tool_main_runs_at_its_shapes(name, monkeypatch):
+    """main parses [iters] and --device, as tpudab's tools take iters, and
+    hands them to run() with the tool's own shapes (run's defaults)."""
+    mod = importlib.import_module(f"tpudab_torch.tools.{name}")
+    seen = []
+    monkeypatch.setattr(mod, "run", lambda *a: seen.append(a) or {"ms": {}, "checks": {}})
+    mod.main(["3", "--device", "cpu"])
+    assert seen == [(torch.device("cpu"), 3)]
+    with pytest.raises(SystemExit):
+        mod.main(["3", "--batch", "4"])
+
+
+@pytest.mark.parametrize("dtype,rebase", [(torch.float32, 8), (torch.bfloat16, 4),
+                                          (torch.int16, 16)])
+def test_forward_variant_rejects_unbuilt_rebase(dtype, rebase):
+    """The kernel is built for f32/bf16 rebased every 16 or 32 super-steps
+    and int16 every 4 (the tools' chunks); the twin takes the same inputs,
+    so another interval is refused on either device."""
+    x = torch.zeros((32, 8, 2), dtype=dtype)
+    with pytest.raises(ValueError, match="rebase"):
+        fwd_variant(x, SIGNS, "full", rebase)

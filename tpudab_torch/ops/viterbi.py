@@ -73,9 +73,11 @@ def forward_ref(soft_t: torch.Tensor, signs: torch.Tensor, rebase: int = REBASE_
     bf16 or f32 soft runs f32 metrics (start -1e9); int16 soft runs int16
     metrics with int16 wrap-around (start -16000, tools/exp_viterbi_i16.py).
     Metrics are rebased by state 0 after every `rebase` super-steps.
-    acs=False keeps the metrics at their start and takes the decision
-    bm[j=0] > bm[j=1] from the branch metrics alone; decisions=False runs
-    the ACS chain and leaves the decisions zero."""
+    acs=False runs no recursion: it takes the decision bm[j=0] > bm[j=1]
+    from the branch metrics alone and returns, per state, the running max
+    of the start value and bm[j=2], bm[j=3] over all steps (what keeps the
+    kernel computing all four); decisions=False runs the ACS chain and
+    leaves the decisions zero."""
     t2p, eight, b = soft_t.shape
     if eight != 4 * RADIX:
         raise ValueError(f"bad Viterbi soft layout {tuple(soft_t.shape)}")
@@ -96,6 +98,8 @@ def forward_ref(soft_t: torch.Tensor, signs: torch.Tensor, rebase: int = REBASE_
         bm = bm.view(4, N_STATES, b)
         if not acs:
             decs[t] = (bm[0] > bm[1]).to(torch.uint8)
+            m23 = torch.where(bm[3] > bm[2], bm[3], bm[2])
+            pm = torch.where(m23 > pm, m23, pm)
             continue
         c = pm[preds] + bm                                    # (4, 64, B)
         d01 = c[1] > c[0]

@@ -7,8 +7,10 @@ kernels K1 and K2 (tpudab/ops/viterbi_pallas.py:60,124) switched on or
 off, run by tpudab_torch/tools/:
 
 - fwd_variant(soft_t, signs, variant, rebase): transposed soft bits
-  (T2p, 8, B), f32, bf16 or int16 -> (decisions (B, T2p/4, 64) uint8,
-  packed 4 super-steps per byte as in K1, final path metrics (B, 64) f32).
+  (T2p, 8, B), f32 or bf16 rebased every 16 or 32 super-steps, or int16
+  rebased every 4 -> (decisions (B, T2p/4, 64) uint8, packed 4
+  super-steps per byte as in K1, final path metrics (B, 64) f32; noacs:
+  the running max that keeps its branch metrics of j = 2, 3).
   Variants: "full", "nodec", "noacs" (= "bmonly", which in tpudab's
   _variant_kernel is the same kernel), "prefetch", "dbuf", "gmm4" (also
   X1's wide kernel). int16 soft runs int16 path metrics (X3). tpudab's
@@ -20,8 +22,9 @@ off, run by tpudab_torch/tools/:
   "tree" (X5's select tree). The three give identical bytes.
 
 Each dispatches on the tensor's device: a CPU tensor takes the plain torch
-twin, a CUDA tensor the kernel in csrc/viterbi_exp.cu, which matches the
-twin exactly. There is no fallback from one to the other.
+twin, a CUDA tensor the kernel in csrc/viterbi.cu, whose full variant is
+the decode kernels' forward pass, and which matches the twin exactly.
+There is no fallback from one to the other.
 """
 
 from __future__ import annotations
@@ -34,22 +37,24 @@ from tpudab_torch.ops import _build
 from tpudab_torch.ops.viterbi import N_STATES, RADIX, forward_ref, mother_to_t
 from tpudab_torch.ops.viterbi_cuda import _check_signs
 
-# variant name -> the kernel's variant id (csrc/viterbi_exp.cu::Variant)
+# variant name -> the kernel's variant id (csrc/viterbi.cu::Variant)
 VARIANTS = {"full": 0, "nodec": 1, "noacs": 2, "bmonly": 2, "prefetch": 3, "dbuf": 4,
             "gmm4": 5}
 TB_MODES = {"shuffle": 0, "masked": 1, "tree": 2}
 STAGE = 16      # super-steps the kernel stages at a time: T2p % STAGE == 0
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int16: 2}
+# soft dtype -> the rebase intervals the kernel is built for (the tools' chunks)
+REBASES = {torch.float32: (16, 32), torch.bfloat16: (16, 32), torch.int16: (4,)}
 
 
 def _check_fwd(soft_t: torch.Tensor, variant: str, rebase: int) -> None:
     if variant not in VARIANTS:
         raise ValueError(f"unknown forward variant {variant!r}; one of {sorted(VARIANTS)}")
     t2p, eight, _ = soft_t.shape
-    if eight != 4 * RADIX or t2p % STAGE or rebase < 1 or t2p % rebase \
-            or soft_t.dtype not in _DTYPES:
-        raise ValueError(f"forward variants take f32/bf16/int16 (T2p, 8, B) with "
-                         f"T2p % {STAGE} == 0 and T2p % rebase == 0, got "
+    if eight != 4 * RADIX or t2p % STAGE or rebase not in REBASES.get(soft_t.dtype, ()) \
+            or t2p % rebase:
+        raise ValueError(f"forward variants take (T2p, 8, B) with T2p % {STAGE} == 0 and "
+                         f"T2p % rebase == 0, rebase by dtype {REBASES}; got "
                          f"{soft_t.dtype} {tuple(soft_t.shape)}, rebase={rebase}")
 
 

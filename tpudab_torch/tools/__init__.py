@@ -10,8 +10,9 @@ module per tool with the tool's name:
     python -m tpudab_torch.tools.exp_carve [iters]               # X7
 
 Each runs what tpudab's main() runs, at the same shapes and seeds, with its
-kernels in csrc/viterbi_exp.cu, csrc/i16_probe.cu and csrc/carve_exp.cu,
-and prints its times, taken with CUDA events, beside the card's name and
-power limit. --device cpu runs the plain torch twins at a small --batch,
-to rehearse a run without a card; its times are host times.
+kernels in csrc/viterbi.cu, csrc/i16_probe.cu and csrc/carve_exp.cu, and
+prints its times, taken with CUDA events, beside the card's name and power
+limit. --device cpu runs the plain torch twins, with host times. Each
+module's run(device, iters, ...) does main's work at a size it is given,
+which is how a run is rehearsed small on the CPU.
 """

@@ -12,16 +12,11 @@ import torch
 from tpudab_torch.utils.device import resolve_device
 
 
-def parse(argv, doc: str, batch: int = 0, bits: int = 0, iters: int = 20):
-    """[iters] positional, as tpudab's tools take it, and --batch, --bits
-    (each left out where the tool has none) and --device (default cuda)."""
+def parse(argv, doc: str, iters: int = 20):
+    """[iters] positional, as tpudab's tools take it, and --device (default
+    cuda)."""
     ap = argparse.ArgumentParser(description=doc.splitlines()[0])
     ap.add_argument("iters", nargs="?", type=int, default=iters)
-    if batch:
-        ap.add_argument("--batch", type=int, default=batch,
-                        help=f"codewords or frames (default {batch})")
-    if bits:
-        ap.add_argument("--bits", type=int, default=bits, help=f"data bits (default {bits})")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; no card is an error) or cpu, the plain "
                          "torch twins with host times, for rehearsal")

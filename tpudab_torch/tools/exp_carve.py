@@ -24,11 +24,16 @@ def make_variant(fb: int, do_roll: bool = True, do_rotate: bool = True):
 
 
 def main(argv=None) -> dict:
-    """Run the tool; returns {"ms": times by name, "checks": {}}: like
-    tpudab's, it times and checks nothing (tests/test_torch_carve_exp.py and
-    chip_smoke.py hold the variants to their twins and to K5)."""
-    args = parse(argv, __doc__, 256, iters=10)
-    dev, f = args.device, args.batch
+    """Run the tool at its shapes; returns run()'s result."""
+    args = parse(argv, __doc__, iters=10)
+    return run(args.device, args.iters)
+
+
+def run(dev: torch.device, iters: int, f: int = 256) -> dict:
+    """The tool's work on f frames; returns {"ms": times by name,
+    "checks": {}}: like tpudab's, it times and checks nothing
+    (tests/test_torch_carve_exp.py and chip_smoke.py hold the variants to
+    their twins and to K5)."""
     label = card(dev)
     ms = timer(dev)
     p = get_ofdm_params(1)
@@ -41,7 +46,7 @@ def main(argv=None) -> dict:
     res = {}
 
     def timeit(name, fn):
-        res[name] = ms(fn, args.iters)
+        res[name] = ms(fn, iters)
         print(f"{name:<56} {res[name]:8.2f} ms  [{label}]", flush=True)
 
     timeit("production carve_rotate (K5)", lambda: carve_rotate(re3, im3, freq))

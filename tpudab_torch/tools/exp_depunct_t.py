@@ -44,9 +44,14 @@ def decode_t(punctured: torch.Tensor, profile) -> torch.Tensor:
 
 
 def main(argv=None) -> dict:
-    """Run the tool; returns {"ms": times by name, "checks": {name: bool}}."""
-    args = parse(argv, __doc__, 6144, iters=10)
-    dev = args.device
+    """Run the tool at its shapes; returns run()'s result."""
+    args = parse(argv, __doc__, iters=10)
+    return run(args.device, args.iters)
+
+
+def run(dev: torch.device, iters: int, b: int = 6144) -> dict:
+    """The tool's work, timed on b codewords (checked on up to 1024);
+    returns {"ms": times by name, "checks": {name: bool}}."""
     label = card(dev)
     ms = timer(dev)
     rng = np.random.default_rng(5)
@@ -54,7 +59,7 @@ def main(argv=None) -> dict:
     # correctness on a real coded signal (EEP 3-A geometry, small batch)
     prof = eep_profile(108, 3, 0)
     n_bits = prof.data_bits
-    b_small = min(1024, args.batch)
+    b_small = min(1024, b)
     msgs = rng.integers(0, 2, (b_small, n_bits)).astype(np.uint8)
     coded = np.stack([puncture_np(conv_encode(m), prof) for m in msgs])
     soft = (1.0 - 2.0 * coded + 0.3 * rng.standard_normal(coded.shape)).astype(np.float32)
@@ -73,14 +78,14 @@ def main(argv=None) -> dict:
         return {"ms": {}, "checks": checks}
 
     # timing at production shape
-    b, s_kept = args.batch, prof.punctured_bits
+    s_kept = prof.punctured_bits
     punct = torch.from_numpy(rng.standard_normal((b, s_kept)).astype(np.float32)
                              ).to(dev, torch.bfloat16)
     prod = lambda: viterbi_decode_bytes_best(depuncture(punct, prof).reshape(b, -1, 4), n_bits)
     newp = lambda: decode_t(punct, prof)
     checks["prod_shape_identical"] = torch.equal(prod(), newp())
     print("production == transposed at prod shape:", checks["prod_shape_identical"])
-    res = {"production": ms(prod, args.iters), "transposed": ms(newp, args.iters)}
+    res = {"production": ms(prod, iters), "transposed": ms(newp, iters)}
     print(f"{'depunct + transpose + fwd + tb (production)':<52} "
           f"{res['production']:8.2f} ms  [{label}]")
     print(f"{'depunct_t + fwd + tb (transposed)':<52} {res['transposed']:8.2f} ms  [{label}]")

@@ -26,14 +26,18 @@ def run_tb(mode: str):
 
 
 def main(argv=None) -> dict:
-    """Run the tool; returns {"ms": times by name, "checks": {name: bool}}."""
-    args = parse(argv, __doc__, B, NBITS)
-    dev, iters = args.device, args.iters
+    """Run the tool at its shapes; returns run()'s result."""
+    args = parse(argv, __doc__)
+    return run(args.device, args.iters)
+
+
+def run(dev: torch.device, iters: int, b: int = B, nbits: int = NBITS) -> dict:
+    """The tool's work on b codewords of nbits; returns {"ms": times by
+    name, "checks": {name: bool}}."""
     label = card(dev)
     ms = timer(dev)
     rng = np.random.default_rng(1)
-    soft = torch.from_numpy(rng.standard_normal((args.batch, args.bits + 6, 4)
-                                                ).astype(np.float32)).to(dev)
+    soft = torch.from_numpy(rng.standard_normal((b, nbits + 6, 4)).astype(np.float32)).to(dev)
     decs = forward_decisions(soft, signs_on(dev), CHUNK)[0]
     old, new, prod = run_tb("masked"), run_tb("tree"), run_tb("shuffle")
     o1, o2, o3 = old(decs), new(decs), prod(decs)

@@ -4,7 +4,7 @@ at once ("wide"; on the TPU one matmul over a lane-sliced (T2/4, 8, 4B)
 relayout) against the base forward pass.
 
 On the card the wide kernel is the forward variant gmm4 of
-csrc/viterbi_exp.cu, which reads the base (T2p, 8, B) layout: the TPU's
+csrc/viterbi.cu, which reads the base (T2p, 8, B) layout: the TPU's
 lane-slice relayout only fed its matrix unit.
 
 Run: python -m tpudab_torch.tools.exp_viterbi [iters]
@@ -27,9 +27,14 @@ def fwd_wide(mother_soft: torch.Tensor, chunk: int = 32) -> torch.Tensor:
 
 
 def main(argv=None) -> dict:
-    """Run the tool; returns {"ms": times by name, "checks": {name: bool}}."""
-    args = parse(argv, __doc__, 6144, 3456, iters=10)
-    dev, b, n_bits = args.device, args.batch, args.bits
+    """Run the tool at its shapes; returns run()'s result."""
+    args = parse(argv, __doc__, iters=10)
+    return run(args.device, args.iters)
+
+
+def run(dev: torch.device, iters: int, b: int = 6144, n_bits: int = 3456) -> dict:
+    """The tool's work on b codewords of n_bits; returns {"ms": times by
+    name, "checks": {name: bool}}."""
     label = card(dev)
     ms = timer(dev)
     rng = np.random.default_rng(1)
@@ -42,7 +47,7 @@ def main(argv=None) -> dict:
     d0, d1 = base(), wide()
     checks = {"identical": torch.equal(d0, d1)}
     print(f"decisions identical: {checks['identical']}  shapes {tuple(d0.shape)} {tuple(d1.shape)}")
-    res = {"base": ms(base, args.iters), "wide": ms(wide, args.iters)}
+    res = {"base": ms(base, iters), "wide": ms(wide, iters)}
     print(f"{'fwd base (per-step branch metrics)':<56} {res['base']:8.2f} ms  [{label}]")
     print(f"{'fwd wide (4-step branch metrics)':<56} {res['wide']:8.2f} ms  [{label}]")
     return {"ms": res, "checks": checks}

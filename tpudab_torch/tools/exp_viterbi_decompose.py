@@ -1,13 +1,14 @@
 """Decompose the Viterbi forward kernel's time at production shape, on the
 card (the port of tools/exp_viterbi_decompose.py, X2).
 
-Variants (csrc/viterbi_exp.cu; one 64-thread block per codeword, as the
-production kernel csrc/viterbi.cu):
+Variants (csrc/viterbi.cu::viterbi_fwd_variant_kernel; one 64-thread
+block per codeword, the production kernel's forward pass with one part
+switched):
   full      production forward (branch metrics + ACS + decision pack + store)
   nodec     branch metrics + ACS chain, no decision extract or pack (zero
             rows stored): isolates the decisions
-  noacs     branch metrics + decisions from them alone, no recursion:
-            isolates the ACS dependency chain
+  noacs     all four branch metrics + decisions from them alone, no
+            recursion: isolates the ACS dependency chain
   bmonly    the same kernel as noacs, as in tpudab (its `not do_acs` branch
             returns before `do_dec` is read)
   prefetch  next step's branch metrics computed before this step's ACS
@@ -54,12 +55,16 @@ def run_gmm4(soft_t: torch.Tensor, chunk: int = CHUNK):
 
 
 def main(argv=None) -> dict:
-    """Run the tool; returns {"ms": times by name, "checks": {name: bool}}
-    with checks that hold on any input (the dbuf decisions against
-    production are printed, not checked: the two relayouts pad T
-    differently, so they part in the pad groups)."""
-    args = parse(argv, __doc__, B, NBITS)
-    dev, iters, b, nbits = args.device, args.iters, args.batch, args.bits
+    """Run the tool at its shapes; returns run()'s result."""
+    args = parse(argv, __doc__)
+    return run(args.device, args.iters)
+
+
+def run(dev: torch.device, iters: int, b: int = B, nbits: int = NBITS) -> dict:
+    """The tool's work on b codewords of nbits; returns {"ms": times by
+    name, "checks": {name: bool}} with checks that hold on any input (the
+    dbuf decisions against production are printed, not checked: the two
+    relayouts pad T differently, so they part in the pad groups)."""
     label = card(dev)
     ms = timer(dev)
     print(f"device: {label}, B={b}, NBITS={nbits}, iters={iters}")

@@ -39,11 +39,16 @@ def run_i16(soft_t_i16: torch.Tensor):
 
 
 def main(argv=None) -> dict:
-    """Run the tool; returns {"ms": times by name, "checks": {name: bool}}
-    (the int16 decisions against f32's from the second group on; in the
-    first they differ by design, which is printed)."""
-    args = parse(argv, __doc__, B, NBITS)
-    dev, iters, b, nbits = args.device, args.iters, args.batch, args.bits
+    """Run the tool at its shapes; returns run()'s result."""
+    args = parse(argv, __doc__)
+    return run(args.device, args.iters)
+
+
+def run(dev: torch.device, iters: int, b: int = B, nbits: int = NBITS) -> dict:
+    """The tool's work on b codewords of nbits; returns {"ms": times by
+    name, "checks": {name: bool}} (the int16 decisions against f32's from
+    the second group on; in the first they differ by design, which is
+    printed)."""
     label = card(dev)
     ms = timer(dev)
     print(f"device: {label}, B={b}, NBITS={nbits}, iters={iters}")
