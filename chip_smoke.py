@@ -6,7 +6,8 @@
 Phases, each of which raises on failure (nothing is caught):
 1. identify the card (torch and CUDA versions, nvidia-smi name and power
    limit); no CUDA device is a failure;
-2. build the CUDA kernels from tpudab_torch/csrc/;
+2. build the CUDA kernels from tpudab_torch/csrc/; print ptxas' registers
+   and spills of each, and the opcode mix of the Viterbi kernels' SASS;
 3. hold each kernel against its plain torch twin at the receive step's
    shapes: Viterbi (K1+K2) for the MSC and the FIC batch, bytes equal;
    deinterleave (K4), exact; carve + rotate (K5), within 1 bf16 ulp; and
@@ -57,7 +58,12 @@ The line before the last is a JSON object of the kernels; the last is
 
 from __future__ import annotations
 
+import collections
 import json
+import os
+import re
+import shutil
+import subprocess
 import time
 
 import numpy as np
@@ -78,7 +84,7 @@ from tpudab_torch.ops.carve import carve_rotate_cuda, carve_rotate_ref
 from tpudab_torch.ops.carve_exp import carve_variant_cuda, carve_variant_ref
 from tpudab_torch.ops.i16_probe import OPS as I16_OPS
 from tpudab_torch.ops.i16_probe import i16_probe_cuda, i16_probe_ref
-from tpudab_torch.ops.viterbi import mother_to_t, radix_tables
+from tpudab_torch.ops.viterbi import branch_metric_table, mother_to_t, radix_tables
 from tpudab_torch.ops.viterbi_cuda import (signs_on, viterbi_decode_bits_cuda,
                                            viterbi_decode_bytes_t_cuda,
                                            viterbi_decode_bytes_t_ref, viterbi_decode_ref)
@@ -135,15 +141,27 @@ HOST_UEP = (7, 648, 96, 128, 3)   # subch id, start CU, size CU, kbps, protectio
 # data sheet: 3.35 TB/s; 67 TFLOP/s of f32 counts an FMA as 2, so 33.5e12
 # simple f32 ops/s, used for the integer ops too).
 HBM_BYTES_PER_S, ALU_OPS_PER_S = 3.35e12, 33.5e12
+
+
+def prefix_tree_adds() -> int:
+    """Adds per super-step of the branch metrics: the 256 super-transitions
+    have 32 distinct sums up to sign (branch_metric_table), and the kernels
+    must stay bit-equal to their twins, whose sums run in index order
+    ((s0 x0 + s1 x1) + ...) + s7 x7. So the least work is one add per
+    distinct index-order prefix of length 2..8 of those 32 sign patterns
+    (the prefix tree's levels: 2, 4, 4, 8, 16, 32, 32 for DAB's code)."""
+    pats = branch_metric_table(torch.from_numpy(radix_tables()[0]))[0].tolist()
+    return sum(len({tuple(p[:k]) for p in pats}) for k in range(2, 9))
+
+
 # Simple ops per radix-2 super-step and codeword (64 states, 256
-# super-transitions). Branch metrics: 8 distinct 4-bit step metrics per
-# trellis step (the other 8 are their negations), 3 adds each, for both
-# steps, then one add per super-transition. ACS: per state 4 adds, 3
-# compares, 3 selects. Decisions: per state the 2-bit index and its packing
-# (4 ops). noacs: the branch metrics and, per state, a compare and its
-# packing (3 ops) and the running max that keeps j = 2, 3 (2 ops).
+# super-transitions). Branch metrics: the prefix tree's adds (98; a negated
+# metric is folded into the add of the path metric). ACS: per state 4 adds,
+# 3 compares, 3 selects. Decisions: per state the 2-bit index and its
+# packing (4 ops). noacs: the branch metrics and, per state, a compare and
+# its packing (3 ops) and the running max that keeps j = 2, 3 (2 ops).
 # Traceback: per super-step select, extract, pack, shift (4 ops).
-BM_OPS, ACS_OPS, DEC_OPS, TB_OPS = 2 * 8 * 3 + 256, 64 * 10, 64 * 4, 4
+BM_OPS, ACS_OPS, DEC_OPS, TB_OPS = prefix_tree_adds(), 64 * 10, 64 * 4, 4
 FWD_OPS = {"full": BM_OPS + ACS_OPS + DEC_OPS, "nodec": BM_OPS + ACS_OPS,
            "noacs": BM_OPS + 64 * 5}
 FWD_OPS.update(prefetch=FWD_OPS["full"], dbuf=FWD_OPS["full"], gmm4=FWD_OPS["full"],
@@ -217,11 +235,39 @@ def build() -> None:
     for line in _build.BuildInfo.log.splitlines():   # each kernel's name, then its resources
         if "Compiling entry function" in line or "registers" in line or "spill" in line:
             print(f"  ptxas: {line.strip()}")
+    sass_mix()
+
+
+SASS_KERNELS = {"viterbi_kernel<bf16>": r"viterbi_kernelI13__nv_bfloat16",
+                "viterbi_bits_kernel<f32>": r"viterbi_bits_kernelIf",
+                "forward full f32 rebase 32": r"variant_kernelIfNS_9F32MetricELi0ELi32"}
+
+
+def sass_mix() -> None:
+    """Opcode counts of the Viterbi kernels' machine code (cuobjdump -sass
+    of the built library), whole functions: where the instructions go,
+    for cards where a profiler of issue stalls (ncu) cannot run."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        print("sass: not measured (no cuobjdump)")
+        return
+    sass = subprocess.run([tool, "-sass", _build.BuildInfo.path], capture_output=True,
+                          text=True, timeout=300).stdout
+    integer = ("IMAD", "LEA", "SHF", "LOP3", "IADD3", "VIADD", "SEL", "ISETP")
+    for label, pattern in SASS_KERNELS.items():
+        for part in sass.split("Function : ")[1:]:
+            if re.search(pattern, part.split("\n", 1)[0]):
+                ops = collections.Counter(m.group(1).split(".")[0] for m in re.finditer(
+                    r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]+)", part))
+                print(f"  sass {label}: {sum(ops.values())} instructions; "
+                      + ", ".join(f"{op} {ops[op]}" for op in
+                                  ("FFMA", "FADD", "FSETP", "FSEL", "SHFL", "LDS", "STS", "BAR"))
+                      + f", integer {sum(ops[op] for op in integer)}")
 
 
 def check_kernels(dev, rng, card: str):
     """Phase 3: each kernel against its plain twin at the step's shapes."""
-    signs = torch.tensor(radix_tables()[0], device=dev)
+    signs = signs_on(dev)
     res = {}
     for label, profile, b in (("msc", eep_profile(108, 3, 0), 6 * N_ENS * 4 * N_FRAMES),
                               ("fic", FIC_PROFILE, N_ENS * N_FRAMES * 4)):

@@ -53,6 +53,22 @@ def test_viterbi_kernel_equals_plain(dev, profile, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b", [1, 17, 1000])
+def test_viterbi_kernel_ragged_batch(dev, b, dtype):
+    """K1+K2 at batches that are not a multiple of the codewords per block
+    (8 f32, 16 bf16): the last block's missing codewords store nothing."""
+    rng = np.random.default_rng(b)
+    profile = FIC_PROFILE
+    soft = torch.from_numpy(rng.standard_normal((b, int(profile.mask().sum())), dtype=np.float32))
+    soft[: b // 5] = 0.0
+    soft_t = depuncture_t(soft.to(dev, dtype), torch.tensor(depuncture_index(profile), device=dev))
+    got = viterbi_decode_bytes_t_cuda(soft_t, signs_on(dev), profile.data_bits)
+    torch.cuda.synchronize()
+    assert got.shape == (b, profile.data_bits // 8)
+    assert torch.equal(got, viterbi_decode_bytes_t_ref(soft_t, signs_on(dev), profile.data_bits))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_deinterleave_kernel_exact(dev, dtype):
     buf = torch.randn((3, 8 + 15, 6912), generator=torch.Generator().manual_seed(0)).to(dev, dtype)
     got = deinterleave_cuda(buf, 8)
@@ -170,6 +186,29 @@ def test_forward_variant_equals_plain(dev, variant, dtype):
     assert fwd_variant_cuda.launches == n0 + 1
     td, tpm = fwd_variant_ref(x.to(dev), signs, variant, rebase)
     assert torch.equal(d, td) and torch.equal(pm, tpm)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int16])
+@pytest.mark.parametrize("variant", ["full", "noacs", "dbuf"])
+def test_forward_variant_ragged_batch(dev, variant, dtype):
+    """A batch of 37 codewords, not a multiple of the 8 or 16 per block."""
+    rng = np.random.default_rng(15)
+    if dtype == torch.int16:
+        x = torch.from_numpy(rng.integers(-127, 128, (48, 8, 37)).astype(np.int16))
+    else:
+        x = torch.from_numpy(rng.standard_normal((48, 8, 37), dtype=np.float32)).to(dtype)
+    rebase = 4 if dtype == torch.int16 else 16
+    d, pm = fwd_variant_cuda(x.to(dev), signs_on(dev), variant, rebase)
+    torch.cuda.synchronize()
+    td, tpm = fwd_variant_ref(x.to(dev), signs_on(dev), variant, rebase)
+    assert torch.equal(d, td) and torch.equal(pm, tpm)
+
+
+def test_kernels_refuse_other_sign_tables(dev):
+    """The kernels' branch-metric table is DAB's: another sign table raises."""
+    x = torch.zeros((16, 8, 3), device=dev)
+    with pytest.raises(ValueError, match="mother code"):
+        viterbi_decode_bytes_t_cuda(x, -signs_on(dev), 8)
 
 
 @pytest.mark.parametrize("mode", ["shuffle", "masked", "tree"])

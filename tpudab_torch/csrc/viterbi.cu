@@ -2,16 +2,17 @@
 // pass and one traceback, shared by the decode kernels and by the kernel
 // experiments that take them apart.
 //
-// viterbi_kernel replaces tpudab/ops/viterbi_pallas.py::_fwd_kernel (K1,
-// :60-109) and ::_tb_kernel_packed (K2, :124-150) on the transposed path
-// viterbi_decode_pallas_bytes_t: soft bits (T2p, 8, B) in, MSB-first packed
-// bytes out. viterbi_bits_kernel replaces K1 and ::_tb_kernel (K3,
+// What it replaces. viterbi_kernel replaces
+// tpudab/ops/viterbi_pallas.py::_fwd_kernel (K1, :60-109) and
+// ::_tb_kernel_packed (K2, :124-150) on the transposed path
+// viterbi_decode_pallas_bytes_t: soft bits (T2p, 8, B) in, MSB-first
+// packed bytes out. viterbi_bits_kernel replaces K1 and ::_tb_kernel (K3,
 // :153-177) on the bit-level path viterbi_decode_pallas: mother soft bits
 // (B, T, 4) in, one 0/1 byte per decoded bit out (K3's unpack at :308-311
 // is fused into the traceback). Plain torch twins:
 // tpudab_torch/ops/viterbi.py::viterbi_decode_bytes_t_ref and
 // ::viterbi_decode_ref, which these kernels match bit for bit (same
-// branch-metric summation order, same pairwise strict-> selects, same
+// index-order branch-metric sums, same pairwise strict-> selects, same
 // rebase schedule).
 //
 // viterbi_fwd_variant_kernel is the forward pass alone, in the variants
@@ -23,7 +24,7 @@
 //     as gmm4: the branch metrics of a group's 4 super-steps at its start);
 //   - tools/exp_viterbi_i16.py::_fwd_kernel_i16 (:45; int16 soft and path
 //     metrics, start -16000, rebase by state 0 every 4 super-steps);
-//   - tools/exp_depunct_t.py::fwd_t (:42; full on bf16, rebase every 16).
+//   - tools/exp_depunct_t.py::fwd_t (:42; full on bf16, rebase 16).
 // viterbi_traceback_kernel is the traceback alone: tpudab's r5
 // _tb_kernel_packed (viterbi_pallas.py:124) as exp_viterbi_decompose.py's
 // `tb` (:406) and exp_depunct_t.py::tb_t (:68) call it, mode shuffle (the
@@ -32,54 +33,85 @@
 // Plain torch twins: tpudab_torch/ops/viterbi_exp.py::fwd_variant_ref and
 // ::traceback_bytes_ref, which these kernels match exactly.
 //
-// What bounds it on Hopper: the trellis is sequential in time, so a
-// codeword is a chain of T2p dependent ACS steps; the work is ~40 f32 adds
-// and selects per state per super-step with a block-wide barrier between
-// steps. Memory traffic is small (8 soft values in, 16 B of decisions out
-// per super-step and codeword), so the kernel is bound by instruction
-// throughput and barrier latency, and throughput comes from running many
-// codewords at once. The traceback is a chain of dependent byte picks over
-// the decisions, which it reads once (bytes, then latency).
+// What bounds it on Hopper. The trellis is sequential in time: a codeword
+// is a chain of T2p dependent ACS steps, so throughput comes from running
+// many codewords at once, and each one's chain should be short. Memory
+// traffic is small (8 soft values in and 16 bytes of decisions out per
+// super-step and codeword), so the forward pass is bound by instructions:
+// ALU work (the branch-metric sums, 4 adds, 3 compares and 3 selects per
+// state) and the shuffles and shared-memory accesses of the exchanges,
+// which an SM serves at one warp instruction per cycle. The traceback is a
+// chain of dependent byte picks over the decisions, which it reads once.
 //
-// Design: one block of 64 threads (one per destination state) per codeword;
-// on the TPU the batch lay on lanes and the grid walked time, here blocks
-// run in parallel and each walks its codeword's time axis in a loop. Path
-// metrics are double-buffered in shared memory (one barrier per step); the
-// 16 super-steps of soft values of a chunk are staged in shared memory per
-// codeword by a loader, the only part that differs between the layouts:
-// the transposed layout reads one value per codeword from each (8, B) row;
-// the (B, T, 4) layout reads 128 contiguous values per codeword (coalesced)
-// and loads +1.0, the zero-input flush, at mother steps >= T, so no padded
-// or transposed copy is made. Each thread packs 4 super-steps of 2-bit
-// decisions per byte (step q in bits [6-2q, 8-2q)), written as a coalesced
-// 64-byte row to a global scratch (B, T2p/4, 64). After the forward pass
-// warp 0 walks the traceback from state 0: rows are fetched 8 at a time
-// into lanes (their addresses do not depend on the state), and the state's
-// byte is picked with a warp shuffle, so the dependent chain costs
-// shuffles, not loads.
+// Design: one warp per codeword, kWarps codewords per block.
+//   - Lane l holds states 2l and 2l + 1, which have the same four
+//     predecessors (l >> 1) | (j << 4). The path metrics are exchanged
+//     through a per-warp double buffer in shared memory, laid out so that
+//     a lane's four predecessors are one 16-byte chunk (pm_slot): two
+//     stores, one __syncwarp and one load per super-step, no block-wide
+//     barrier. The rebase by state 0 broadcasts lane 0's metric by a
+//     shuffle.
+//   - Branch metrics once per codeword and super-step. Of the 256
+//     super-transitions only 32 sums differ up to sign (DAB's generators 1
+//     and 4 are both 0133); lane l sums magnitude l in index order
+//     (m = x0; m = m + s1*x1; ...; an FMA by +-1 rounds as the add of the
+//     exact product), and each state takes its 4 by shuffles, signed in
+//     the add to the path metric (fmaf(m, -1, pm) is exactly pm + (-m)).
+//     Round-to-nearest is sign-symmetric, so the result is the plain
+//     version's per-state sum bit for bit. A lane needs 4 magnitudes: state
+//     2l + 1 takes state 2l's with j ^ 2. The table (ops/viterbi_cuda.py::
+//     bm_table_on, built once per device from the sign table) gives each
+//     lane its magnitude's signs, its 4 source lanes and 8 signs.
+//   - Where the magnitudes are computed is the one thing the kernels
+//     choose apart (the variants below): viterbi_kernel, thousands of
+//     codewords and throughput-bound, computes step t's at step t
+//     (`full`); viterbi_bits_kernel, at most a few hundred codewords with
+//     about one warp per scheduler and so latency-bound, computes step
+//     t+1's before step t's ACS (`prefetch`), which takes the sums off the
+//     recursion's chain. Each was the faster of the schedules at its own
+//     batches on an H100.
+//   - Soft values are staged per 16 super-steps in shared memory, double-
+//     buffered, the next chunk's global loads in flight while this one is
+//     decoded. The transposed layout (T2p, 8, B) is staged by the whole
+//     block (each row segment of kWarps codewords is one 32-byte sector:
+//     8 f32 or 16 bf16 codewords), one __syncthreads per 16 super-steps.
+//     The (B, T, 4) layout is staged by each warp for its own codeword (128
+//     contiguous values, +1.0, the zero-input flush, past T), with
+//     __syncwarp only. A codeword past B still takes part in every barrier
+//     and stores nothing.
+//   - Lane l packs its two states' 2-bit decisions over 4 super-steps
+//     (step q in bits [6-2q, 8-2q) of each state's byte) into one uint16 at
+//     bytes 2l, 2l + 1 of the group's 64-byte row in a global scratch
+//     (B, T2p/4, 64). After its forward pass each warp walks its own
+//     codeword's traceback from state 0: rows are fetched 8 at a time into
+//     lanes (their addresses do not depend on the state), and the state's
+//     byte is picked with a warp shuffle, so the dependent chain costs
+//     shuffles, not loads.
 //
 // The variants change only where the branch metrics come from and what is
 // kept, so the differences between their times measure the parts:
-//   full      branch metrics of step t computed at step t (the decode
-//             kernels' forward);
-//   nodec     the same ACS chain, no decision extract or pack: a zero row
-//             is stored per group, as tpudab's does (:94);
-//   noacs     no recursion and no barrier per step: decision bit
-//             bm_j0 > bm_j1 from the branch metrics alone (tpudab's
-//             `not do_acs` branch, which returns before `do_dec` is read,
-//             so its bmonly is this kernel too); the branch metrics of
-//             j = 2, 3 go into a running max, so that all four are
-//             computed, as tpudab's full (256, B) product is;
-//   prefetch  branch metrics of step t+1 computed into registers before
+//   full      magnitudes of step t computed at step t (the decode kernels'
+//             forward);
+//   nodec     the same ACS chain, no decision pack: a zero row is stored
+//             per group, as tpudab's does (:94);
+//   noacs     no recursion and no exchange: decision bit bm_j0 > bm_j1
+//             from the branch metrics alone (tpudab's `not do_acs` branch,
+//             which returns before `do_dec` is read, so its bmonly is this
+//             kernel too); the branch metrics of j = 2, 3 go into a running
+//             max, so that all four are computed, as tpudab's full
+//             (256, B) product is;
+//   prefetch  the magnitude of step t+1 computed into a register before
 //             the ACS of step t (clamped at the staging chunk's end);
-//   dbuf      the same into a double buffer in shared memory;
-//   group4    the 4 super-steps' branch metrics of a group computed at
-//             the group's start (gmm4, and X1's wide layout).
-// The variant kernel also writes each thread's final metric, (B, 64) f32
+//   dbuf      the same through a per-warp double buffer in shared memory,
+//             read back in place of the shuffles;
+//   group4    the 4 super-steps' magnitudes of a group computed at the
+//             group's start (gmm4, and X1's wide layout).
+// The variant kernel also writes each state's final metric, (B, 64) f32
 // (noacs: its running max), so that nvcc cannot delete a chain whose
 // decisions are not stored. The rebase interval is a template parameter:
 // 16 for the decode kernels (the _t path's chunk), 32, 16 or 4 for the
-// tools, the TPU's chunk in each.
+// tools, the TPU's chunk in each. int16 soft runs int16 metrics, whose
+// adds wrap and are order-free.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -88,19 +120,27 @@
 namespace {
 
 constexpr int kStates = 64;
-constexpr int kStage = 16;  // super-steps of soft values staged at a time
-constexpr int kSoft = 8;    // mother soft bits per radix-2 super-step
+constexpr int kLanes = 32;
+constexpr int kStage = 16;               // super-steps of soft values staged at a time
+constexpr int kSoft = 8;                 // mother soft bits per radix-2 super-step
+constexpr int kTile = kStage * kSoft;    // soft values of a codeword per stage
+constexpr int kPerLane = kTile / kLanes; // of them, loaded by each thread
+constexpr int kBitsWarps = 4;            // codewords per block of viterbi_bits_kernel
+constexpr unsigned kAll = 0xffffffffu;
 
 enum Variant { kFull = 0, kNoDec = 1, kNoAcs = 2, kPrefetch = 3, kDbuf = 4, kGroup4 = 5 };
 enum TbMode { kShuffle = 0, kMasked = 1, kTree = 2 };
 
 // f32 path metrics for f32 and bf16 soft; int16 metrics with int16
-// wrap-around for int16 soft (X3).
+// wrap-around for int16 soft (X3). mac(a, s, x) is a + s * x for s = +-1,
+// rounded once: the product is exact, so it is the add of the signed term.
 struct F32Metric {
   using M = float;
   static constexpr float kStart = -1e9f;
-  __device__ static float add(float a, float b) { return __fadd_rn(a, b); }
+  __device__ static float mac(float a, float s, float x) { return fmaf(s, x, a); }
+  __device__ static float mul(float s, float x) { return s * x; }
   __device__ static float sub(float a, float b) { return __fsub_rn(a, b); }
+  __device__ static float shfl(float v, int src) { return __shfl_sync(kAll, v, src); }
   __device__ static float of(float x) { return x; }
   __device__ static float of(__nv_bfloat16 x) { return __bfloat162float(x); }
 };
@@ -108,52 +148,144 @@ struct F32Metric {
 struct I16Metric {
   using M = int16_t;
   static constexpr int16_t kStart = -16000;
-  __device__ static int16_t add(int16_t a, int16_t b) { return (int16_t)(a + b); }
+  __device__ static int16_t mac(int16_t a, int16_t s, int16_t x) { return (int16_t)(a + s * x); }
+  __device__ static int16_t mul(int16_t s, int16_t x) { return (int16_t)(s * x); }
   __device__ static int16_t sub(int16_t a, int16_t b) { return (int16_t)(a - b); }
+  __device__ static int16_t shfl(int16_t v, int src) {
+    return (int16_t)__shfl_sync(kAll, (int)v, src);
+  }
   __device__ static int16_t of(int16_t x) { return x; }
 };
 
-// Bit (j*8 + i) of the mask: signs[i][(j << 6) | s] is -1.
-__device__ __forceinline__ uint32_t sign_mask(const float* __restrict__ signs, int s) {
-  uint32_t neg = 0;
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-#pragma unroll
-    for (int i = 0; i < kSoft; ++i)
-      if (signs[i * 4 * kStates + (j << 6) + s] < 0.f) neg |= 1u << (j * kSoft + i);
-  return neg;
-}
-
-// Branch metric of super-transition (j << 6) | s: the sum in index order
-// i = 0..7; +-x is exact, so this equals the plain version's sum of
-// signs * soft.
-template <typename Mt>
-__device__ __forceinline__ typename Mt::M branch_metric(const typename Mt::M* x, uint32_t neg,
-                                                        int j) {
-  typename Mt::M bm = ((neg >> (j * kSoft)) & 1) ? -x[0] : x[0];
-#pragma unroll
-  for (int i = 1; i < kSoft; ++i)
-    bm = Mt::add(bm, ((neg >> (j * kSoft + i)) & 1) ? -x[i] : x[i]);
-  return bm;
-}
-
-// Soft value k (0..127) of the 16 super-steps from t0, transposed layout
-// (t2p, 8, b): one value per codeword in each row.
+// Codewords per block on the transposed layout: one 32-byte sector of
+// each (8, B) row.
 template <typename T>
-struct TransposedSoft {
-  const T* soft;
-  int b, cw;
-  __device__ T operator()(int t0, int k) const { return soft[((size_t)t0 * kSoft + k) * b + cw]; }
+__host__ __device__ constexpr int transposed_warps() { return 32 / (int)sizeof(T); }
+
+// Row stride of a warp's staged soft values: padded by 16 bytes, so that
+// the block's staging stores spread over the banks.
+template <typename M>
+__host__ __device__ constexpr int x_stride() { return kTile + 16 / (int)sizeof(M); }
+
+// This lane's part of the branch-metric table (2, 32) int32: row 0, bit i
+// set where sign i of magnitude `lane` is -1; row 1, bits [5j, 5j+5) the
+// lane holding the magnitude of super-transition (j << 6) | 2l, bit 20 + j
+// its negation, bit 24 + j the negation of (j << 6) | (2l + 1), whose
+// magnitude is that of ((j ^ 2) << 6) | 2l.
+template <typename Mt>
+struct LaneTable {
+  using M = typename Mt::M;
+  M msign[kSoft];
+  int src[4];
+  M sign0[4], sign1[4];
+  __device__ LaneTable(const int* __restrict__ table, int lane) {
+    const int ms = table[lane], sel = table[kLanes + lane];
+#pragma unroll
+    for (int i = 0; i < kSoft; ++i) msign[i] = ((ms >> i) & 1) ? (M)-1 : (M)1;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      src[j] = (sel >> (5 * j)) & 31;
+      sign0[j] = ((sel >> (20 + j)) & 1) ? (M)-1 : (M)1;
+      sign1[j] = ((sel >> (24 + j)) & 1) ? (M)-1 : (M)1;
+    }
+  }
 };
 
-// The same from one codeword's (T, 4) mother soft bits; +1.0 past T.
+// The 8 soft values of one super-step from shared memory (16-byte aligned).
+__device__ __forceinline__ void load8(const float* p, float (&x)[kSoft]) {
+  const float4 a = reinterpret_cast<const float4*>(p)[0];
+  const float4 b = reinterpret_cast<const float4*>(p)[1];
+  x[0] = a.x; x[1] = a.y; x[2] = a.z; x[3] = a.w;
+  x[4] = b.x; x[5] = b.y; x[6] = b.z; x[7] = b.w;
+}
+
+__device__ __forceinline__ void load8(const int16_t* p, int16_t (&x)[kSoft]) {
+  const uint4 a = *reinterpret_cast<const uint4*>(p);
+  const uint32_t w[4] = {a.x, a.y, a.z, a.w};
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    x[2 * k] = (int16_t)(w[k] & 0xffffu);
+    x[2 * k + 1] = (int16_t)(w[k] >> 16);
+  }
+}
+
+// The 4 path metrics of one 16-byte chunk of the exchange buffer.
+__device__ __forceinline__ void load4(const float* p, float (&v)[4]) {
+  const float4 a = *reinterpret_cast<const float4*>(p);
+  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+}
+
+__device__ __forceinline__ void load4(const int16_t* p, int16_t (&v)[4]) {
+  const uint2 a = *reinterpret_cast<const uint2*>(p);
+  v[0] = (int16_t)(a.x & 0xffffu); v[1] = (int16_t)(a.x >> 16);
+  v[2] = (int16_t)(a.y & 0xffffu); v[3] = (int16_t)(a.y >> 16);
+}
+
+// Slot of `state` in a warp's path-metric exchange buffer. Chunk c holds
+// states c, c + 16, c + 32, c + 48, the predecessors of states 4c..4c+3,
+// so a lane reads its four in one load; even chunks take slots 0..7 and
+// odd ones 8..15, so that the lanes' stores of states 2l (and of 2l + 1)
+// fall on distinct banks.
+__device__ __forceinline__ int pm_slot(int state) {
+  const int c = state & 15;
+  return 4 * ((c >> 1) | ((c & 1) << 3)) + (state >> 4);
+}
+
+// This lane's magnitude at one super-step: its signed soft values summed
+// in index order.
+template <typename Mt>
+__device__ __forceinline__ typename Mt::M magnitude(const typename Mt::M* xs_step,
+                                                    const LaneTable<Mt>& tb) {
+  typename Mt::M x[kSoft];
+  load8(xs_step, x);
+  typename Mt::M m = x[0];
+#pragma unroll
+  for (int i = 1; i < kSoft; ++i) m = Mt::mac(m, tb.msign[i], x[i]);
+  return m;
+}
+
+// Transposed (t2p, 8, b) soft: the block's kWarps codewords from cw0,
+// staged by all its threads; a codeword past b reads 0.
+template <typename T, typename Mt, int kWarps>
+struct TransposedSoft {
+  using M = typename Mt::M;
+  const T* soft;
+  int b, cw0;
+  static __device__ void sync() { __syncthreads(); }
+  __device__ void fetch(int t0, M (&r)[kPerLane]) const {
+#pragma unroll
+    for (int k = 0; k < kPerLane; ++k) {
+      const int e = threadIdx.x + k * kWarps * kLanes, row = e / kWarps, col = e % kWarps;
+      r[k] = cw0 + col < b ? Mt::of(soft[((size_t)t0 * kSoft + row) * b + cw0 + col]) : (M)0;
+    }
+  }
+  __device__ void put(const M (&r)[kPerLane], M* xs) const {
+#pragma unroll
+    for (int k = 0; k < kPerLane; ++k) {
+      const int e = threadIdx.x + k * kWarps * kLanes;
+      xs[(e % kWarps) * x_stride<M>() + e / kWarps] = r[k];
+    }
+  }
+};
+
+// One codeword's (T, 4) mother soft bits, staged by its own warp; +1.0
+// past T (n_vals = 4 * T; 0 for a warp past b).
 template <typename T>
 struct MotherSoft {
   const T* row;
-  int n_vals;  // 4 * T
-  __device__ float operator()(int t0, int k) const {
-    const int idx = t0 * kSoft + k;
-    return idx < n_vals ? F32Metric::of(row[idx]) : 1.f;
+  int n_vals;
+  static __device__ void sync() { __syncwarp(); }
+  __device__ void fetch(int t0, float (&r)[kPerLane]) const {
+#pragma unroll
+    for (int k = 0; k < kPerLane; ++k) {
+      const int idx = t0 * kSoft + (threadIdx.x & 31) + k * kLanes;
+      r[k] = idx < n_vals ? F32Metric::of(row[idx]) : 1.f;
+    }
+  }
+  __device__ void put(const float (&r)[kPerLane], float* xs) const {
+    float* mine = xs + (threadIdx.x >> 5) * x_stride<float>();
+#pragma unroll
+    for (int k = 0; k < kPerLane; ++k) mine[(threadIdx.x & 31) + k * kLanes] = r[k];
   }
 };
 
@@ -167,118 +299,149 @@ __device__ __forceinline__ bool rebase_after(int t0, int g4, int u) {
   return u == 3 && g4 == kStage - 4 && (kRebase == kStage || (t0 + kStage) % kRebase == 0);
 }
 
-// Forward ACS over t2p super-steps (t2p % 16 == 0, t2p % kRebase == 0) by
-// the block's 64 threads; writes the packed decision rows of this codeword
-// to dcw and returns this thread's final path metric (noacs: its running
-// max of the j = 2, 3 branch metrics).
-template <int kVariant, typename Mt, int kRebase, typename Loader>
-__device__ typename Mt::M forward_acs(const Loader& load, const float* __restrict__ signs,
-                                      int t2p, uint8_t* __restrict__ dcw) {
+// 4-way compare-select of one state as pairwise strict > selects (ties
+// keep the lower predecessor index): its new metric and 2-bit decision.
+template <typename M>
+__device__ __forceinline__ uint32_t acs(const M (&c)[4], M& v) {
+  const bool d01 = c[1] > c[0];
+  const M m01 = d01 ? c[1] : c[0];
+  const bool d23 = c[3] > c[2];
+  const M m23 = d23 ? c[3] : c[2];
+  const bool dh = m23 > m01;
+  v = dh ? m23 : m01;
+  return dh ? (2u | (uint32_t)d23) : (uint32_t)d01;
+}
+
+// noacs: the decision bm_0 > bm_1 and the running max of bm_2, bm_3.
+template <typename M>
+__device__ __forceinline__ uint32_t bm_only(const M (&bm)[4], M& v) {
+  const M m23 = bm[3] > bm[2] ? bm[3] : bm[2];
+  v = m23 > v ? m23 : v;
+  return bm[0] > bm[1];
+}
+
+template <typename M>
+struct StatePair {
+  M lo, hi;  // states 2l and 2l + 1
+};
+
+// Forward ACS of one codeword by one warp of kWarps over t2p super-steps
+// (t2p % 16 == 0, t2p % kRebase == 0). Stores the packed decision rows to
+// dcw (none when it is null: a codeword past the batch) and returns this
+// lane's two final path metrics (noacs: their running maxima). Every warp
+// of the block calls it, for the block-wide staging barrier.
+template <int kVariant, typename Mt, int kRebase, int kWarps, typename Loader>
+__device__ StatePair<typename Mt::M> forward_acs(const Loader& load,
+                                                 const int* __restrict__ table, int t2p,
+                                                 uint16_t* __restrict__ dcw) {
   using M = typename Mt::M;
-  const int s = threadIdx.x;
-  __shared__ M pm_a[kStates];
-  __shared__ M pm_b[kStates];
-  __shared__ M xs[kStage * kSoft];
-  __shared__ M bm_buf[kVariant == kDbuf ? 2 * 4 * kStates : 1];
-  const uint32_t neg = sign_mask(signs, s);
-  const int pred_lo = s >> 2;
+  constexpr int kStride = x_stride<M>();
+  __shared__ __align__(16) M xs[2][kWarps * kStride];
+  __shared__ __align__(16) M pmx[kWarps][2][kStates];
+  __shared__ M bmx[kVariant == kDbuf ? kWarps : 1][2][kLanes];
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  // where this lane reads its states' predecessors (l >> 1) + 16 j and
+  // stores states 2l and 2l + 1
+  const int rd = pm_slot(lane >> 1), wr0 = pm_slot(2 * lane), wr1 = pm_slot(2 * lane + 1);
+  const LaneTable<Mt> tb(table, lane);
 
-  M* cur = pm_a;
-  M* nxt = pm_b;
-  M v = (s == 0) ? (M)0 : Mt::kStart;
-  cur[s] = v;
+  M v0 = lane == 0 ? (M)0 : Mt::kStart, v1 = Mt::kStart;
+  if (kVariant != kNoAcs) {
+    pmx[w][0][wr0] = v0;
+    pmx[w][0][wr1] = v1;
+    __syncwarp();
+  }
   uint32_t acc = 0;
-  M bm[4], bm_next[4], bm_grp[4][4];
+  M r[kPerLane];
+  load.fetch(0, r);
 
-  for (int t0 = 0; t0 < t2p; t0 += kStage) {
-    __syncthreads();  // last chunk's reads of xs are done
-    for (int k = s; k < kStage * kSoft; k += kStates) xs[k] = Mt::of(load(t0, k));
-    __syncthreads();
-    if (kVariant == kPrefetch) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) bm[j] = branch_metric<Mt>(xs, neg, j);
-    }
+  for (int t0 = 0, chunk = 0; t0 < t2p; t0 += kStage, ++chunk) {
+    // one barrier per chunk: the buffer written here was last read two
+    // chunks ago, before the last chunk's barrier
+    load.put(r, xs[chunk & 1]);
+    Loader::sync();
+    if (t0 + kStage < t2p) load.fetch(t0 + kStage, r);  // in flight during the chunk
+    const M* xw = xs[chunk & 1] + w * kStride;
+    M m_next, mg[4];
+    if (kVariant == kPrefetch) m_next = magnitude(xw, tb);
     if (kVariant == kDbuf) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) bm_buf[(j << 6) | s] = branch_metric<Mt>(xs, neg, j);
+      bmx[w][0][lane] = magnitude(xw, tb);
+      __syncwarp();
     }
     // groups of 4 super-steps, each unrolled, so that the step within the
-    // group (u) and every register index below are compile-time constants
+    // group (u) and every register and buffer index are compile-time
     for (int g4 = 0; g4 < kStage; g4 += 4) {
+      if (kVariant == kGroup4) {
+#pragma unroll
+        for (int u = 0; u < 4; ++u) mg[u] = magnitude(xw + (g4 + u) * kSoft, tb);
+      }
 #pragma unroll
       for (int u = 0; u < 4; ++u) {
         const int q = g4 + u;
-        const M* x = xs + q * kSoft;
-        const M* x_next = xs + (q + 1 < kStage ? q + 1 : kStage - 1) * kSoft;
-        if (kVariant == kFull || kVariant == kNoDec || kVariant == kNoAcs) {
+        const M* x_next = xw + (q + 1 < kStage ? q + 1 : kStage - 1) * kSoft;
+        M g[4];  // the magnitudes of state 2l's super-transitions j
+        if (kVariant == kDbuf) {
+          // written here, read at the next step behind its __syncwarp
+          bmx[w][(u + 1) & 1][lane] = magnitude(x_next, tb);
 #pragma unroll
-          for (int j = 0; j < 4; ++j) bm[j] = branch_metric<Mt>(x, neg, j);
-        } else if (kVariant == kPrefetch) {
-#pragma unroll
-          for (int j = 0; j < 4; ++j) bm_next[j] = branch_metric<Mt>(x_next, neg, j);
-        } else if (kVariant == kDbuf) {
-          // each thread reads back only the entries it wrote: no barrier
-          M* fill = bm_buf + ((u + 1) & 1) * 4 * kStates;
-          const M* use = bm_buf + (u & 1) * 4 * kStates;
-#pragma unroll
-          for (int j = 0; j < 4; ++j) fill[(j << 6) | s] = branch_metric<Mt>(x_next, neg, j);
-#pragma unroll
-          for (int j = 0; j < 4; ++j) bm[j] = use[(j << 6) | s];
-        } else if (kVariant == kGroup4) {
-          if (u == 0) {
-#pragma unroll
-            for (int w = 0; w < 4; ++w)
-#pragma unroll
-              for (int j = 0; j < 4; ++j) bm_grp[w][j] = branch_metric<Mt>(x + w * kSoft, neg, j);
+          for (int j = 0; j < 4; ++j) g[j] = bmx[w][u & 1][tb.src[j]];
+        } else {
+          M m;
+          if (kVariant == kPrefetch) {
+            m = m_next;
+            m_next = magnitude(x_next, tb);
+          } else if (kVariant == kGroup4) {
+            m = mg[u];
+          } else {
+            m = magnitude(xw + q * kSoft, tb);
           }
 #pragma unroll
-          for (int j = 0; j < 4; ++j) bm[j] = bm_grp[u][j];
+          for (int j = 0; j < 4; ++j) g[j] = Mt::shfl(m, tb.src[j]);
         }
 
-        uint32_t d;
+        uint32_t d0, d1;
         if (kVariant == kNoAcs) {
-          d = bm[0] > bm[1];
-          const M m23 = bm[3] > bm[2] ? bm[3] : bm[2];
-          v = m23 > v ? m23 : v;
-        } else {
-          M c[4];
+          M b0[4], b1[4];
 #pragma unroll
-          for (int j = 0; j < 4; ++j) c[j] = Mt::add(cur[pred_lo | (j << 4)], bm[j]);
-          const bool d01 = c[1] > c[0];
-          const M m01 = d01 ? c[1] : c[0];
-          const bool d23 = c[3] > c[2];
-          const M m23 = d23 ? c[3] : c[2];
-          const bool dh = m23 > m01;
-          v = dh ? m23 : m01;
-          d = dh ? (2u | (uint32_t)d23) : (uint32_t)d01;
+          for (int j = 0; j < 4; ++j) {
+            b0[j] = Mt::mul(tb.sign0[j], g[j]);
+            b1[j] = Mt::mul(tb.sign1[j], g[j ^ 2]);
+          }
+          d0 = bm_only(b0, v0);
+          d1 = bm_only(b1, v1);
+        } else {
+          M p[4], c0[4], c1[4];
+          load4(&pmx[w][u & 1][rd], p);
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            c0[j] = Mt::mac(p[j], tb.sign0[j], g[j]);
+            c1[j] = Mt::mac(p[j], tb.sign1[j], g[j ^ 2]);
+          }
+          d0 = acs(c0, v0);
+          d1 = acs(c1, v1);
         }
-        if (kVariant != kNoDec) acc |= d << (6 - 2 * u);
+        if (kVariant != kNoDec) acc |= (d0 << (6 - 2 * u)) | (d1 << (14 - 2 * u));
         if (u == 3) {
-          dcw[(size_t)((t0 + q) >> 2) * kStates + s] = (uint8_t)acc;
+          if (dcw) dcw[(size_t)((t0 + q) >> 2) * kLanes + lane] = (uint16_t)acc;
           acc = 0;
         }
         if (kVariant == kNoAcs) continue;
-        if (kVariant == kPrefetch) {
-#pragma unroll
-          for (int j = 0; j < 4; ++j) bm[j] = bm_next[j];
-        }
-        nxt[s] = v;
-        __syncthreads();
         if (rebase_after<kRebase>(t0, g4, u)) {
           // rebase by pm[0]: decisions are unchanged, metrics stay bounded
-          v = Mt::sub(v, nxt[0]);
-          cur[s] = v;  // every read of cur for this step is behind the barrier
-          __syncthreads();
-        } else {
-          M* tmp = cur;
-          cur = nxt;
-          nxt = tmp;
+          const M base = Mt::shfl(v0, 0);
+          v0 = Mt::sub(v0, base);
+          v1 = Mt::sub(v1, base);
         }
+        // read at the next step behind this __syncwarp; every lane read this
+        // buffer at the last step, before the last step's __syncwarp
+        pmx[w][(u + 1) & 1][wr0] = v0;
+        pmx[w][(u + 1) & 1][wr1] = v1;
+        __syncwarp();
       }
     }
   }
-  __syncthreads();  // this block's decision rows are visible to warp 0
-  return v;
+  __syncwarp();  // this warp's decision rows are visible to all its lanes
+  return {v0, v1};
 }
 
 // Row byte of `state` (in its low 8 bits) in a group's 64 decision bytes,
@@ -375,39 +538,50 @@ __device__ void traceback_tree(const uint8_t* __restrict__ dcw, int groups,
   }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kStates)
-viterbi_kernel(const T* __restrict__ soft, const float* __restrict__ signs,
+// Blocks of kWarps warps, launch-bounded to 32 resident warps per SM (64
+// registers a thread).
+#define TPUDAB_WARPS_BOUNDS(W) __launch_bounds__((W) * kLanes, 1024 / ((W) * kLanes))
+
+template <typename T, int kWarps = transposed_warps<T>()>
+__global__ void TPUDAB_WARPS_BOUNDS(kWarps)
+viterbi_kernel(const T* __restrict__ soft, const int* __restrict__ table,
                uint8_t* __restrict__ dec, uint8_t* __restrict__ out,
                int t2p, int b, int n_out) {
-  const int cw = blockIdx.x;
+  const int cw0 = blockIdx.x * kWarps, cw = cw0 + (int)(threadIdx.x >> 5);
   uint8_t* dcw = dec + (size_t)cw * (t2p / 4) * kStates;
-  forward_acs<kFull, F32Metric, kStage>(TransposedSoft<T>{soft, b, cw}, signs, t2p, dcw);
-  if (threadIdx.x < 32) traceback<false>(dcw, t2p / 4, out + (size_t)cw * n_out, n_out);
+  forward_acs<kFull, F32Metric, kStage, kWarps>(
+      TransposedSoft<T, F32Metric, kWarps>{soft, b, cw0}, table, t2p,
+      cw < b ? reinterpret_cast<uint16_t*>(dcw) : nullptr);
+  if (cw < b) traceback<false>(dcw, t2p / 4, out + (size_t)cw * n_out, n_out);
 }
 
 template <typename T>
-__global__ void __launch_bounds__(kStates)
-viterbi_bits_kernel(const T* __restrict__ soft, const float* __restrict__ signs,
+__global__ void TPUDAB_WARPS_BOUNDS(kBitsWarps)
+viterbi_bits_kernel(const T* __restrict__ soft, const int* __restrict__ table,
                     uint8_t* __restrict__ dec, uint8_t* __restrict__ out,
-                    int t_mother, int t2p, int n_bits) {
-  const int cw = blockIdx.x;
+                    int t_mother, int t2p, int b, int n_bits) {
+  const int cw = blockIdx.x * kBitsWarps + (int)(threadIdx.x >> 5);
+  const bool live = cw < b;
   uint8_t* dcw = dec + (size_t)cw * (t2p / 4) * kStates;
-  const int n_vals = 4 * t_mother;
-  forward_acs<kFull, F32Metric, kStage>(MotherSoft<T>{soft + (size_t)cw * n_vals, n_vals},
-                                        signs, t2p, dcw);
-  if (threadIdx.x < 32) traceback<true>(dcw, t2p / 4, out + (size_t)cw * n_bits, n_bits);
+  const int n_vals = live ? 4 * t_mother : 0;
+  forward_acs<kPrefetch, F32Metric, kStage, kBitsWarps>(
+      MotherSoft<T>{soft + (size_t)cw * n_vals, n_vals}, table, t2p,
+      live ? reinterpret_cast<uint16_t*>(dcw) : nullptr);
+  if (live) traceback<true>(dcw, t2p / 4, out + (size_t)cw * n_bits, n_bits);
 }
 
-template <typename T, typename Mt, int kVariant, int kRebase>
-__global__ void __launch_bounds__(kStates)
-viterbi_fwd_variant_kernel(const T* __restrict__ soft, const float* __restrict__ signs,
+template <typename T, typename Mt, int kVariant, int kRebase, int kWarps = transposed_warps<T>()>
+__global__ void TPUDAB_WARPS_BOUNDS(kWarps)
+viterbi_fwd_variant_kernel(const T* __restrict__ soft, const int* __restrict__ table,
                            uint8_t* __restrict__ dec, float* __restrict__ pm_out,
                            int t2p, int b) {
-  const int cw = blockIdx.x;
-  const auto v = forward_acs<kVariant, Mt, kRebase>(TransposedSoft<T>{soft, b, cw}, signs, t2p,
-                                                    dec + (size_t)cw * (t2p / 4) * kStates);
-  pm_out[(size_t)cw * kStates + threadIdx.x] = (float)v;
+  const int cw0 = blockIdx.x * kWarps, cw = cw0 + (int)(threadIdx.x >> 5);
+  const auto v = forward_acs<kVariant, Mt, kRebase, kWarps>(
+      TransposedSoft<T, Mt, kWarps>{soft, b, cw0}, table, t2p,
+      cw < b ? reinterpret_cast<uint16_t*>(dec + (size_t)cw * (t2p / 4) * kStates) : nullptr);
+  if (cw < b)
+    reinterpret_cast<float2*>(pm_out + (size_t)cw * kStates)[threadIdx.x & 31] =
+        make_float2((float)v.lo, (float)v.hi);
 }
 
 // Shuffle and masked: one warp per codeword, the block's warps on
@@ -428,15 +602,21 @@ __global__ void viterbi_traceback_kernel(const uint8_t* __restrict__ dec,
   }
 }
 
+template <typename T>
+int blocks_for(int b) {
+  return (b + transposed_warps<T>() - 1) / transposed_warps<T>();
+}
+
 template <typename T, typename Mt, int kRebase>
-cudaError_t launch_fwd(const void* soft, const float* signs, uint8_t* dec, float* pm,
+cudaError_t launch_fwd(const void* soft, const int* table, uint8_t* dec, float* pm,
                        int t2p, int b, int variant, cudaStream_t st) {
   const T* x = static_cast<const T*>(soft);
+  constexpr int kThreads = transposed_warps<T>() * kLanes;
   switch (variant) {
-#define TPUDAB_FWD_CASE(V)                                                                 \
-    case V:                                                                                \
-      viterbi_fwd_variant_kernel<T, Mt, V, kRebase><<<b, kStates, 0, st>>>(x, signs, dec, pm, \
-                                                                          t2p, b);         \
+#define TPUDAB_FWD_CASE(V)                                                            \
+    case V:                                                                           \
+      viterbi_fwd_variant_kernel<T, Mt, V, kRebase><<<blocks_for<T>(b), kThreads, 0, st>>>( \
+          x, table, dec, pm, t2p, b);                                                 \
       break;
     TPUDAB_FWD_CASE(kFull)
     TPUDAB_FWD_CASE(kNoDec)
@@ -451,68 +631,75 @@ cudaError_t launch_fwd(const void* soft, const float* signs, uint8_t* dec, float
   return cudaGetLastError();
 }
 
+template <typename T>
+void launch_bytes_t(const void* soft, const int* table, uint8_t* dec, uint8_t* out, int t2p,
+                    int b, int n_out, cudaStream_t st) {
+  viterbi_kernel<T><<<blocks_for<T>(b), transposed_warps<T>() * kLanes, 0, st>>>(
+      static_cast<const T*>(soft), table, dec, out, t2p, b, n_out);
+}
+
 }  // namespace
 
-// soft: (t2p, 8, b) bf16 (is_bf16=1) or f32; signs: (8, 256) f32;
-// dec: (b, t2p/4, 64) u8 scratch; out: (b, n_out) u8. t2p % 16 == 0.
+// soft: (t2p, 8, b) bf16 (is_bf16=1) or f32; table: (2, 32) int32, the
+// branch-metric table (see LaneTable); dec: (b, t2p/4, 64) u8 scratch;
+// out: (b, n_out) u8. t2p % 16 == 0.
 extern "C" int tpudab_viterbi_decode_bytes_t(const void* soft, int is_bf16,
-                                             const void* signs, void* dec,
+                                             const void* table, void* dec,
                                              void* out, int t2p, int b,
                                              int n_out, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float* sg = static_cast<const float*>(signs);
+  const int* tb = static_cast<const int*>(table);
   uint8_t* d = static_cast<uint8_t*>(dec);
   uint8_t* o = static_cast<uint8_t*>(out);
   if (is_bf16)
-    viterbi_kernel<__nv_bfloat16><<<b, kStates, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(soft), sg, d, o, t2p, b, n_out);
+    launch_bytes_t<__nv_bfloat16>(soft, tb, d, o, t2p, b, n_out, st);
   else
-    viterbi_kernel<float><<<b, kStates, 0, st>>>(
-        static_cast<const float*>(soft), sg, d, o, t2p, b, n_out);
+    launch_bytes_t<float>(soft, tb, d, o, t2p, b, n_out, st);
   return (int)cudaGetLastError();
 }
 
-// soft: (b, t_mother, 4) bf16 (is_bf16=1) or f32; signs: (8, 256) f32;
+// soft: (b, t_mother, 4) bf16 (is_bf16=1) or f32; table: (2, 32) int32;
 // dec: (b, t2p/4, 64) u8 scratch; out: (b, n_bits) u8, one bit per byte.
 // t2p % 16 == 0 and 2 * t2p >= t_mother >= n_bits.
 extern "C" int tpudab_viterbi_decode_bits(const void* soft, int is_bf16,
-                                          const void* signs, void* dec,
+                                          const void* table, void* dec,
                                           void* out, int t_mother, int t2p,
                                           int b, int n_bits, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float* sg = static_cast<const float*>(signs);
+  const int* tb = static_cast<const int*>(table);
   uint8_t* d = static_cast<uint8_t*>(dec);
   uint8_t* o = static_cast<uint8_t*>(out);
+  const int blocks = (b + kBitsWarps - 1) / kBitsWarps;
   if (is_bf16)
-    viterbi_bits_kernel<__nv_bfloat16><<<b, kStates, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(soft), sg, d, o, t_mother, t2p, n_bits);
+    viterbi_bits_kernel<__nv_bfloat16><<<blocks, kBitsWarps * kLanes, 0, st>>>(
+        static_cast<const __nv_bfloat16*>(soft), tb, d, o, t_mother, t2p, b, n_bits);
   else
-    viterbi_bits_kernel<float><<<b, kStates, 0, st>>>(
-        static_cast<const float*>(soft), sg, d, o, t_mother, t2p, n_bits);
+    viterbi_bits_kernel<float><<<blocks, kBitsWarps * kLanes, 0, st>>>(
+        static_cast<const float*>(soft), tb, d, o, t_mother, t2p, b, n_bits);
   return (int)cudaGetLastError();
 }
 
 // soft: (t2p, 8, b), dtype 0 f32, 1 bf16 (rebase 16 or 32), 2 int16
-// (rebase 4); signs: (8, 256) f32; dec: (b, t2p/4, 64) u8; pm: (b, 64)
+// (rebase 4); table: (2, 32) int32; dec: (b, t2p/4, 64) u8; pm: (b, 64)
 // f32. t2p % 16 == 0, t2p % rebase == 0. variant: 0 full, 1 nodec,
 // 2 noacs, 3 prefetch, 4 dbuf, 5 group4.
-extern "C" int tpudab_viterbi_fwd_variant(const void* soft, int dtype, const void* signs,
+extern "C" int tpudab_viterbi_fwd_variant(const void* soft, int dtype, const void* table,
                                           void* dec, void* pm, int t2p, int b,
                                           int variant, int rebase, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float* sg = static_cast<const float*>(signs);
+  const int* tb = static_cast<const int*>(table);
   uint8_t* d = static_cast<uint8_t*>(dec);
   float* p = static_cast<float*>(pm);
   if (dtype == 0 && rebase == 16)
-    return (int)launch_fwd<float, F32Metric, 16>(soft, sg, d, p, t2p, b, variant, st);
+    return (int)launch_fwd<float, F32Metric, 16>(soft, tb, d, p, t2p, b, variant, st);
   if (dtype == 0 && rebase == 32)
-    return (int)launch_fwd<float, F32Metric, 32>(soft, sg, d, p, t2p, b, variant, st);
+    return (int)launch_fwd<float, F32Metric, 32>(soft, tb, d, p, t2p, b, variant, st);
   if (dtype == 1 && rebase == 16)
-    return (int)launch_fwd<__nv_bfloat16, F32Metric, 16>(soft, sg, d, p, t2p, b, variant, st);
+    return (int)launch_fwd<__nv_bfloat16, F32Metric, 16>(soft, tb, d, p, t2p, b, variant, st);
   if (dtype == 1 && rebase == 32)
-    return (int)launch_fwd<__nv_bfloat16, F32Metric, 32>(soft, sg, d, p, t2p, b, variant, st);
+    return (int)launch_fwd<__nv_bfloat16, F32Metric, 32>(soft, tb, d, p, t2p, b, variant, st);
   if (dtype == 2 && rebase == 4)
-    return (int)launch_fwd<int16_t, I16Metric, 4>(soft, sg, d, p, t2p, b, variant, st);
+    return (int)launch_fwd<int16_t, I16Metric, 4>(soft, tb, d, p, t2p, b, variant, st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -28,8 +28,7 @@ from tpudab_torch.fec.prbs import prbs_bytes
 from tpudab_torch.msc.interleave import TIME_INTERLEAVE_DEPTH, deinterleave_batch
 from tpudab_torch.msc.subchannel import SubchannelConfig, subch_cif_slices
 from tpudab_torch.ofdm.demod import demod_frames_split, dft_operands
-from tpudab_torch.ops.viterbi import radix_tables
-from tpudab_torch.ops.viterbi_cuda import viterbi_decode_bytes_t
+from tpudab_torch.ops.viterbi_cuda import signs_on, viterbi_decode_bytes_t
 from tpudab_torch.synth import (ASCTY_DAB_PLUS, EnsembleSpec, EnsembleSynthesizer,
                                 ServiceSpec, SubchannelSpec, modulate_frame_bits)
 
@@ -98,8 +97,6 @@ class ReceiveStep(nn.Module):
         for name, w in zip(("dft_re", "dft_sum", "dft_diff"),
                            dft_operands(mode, "bfloat16")):
             self.register_buffer(name, w, persistent=False)
-        self.register_buffer("signs", torch.tensor(radix_tables()[0]),
-                             persistent=False)
         # one (profile, slice_bits, padding_bits) group per Viterbi call
         self.groups: Dict[tuple, list] = {}
         for cfg in self.subchannels:
@@ -131,7 +128,7 @@ class ReceiveStep(nn.Module):
         """(B, n_punct) soft -> (B, data_bits // 8) descrambled bytes."""
         i = self._profile_ids[profile]
         soft_t = depuncture_t(punctured, getattr(self, f"depunct_{i}"))
-        by = viterbi_decode_bytes_t(soft_t, self.signs, profile.data_bits)
+        by = viterbi_decode_bytes_t(soft_t, signs_on(soft_t.device), profile.data_bits)
         return by ^ getattr(self, f"prbs_{i}")
 
     def decode_soft(self, carry, soft: torch.Tensor):

@@ -53,6 +53,51 @@ def radix_tables(k: int = RADIX):
     return signs, preds
 
 
+def branch_metric_table(signs: torch.Tensor):
+    """The super-transitions' branch metrics as signed copies of a few
+    distinct sums, the map the CUDA forward pass computes them by.
+
+    signs: the (8, 256) sign table (radix_tables()[0]). Returns
+    (magnitude signs (M, 8) f32 +-1 with column 0 all +1, index (4, 64)
+    int64, negate (4, 64) bool): super-transition (j << 6) | s has the
+    sign pattern of magnitude index[j, s], negated where negate[j, s]
+    (so that its first sign is +1). Magnitudes are in lexicographic order
+    of their patterns. The 256 patterns of DAB's mother code come to 32
+    magnitudes (generators 1 and 4 are both 0133). Raises if there are
+    more than 32: the kernel computes one magnitude per lane of a warp.
+
+    Round-to-nearest is sign-symmetric, so a pattern's index-order sum is
+    exactly the negation of its complement's, up to the sign of an exact
+    zero, which an add to a path metric cannot see (a path metric is never
+    -0)."""
+    s = torch.as_tensor(signs, dtype=torch.float32).cpu()
+    pats = s.t() * s[0][:, None]                              # (256, 8), s0 = +1
+    mags, inverse = torch.unique(pats, dim=0, return_inverse=True)
+    if mags.shape[0] > 32:
+        raise ValueError(f"the sign table has {mags.shape[0]} distinct branch-metric "
+                         f"magnitudes; the kernel takes at most 32")
+    return (mags.contiguous(), inverse.view(4, N_STATES).to(torch.int64),
+            (s[0] < 0).view(4, N_STATES))
+
+
+def shared_branch_metrics_ref(x: torch.Tensor, table) -> torch.Tensor:
+    """One super-step's soft values x (8, B), bf16, f32 or int16 -> the
+    (4, 64, B) branch metrics of super-transitions (j << 6) | s, from the
+    table's magnitudes, each summed once in index order
+    (m = s0*x0; m = m + s1*x1; ...) and negated where the table says: the
+    arithmetic of the CUDA forward pass. f32 sums for bf16 and f32 soft,
+    int16 with wrap-around for int16, as forward_ref."""
+    msigns, index, negate = table
+    mt = torch.int16 if x.dtype == torch.int16 else torch.float32
+    xm = x.to(mt)
+    sg = msigns.to(mt).to(x.device)[:, :, None]               # (M, 8, 1)
+    m = sg[:, 0] * xm[0]
+    for i in range(1, 4 * RADIX):
+        m = m + sg[:, i] * xm[i]                              # (M, B)
+    bm = m[index.to(x.device)]                                # (4, 64, B)
+    return torch.where(negate.to(x.device)[:, :, None], -bm, bm)
+
+
 def pad_mother_soft(mother_soft: torch.Tensor, target_steps: int,
                     amplitude: float = 1.0) -> torch.Tensor:
     """Right-pad (..., T, 4) mother soft bits to (..., target_steps, 4) with

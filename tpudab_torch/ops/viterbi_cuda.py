@@ -24,14 +24,14 @@ import functools
 import torch
 
 from tpudab_torch.ops import _build
-from tpudab_torch.ops.viterbi import (N_STATES, RADIX, REBASE_STEPS, mother_to_t,
-                                      radix_tables, viterbi_decode_bytes_t_ref,
-                                      viterbi_decode_ref)
+from tpudab_torch.ops.viterbi import (N_STATES, RADIX, REBASE_STEPS, branch_metric_table,
+                                      mother_to_t, radix_tables,
+                                      viterbi_decode_bytes_t_ref, viterbi_decode_ref)
 
 __all__ = ["viterbi_decode_bytes_t", "viterbi_decode_bytes_t_cuda",
            "viterbi_decode_bytes_t_ref", "viterbi_decode_best",
            "viterbi_decode_bytes_best", "viterbi_decode_bits_cuda",
-           "viterbi_decode_ref", "signs_on"]
+           "viterbi_decode_ref", "signs_on", "kernel_table", "kernel_table_on"]
 
 
 @functools.lru_cache(maxsize=None)
@@ -40,12 +40,46 @@ def signs_on(device: torch.device) -> torch.Tensor:
     return torch.tensor(radix_tables()[0], device=device)
 
 
-def _check_signs(signs: torch.Tensor, device: torch.device) -> None:
+def kernel_table(signs: torch.Tensor) -> torch.Tensor:
+    """branch_metric_table(signs) packed for csrc/viterbi.cu (LaneTable):
+    (2, 32) int32. Row 0, lane l: bit i set where sign i of magnitude l is
+    -1. Row 1, lane l: bits [5j, 5j+5) the magnitude of super-transition
+    (j << 6) | 2l, bit 20 + j its negation, bit 24 + j the negation of
+    (j << 6) | (2l + 1). Raises unless state 2l + 1 takes the magnitudes
+    of state 2l with j ^ 2 (true of DAB's mother code): the kernel
+    shuffles 4 magnitudes per lane, not 8."""
+    msigns, index, negate = branch_metric_table(signs)
+    lo, hi = index[:, 0::2], index[:, 1::2]
+    if not torch.equal(hi, lo[[2, 3, 0, 1]]):
+        raise ValueError("the sign table does not pair states 2l and 2l + 1 by j ^ 2")
+    table = torch.zeros((2, 32), dtype=torch.int64)
+    table[0, : msigns.shape[0]] = ((msigns < 0).to(torch.int64) << torch.arange(8)).sum(1)
+    j = torch.arange(4)[:, None]
+    table[1] = ((lo << (5 * j)) | (negate[:, 0::2].to(torch.int64) << (20 + j))
+                | (negate[:, 1::2].to(torch.int64) << (24 + j))).sum(0)
+    return table.to(torch.int32)
+
+
+@functools.lru_cache(maxsize=None)
+def kernel_table_on(device: torch.device) -> torch.Tensor:
+    """kernel_table of the radix-2 sign table on device, made once per device."""
+    return kernel_table(torch.from_numpy(radix_tables()[0])).to(device)
+
+
+def _kernel_table_for(signs: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """The kernels' branch-metric table for signs, after checking them:
+    the table is made once per device from DAB's sign table, so signs
+    other than signs_on(device) are compared with it on the device (a
+    sync) and raise if they differ."""
     if signs.device != device or signs.dtype != torch.float32 \
             or signs.shape != (4 * RADIX, N_STATES << RADIX) \
             or not signs.is_contiguous():
         raise ValueError("signs must be the contiguous (8, 256) f32 radix-2 "
                          "sign table on the soft bits' device")
+    if signs is not signs_on(device) and not torch.equal(signs, signs_on(device)):
+        raise ValueError("the CUDA Viterbi kernels decode DAB's mother code only: "
+                         "signs must equal radix_tables()[0]")
+    return kernel_table_on(device)
 
 
 def viterbi_decode_bytes_t_cuda(soft_t: torch.Tensor, signs: torch.Tensor,
@@ -62,7 +96,7 @@ def viterbi_decode_bytes_t_cuda(soft_t: torch.Tensor, signs: torch.Tensor,
                          f"bf16/f32 (T2p % {REBASE_STEPS} == 0, 8, B), got "
                          f"{soft_t.device} {soft_t.dtype} "
                          f"{tuple(soft_t.shape)}, n_data_bits={n_data_bits}")
-    _check_signs(signs, soft_t.device)
+    table = _kernel_table_for(signs, soft_t.device)
     dec = torch.empty((b, t2p // 4, N_STATES), dtype=torch.uint8,
                       device=soft_t.device)
     out = torch.empty((b, n_data_bits // 8), dtype=torch.uint8,
@@ -72,7 +106,7 @@ def viterbi_decode_bytes_t_cuda(soft_t: torch.Tensor, signs: torch.Tensor,
         err = lib.tpudab_viterbi_decode_bytes_t(
             ctypes.c_void_p(soft_t.data_ptr()),
             int(soft_t.dtype == torch.bfloat16),
-            ctypes.c_void_p(signs.data_ptr()), ctypes.c_void_p(dec.data_ptr()),
+            ctypes.c_void_p(table.data_ptr()), ctypes.c_void_p(dec.data_ptr()),
             ctypes.c_void_p(out.data_ptr()), t2p, b, n_data_bits // 8,
             ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
     _build.check(err, "viterbi")
@@ -105,7 +139,7 @@ def viterbi_decode_bits_cuda(mother_soft: torch.Tensor, signs: torch.Tensor,
                          f"(B, T >= n_data_bits, 4), got {mother_soft.device} "
                          f"{mother_soft.dtype} {tuple(mother_soft.shape)}, "
                          f"n_data_bits={n_data_bits}")
-    _check_signs(signs, mother_soft.device)
+    table = _kernel_table_for(signs, mother_soft.device)
     b, t, _ = mother_soft.shape
     t2p = -(-t // (RADIX * REBASE_STEPS)) * REBASE_STEPS
     out = torch.empty((b, n_data_bits), dtype=torch.uint8, device=mother_soft.device)
@@ -116,7 +150,7 @@ def viterbi_decode_bits_cuda(mother_soft: torch.Tensor, signs: torch.Tensor,
         err = lib.tpudab_viterbi_decode_bits(
             ctypes.c_void_p(mother_soft.data_ptr()),
             int(mother_soft.dtype == torch.bfloat16),
-            ctypes.c_void_p(signs.data_ptr()), ctypes.c_void_p(dec.data_ptr()),
+            ctypes.c_void_p(table.data_ptr()), ctypes.c_void_p(dec.data_ptr()),
             ctypes.c_void_p(out.data_ptr()), t, t2p, b, n_data_bits,
             ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
     _build.check(err, "viterbi bits")

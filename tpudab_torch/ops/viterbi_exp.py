@@ -35,7 +35,7 @@ import torch
 
 from tpudab_torch.ops import _build
 from tpudab_torch.ops.viterbi import N_STATES, RADIX, forward_ref, mother_to_t
-from tpudab_torch.ops.viterbi_cuda import _check_signs
+from tpudab_torch.ops.viterbi_cuda import _kernel_table_for
 
 # variant name -> the kernel's variant id (csrc/viterbi.cu::Variant)
 VARIANTS = {"full": 0, "nodec": 1, "noacs": 2, "bmonly": 2, "prefetch": 3, "dbuf": 4,
@@ -86,7 +86,7 @@ def fwd_variant_cuda(soft_t: torch.Tensor, signs: torch.Tensor, variant: str = "
     if not soft_t.is_cuda or not soft_t.is_contiguous():
         raise ValueError(f"fwd_variant_cuda takes a contiguous CUDA tensor, got "
                          f"{soft_t.device}, contiguous={soft_t.is_contiguous()}")
-    _check_signs(signs, soft_t.device)
+    table = _kernel_table_for(signs, soft_t.device)
     t2p, _, b = soft_t.shape
     decs = torch.empty((b, t2p // 4, N_STATES), dtype=torch.uint8, device=soft_t.device)
     pm = torch.empty((b, N_STATES), dtype=torch.float32, device=soft_t.device)
@@ -94,7 +94,7 @@ def fwd_variant_cuda(soft_t: torch.Tensor, signs: torch.Tensor, variant: str = "
     with torch.cuda.device(soft_t.device):
         err = lib.tpudab_viterbi_fwd_variant(
             ctypes.c_void_p(soft_t.data_ptr()), _DTYPES[soft_t.dtype],
-            ctypes.c_void_p(signs.data_ptr()), ctypes.c_void_p(decs.data_ptr()),
+            ctypes.c_void_p(table.data_ptr()), ctypes.c_void_p(decs.data_ptr()),
             ctypes.c_void_p(pm.data_ptr()), t2p, b, VARIANTS[variant], rebase,
             ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
     _build.check(err, f"viterbi forward {variant}")
