@@ -10,21 +10,29 @@ Phases, each of which raises on failure (nothing is caught):
    and spills of each, and the opcode mix of the Viterbi kernels' SASS;
 3. hold each kernel against its plain torch twin at the receive step's
    shapes: Viterbi (K1+K2) for the MSC and the FIC batch, bytes equal;
-   deinterleave (K4), exact; carve + rotate (K5), within 1 bf16 ulp; and
-   the bit-level Viterbi (K1+K3) at the host path's three shapes (FIC
-   (64, 774, 4), MSC (64, 3462, 4), UEP calibration (260, 3078, 4)), bits
-   equal; and K4 again as the host path runs it, on f32 (79, 108 * 64)
-   and (79, 96 * 64) subchannel buffers, exact;
+   deinterleave (K4's mode (a), logical rows), exact; carve + rotate (K5)
+   with the bf16 sum, bit-equal to carve_rotate_tables_ref and within 1
+   bf16 ulp of carve_rotate_ref; the bit-level Viterbi (K1+K3) at the
+   host path's three shapes (FIC (64, 774, 4), MSC (64, 3462, 4), UEP
+   calibration (260, 3078, 4)), bits equal; K4's mode (a) again as the
+   host path runs it, on f32 (79, 108 * 64) and (79, 96 * 64) subchannel
+   buffers, exact; and K4's mode (b), soft bits and carry to the Viterbi
+   input, bit-equal on the step's MSC group and FIC, timed beside the
+   chain of copies and gathers it replaced (unfused_chain);
 4. run the receive step at the bench's size (mode I, six 108-CU EEP 3-A
    subchannels, 32 ensembles x 16 frames per step, bf16 IQ) over three
    chained steps of a synthesised signal: every FIB CRC must pass, the
    known payload of subchannel 1 must come out byte for byte, every
-   kernel's launch count must rise, and ensemble 0's first step must equal
-   the same step run on the CPU through the plain twins;
-5. time the step and each kernel beside its plain twin with CUDA events;
+   kernel's launch count must rise (K4's mode (b) once per subchannel and
+   once for the FIC in each step, mode (a) never), and ensemble 0's first
+   step must equal the same step run on the CPU through the plain twins;
+5. time the step and each kernel beside its plain twin with CUDA events
+   (K4 and K5, shorter than their wrappers' host work, also alone by the
+   profiler's device time: kernel_ms);
 6. trace three more steps with torch.profiler, recording device activity
    only: device time by kernel, and the device's idle share in the
-   CUDA-event window of those steps;
+   CUDA-event window of those steps; then the FEC half alone, which must
+   hold no gather, index_select or cat kernel;
 7. the host per-stage path (Receiver, the path behind decode-bits) on one
    full multiplex: six 108-CU EEP 3-A DAB+ services and one UEP 128 kbps
    PL3 MP2-type service (744 of 864 CU), 64 frames of f32 soft bits
@@ -69,6 +77,7 @@ import time
 import numpy as np
 import torch
 
+from tpudab_torch.constants.dab_params import CU_BITS, get_dab_params
 from tpudab_torch.constants.ofdm_params import SAMPLING_RATE, get_ofdm_params
 from tpudab_torch.constants.puncture import FIC_PROFILE, eep_profile, get_uep_profile
 from tpudab_torch.fec.conv import conv_encode
@@ -77,10 +86,14 @@ from tpudab_torch.fec.depuncture import (depuncture_index, depuncture_np, depunc
                                          puncture)
 from tpudab_torch.models.receiver import Receiver
 from tpudab_torch.models.step import ReceiveStep, bench_capture, bench_subchannels
-from tpudab_torch.msc.interleave import deinterleave_cuda, deinterleave_ref, interleave_delays
+from tpudab_torch.msc.interleave import (SoftRows, deinterleave_cuda,
+                                         deinterleave_depuncture_t_cuda,
+                                         deinterleave_depuncture_t_ref, deinterleave_ref,
+                                         interleave_delays)
+from tpudab_torch.msc.subchannel import subch_cif_slices
 from tpudab_torch.ofdm.demod import demod_frames_split
 from tpudab_torch.ops import _build
-from tpudab_torch.ops.carve import carve_rotate_cuda, carve_rotate_ref
+from tpudab_torch.ops.carve import carve_rotate_cuda, carve_rotate_ref, carve_rotate_tables_ref
 from tpudab_torch.ops.carve_exp import carve_variant_cuda, carve_variant_ref
 from tpudab_torch.ops.i16_probe import OPS as I16_OPS
 from tpudab_torch.ops.i16_probe import i16_probe_cuda, i16_probe_ref
@@ -108,6 +121,9 @@ KERNELS = {  # name -> (source, replaced TPU kernel, wrapper)
                      "tpudab/ops/viterbi_pallas.py:153", viterbi_decode_bits_cuda),
     "deinterleave": ("tpudab_torch/csrc/deinterleave.cu",
                      "tpudab/msc/interleave.py:97", deinterleave_cuda),
+    "deinterleave_depuncture_t": ("tpudab_torch/csrc/deinterleave.cu",
+                                  "tpudab/msc/interleave.py:97",
+                                  deinterleave_depuncture_t_cuda),
     "carve_rotate": ("tpudab_torch/csrc/carve.cu", "tpudab/ops/carve.py:96",
                      carve_rotate_cuda),
     "viterbi_fwd_variant": ("tpudab_torch/csrc/viterbi.cu",
@@ -127,7 +143,10 @@ ALSO_REPLACES = {   # the other TPU kernels each wrapper's kernel stands for
     "viterbi_traceback": ["tools/exp_tb_tree.py:14", "tools/exp_viterbi_decompose.py:406",
                           "tools/exp_depunct_t.py:68"],
 }
-STEP_KERNELS = ("viterbi_fwd_traceback", "deinterleave", "carve_rotate")
+# the XLA index maps (not Pallas kernels) that K4's mode (b) also takes in
+FUSES = {"deinterleave_depuncture_t": ["tpudab/models/step.py:139-170",
+                                       "tpudab/fec/depuncture.py:96"]}
+STEP_KERNELS = ("viterbi_fwd_traceback", "deinterleave_depuncture_t", "carve_rotate")
 HOST_KERNELS = ("viterbi_bits", "deinterleave")
 TOOL_KERNELS = ("viterbi_fwd_variant", "viterbi_traceback", "i16_probe", "carve_variant")
 TOOLS = (exp_viterbi_decompose, exp_viterbi, exp_viterbi_i16, exp_tb_tree, exp_depunct_t,
@@ -182,21 +201,47 @@ EXP_FRAMES = 256                                            # exp_carve's frames
 cuda_ms = timer(torch.device("cuda", 0))   # cuda_ms(fn, reps): mean device ms after a warm-up
 
 
+def kernel_ms(fn, reps: int, name: str) -> float:
+    """Mean device ms per fn() call of the kernels whose name holds `name`,
+    from a torch.profiler trace of reps calls after a warm-up: the kernel
+    alone. cuda_ms brackets the whole call, so where a kernel is shorter
+    than its wrapper's host work it measures the host."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(k.self_device_time_total for k in prof.key_averages()
+                if k.device_type == DeviceType.CUDA and name in k.key)
+    require(total > 0, f"the profiler recorded no device time for {name}")
+    return total / 1e3 / reps
+
+
 def bound(n_bytes: float, n_ops: float):
     """(least ms, "bytes" or "operations"): see HBM_BYTES_PER_S."""
     tb, to = n_bytes / HBM_BYTES_PER_S, n_ops / ALU_OPS_PER_S
     return max(tb, to) * 1e3, ("bytes" if tb >= to else "operations")
 
 
-def carve_bound(frames: torch.Tensor, out: torch.Tensor, rotate: bool = True):
+def carve_bound(frames: torch.Tensor, out: torch.Tensor, rotate: bool = True, n_out: int = 2):
     """Bound of a carve kernel: the re and im samples of the windows in (F x
     n_sym x n_fft each; the null symbol and the cyclic prefixes are never
     read), the f32 rotator tables (F x (n_sym + n_fft) x 2) when it
-    rotates, re and im bf16 windows out."""
+    rotates, n_out bf16 windows out (re, im and, for K5 in the step, their
+    sum)."""
     p = get_ofdm_params(1)
     tables = frames.shape[0] * (p.nb_symbols + p.nb_fft) * 2 * 4 if rotate else 0
-    return bound(2 * out.numel() * frames.element_size() + tables + 2 * out.numel() * 2,
-                 out.numel() * CARVE_OPS if rotate else 0)
+    return bound(2 * out.numel() * frames.element_size() + tables + n_out * out.numel() * 2,
+                 out.numel() * (CARVE_OPS + (n_out == 3)) if rotate else 0)
+
+
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    view = torch.int16 if a.element_size() == 2 else torch.int32
+    return a.dtype == b.dtype and torch.equal(a.view(view), b.view(view))
 
 
 def bf16_ulp_err(xr, xi, rr, ri) -> float:
@@ -328,7 +373,8 @@ def check_kernels(dev, rng, card: str):
     torch.cuda.synchronize()
     if not torch.equal(got, want):
         raise AssertionError("deinterleave kernel differs from the plain gather")
-    ms = cuda_ms(lambda: deinterleave_cuda(buf, c), 20)
+    ms = kernel_ms(lambda: deinterleave_cuda(buf, c), 20, "deint_kernel")
+    call = cuda_ms(lambda: deinterleave_cuda(buf, c), 20)
     plain = cuda_ms(lambda: deinterleave_ref(buf, c), 20)
     # the library yardstick: one torch.gather with a precomputed index
     idx = (torch.arange(c, device=dev)[:, None] + torch.as_tensor(
@@ -337,9 +383,10 @@ def check_kernels(dev, rng, card: str):
         raise AssertionError("torch.gather differs from the plain deinterleave")
     library = cuda_ms(lambda: torch.gather(buf, 1, idx), 20)
     bnd = bound(2 * 2 * want.numel(), 0)    # bf16: c of the c + 15 rows read, c written
-    print(f"K4 deinterleave {tuple(buf.shape)} bf16: exact; kernel {ms:.3f} ms, "
-          f"plain {plain:.3f} ms, torch.gather {library:.3f} ms, bound {bnd[0]:.4f} ms "
-          f"({bnd[1]})  [{card}]")
+    print(f"K4 deinterleave {tuple(buf.shape)} bf16: exact; kernel {ms:.4f} ms (a call "
+          f"{call:.3f} ms), plain {plain:.3f} ms, torch.gather {library:.3f} ms, bound "
+          f"{bnd[0]:.4f} ms ({bnd[1]})  [{card}]")
+    res["deinterleave_call_ms"] = call
     res["deinterleave"] = (0.0, ms, plain)
     res["bound_deinterleave"] = bnd
     res["library_deinterleave"] = library
@@ -350,21 +397,35 @@ def check_kernels(dev, rng, card: str):
     fi = torch.from_numpy(rng.standard_normal((f, rows, 128), dtype=np.float32))
     fr, fi = fr.to(dev, torch.bfloat16), fi.to(dev, torch.bfloat16)
     freq = torch.from_numpy(rng.uniform(-2000.0, 2000.0, f).astype(np.float32)).to(dev)
-    (xr, xi), (rr, ri) = carve_rotate_cuda(fr, fi, freq), carve_rotate_ref(fr, fi, freq)
+    xr, xi, xs = carve_rotate_cuda(fr, fi, freq, with_sum=True)
+    tr, ti, ts = carve_rotate_tables_ref(fr, fi, freq, with_sum=True)
+    rr, ri = carve_rotate_ref(fr, fi, freq)
     torch.cuda.synchronize()
+    require(same_bits(xr, tr) and same_bits(xi, ti) and same_bits(xs, ts),
+            "carve kernel differs from carve_rotate_tables_ref")
     ulps = bf16_ulp_err(xr, xi, rr, ri)
     err = max((xr.float() - rr.float()).abs().max().item(),
               (xi.float() - ri.float()).abs().max().item())
     if ulps > 1.0:
         raise AssertionError(f"carve kernel is {ulps} bf16 ulp from the plain version")
-    ms = cuda_ms(lambda: carve_rotate_cuda(fr, fi, freq), 20)
-    plain = cuda_ms(lambda: carve_rotate_ref(fr, fi, freq), 5)
-    bnd = carve_bound(fr, xr)
-    print(f"K5 carve_rotate ({f}, {rows}, 128) bf16: max {ulps:.0f} bf16 ulp "
-          f"(max abs {err:.3g}); kernel {ms:.3f} ms, plain {plain:.3f} ms, bound "
-          f"{bnd[0]:.3f} ms ({bnd[1]})  [{card}]")
-    res["carve_rotate"] = (err, ms, plain)
+    ms = kernel_ms(lambda: carve_rotate_cuda(fr, fi, freq, with_sum=True), 20, "carve_kernel")
+    ms2 = kernel_ms(lambda: carve_rotate_cuda(fr, fi, freq), 20, "carve_kernel")
+    call = cuda_ms(lambda: carve_rotate_cuda(fr, fi, freq, with_sum=True), 20)
+    plain = cuda_ms(lambda: carve_rotate_tables_ref(fr, fi, freq, with_sum=True), 5)
+    plain_ref = cuda_ms(lambda: carve_rotate_ref(fr, fi, freq, with_sum=True), 5)
+    bnd = carve_bound(fr, xr, n_out=3)
+    bnd2 = carve_bound(fr, xr)
+    print(f"K5 carve_rotate ({f}, {rows}, 128) bf16: xr, xi, xs bit-equal to the tables twin, "
+          f"max {ulps:.0f} bf16 ulp (max abs {err:.3g}) from carve_rotate_ref; kernel "
+          f"{ms:.3f} ms with xs (a call {call:.3f} ms; bound {bnd[0]:.3f} ms, {bnd[1]}), "
+          f"{ms2:.3f} ms without "
+          f"(bound {bnd2[0]:.3f} ms); plain: tables twin {plain:.3f} ms, carve_rotate_ref "
+          f"{plain_ref:.3f} ms  [{card}]")
+    res["carve_rotate"] = (0.0, ms, plain)
     res["bound_carve_rotate"] = bnd
+    res["carve_rotate_extra"] = {"call_ms": call, "ms_without_sum": ms2, "bound_ms_without_sum": bnd2[0],
+                                 "ref_max_ulp": ulps, "ref_max_abs_err": err,
+                                 "ref_plain_ms": plain_ref}
 
     # K4 as the host path runs it: a SubchannelDecoder's f32 (15 + C, S)
     # buffer, 4-byte elements, for the 108-CU EEP and the 96-CU UEP subchannel
@@ -377,12 +438,110 @@ def check_kernels(dev, rng, card: str):
         if not torch.equal(got, want):
             raise AssertionError(f"deinterleave kernel differs from the plain gather "
                                  f"at {tuple(buf.shape)} f32")
-        ms = cuda_ms(lambda: deinterleave_cuda(buf, c), 20)
+        ms = kernel_ms(lambda: deinterleave_cuda(buf, c), 20, "deint_kernel")
         plain = cuda_ms(lambda: deinterleave_ref(buf, c), 20)
-        print(f"K4 deinterleave {tuple(buf.shape)} f32: exact; kernel {ms:.3f} ms, "
+        print(f"K4 deinterleave {tuple(buf.shape)} f32: exact; kernel {ms:.4f} ms, "
               f"plain {plain:.3f} ms  [{card}]")
         res[f"deinterleave_host_{size_cu}cu"] = (0.0, ms, plain)
     return res
+
+
+def unfused_chain(soft, carries, index, fic_index):
+    """The FEC index chain as the step ran it before K4's mode (b): per
+    subchannel the CIF-slice copy, the concatenation with
+    the carry, K4's mode (a) and the carry clone; then the concatenation of
+    the group and depuncture_t's transposed gather; and the FIC's
+    depuncture_t."""
+    dab = get_dab_params(1)
+    c = N_FRAMES * dab.nb_cifs
+    logicals = []
+    for cfg, carry in zip(bench_subchannels(), carries):
+        sl = subch_cif_slices(soft, cfg, dab.nb_fic_bits, dab.nb_cifs)
+        buf = torch.cat([carry, sl.reshape((N_ENS, c, cfg.slice_bits))], dim=-2)
+        logicals.append(deinterleave_cuda(buf, c).reshape(-1, cfg.slice_bits))
+        buf[..., -15:, :].clone()
+    fic = soft[:, : dab.nb_fic_bits].reshape(-1, dab.nb_fic_bits_per_group)
+    return depuncture_t(torch.cat(logicals), index), depuncture_t(fic, fic_index)
+
+
+def check_chain(dev, card):
+    """Phase 3, K4's mode (b) at the step's shapes: the six 108-CU EEP 3-A
+    subchannels of one group (E = 32, c = 64: B = 12,288, T2p = 1,744) and
+    the FIC (B = 2,048, T2p = 400), from random bf16 soft bits and carries:
+    the Viterbi input and the new carries bit-equal to the twin. Times one
+    MSC launch, the group's six, the FIC's, the twin's and the unfused
+    chain (unfused_chain) beside their bounds."""
+    dab = get_dab_params(1)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    soft = torch.randn((N_ENS * N_FRAMES, dab.nb_frame_bits), generator=gen,
+                       device=dev).to(torch.bfloat16)
+    subch = bench_subchannels()
+    s, profile = subch[0].slice_bits, subch[0].profile
+    carries = [torch.randn((N_ENS, 15, s), generator=gen, device=dev).to(torch.bfloat16)
+               for _ in subch]
+    index = torch.as_tensor(depuncture_index(profile), device=dev)
+    n_punct = profile.punctured_bits
+    c = N_FRAMES * dab.nb_cifs
+    n = N_ENS * c
+    rows = [SoftRows.cif_slices(dab.nb_fic_bits, dab.nb_cifs, cfg.start_cu * CU_BITS, s)
+            for cfg in subch]
+    outs = [soft.new_empty((index.shape[0] // 8, 8, len(subch) * n)) for _ in range(2)]
+
+    def group(fn, out):
+        return [fn(soft, r, carry, index, n_punct, out, i * n)
+                for i, (r, carry) in enumerate(zip(rows, carries))]
+    new_k = group(deinterleave_depuncture_t_cuda, outs[0])
+    new_r = group(deinterleave_depuncture_t_ref, outs[1])
+    torch.cuda.synchronize()
+    require(same_bits(outs[0], outs[1]) and all(same_bits(a, b) for a, b in zip(new_k, new_r)),
+            "K4 mode (b) differs from its twin on the MSC group")
+    one = lambda fn: fn(soft, rows[0], carries[0], index, n_punct, outs[0], 0)
+    ms = kernel_ms(lambda: one(deinterleave_depuncture_t_cuda), 20, "deint_kernel")
+    plain = cuda_ms(lambda: one(deinterleave_depuncture_t_ref), 5)
+    group_ms = kernel_ms(lambda: group(deinterleave_depuncture_t_cuda, outs[0]), 10,
+                         "deint_kernel")
+    group_call = cuda_ms(lambda: group(deinterleave_depuncture_t_cuda, outs[0]), 10)
+    group_plain = cuda_ms(lambda: group(deinterleave_depuncture_t_ref, outs[1]), 3)
+    # read: the slice and the carry; written: the Viterbi input's columns
+    # and the new carry; and the index
+    slice_bytes, carry_bytes = n * s * 2, N_ENS * 15 * s * 2
+    bnd = bound(slice_bytes + 2 * carry_bytes + index.shape[0] * n * 2 + index.numel() * 8, 0)
+
+    fic_index = torch.as_tensor(depuncture_index(FIC_PROFILE), device=dev)
+    fic_rows = SoftRows.fib_groups(dab.nb_fib_groups, dab.nb_fic_bits_per_group)
+    n_fic = N_ENS * N_FRAMES * dab.nb_fib_groups
+    fics = [soft.new_empty((fic_index.shape[0] // 8, 8, n_fic)) for _ in range(2)]
+    fic = lambda fn, out: fn(soft, fic_rows, None, fic_index, FIC_PROFILE.punctured_bits, out)
+    fic(deinterleave_depuncture_t_cuda, fics[0])
+    fic(deinterleave_depuncture_t_ref, fics[1])
+    torch.cuda.synchronize()
+    require(same_bits(fics[0], fics[1]), "K4 mode (b) differs from its twin on the FIC")
+    fic_ms = kernel_ms(lambda: fic(deinterleave_depuncture_t_cuda, fics[0]), 20, "deint_kernel")
+    fic_plain = cuda_ms(lambda: fic(deinterleave_depuncture_t_ref, fics[1]), 5)
+    fic_bnd = bound(N_ENS * N_FRAMES * dab.nb_fic_bits * 2 + fic_index.shape[0] * n_fic * 2
+                    + fic_index.numel() * 8, 0)
+
+    msc_t, fic_t = unfused_chain(soft, carries, index, fic_index)
+    torch.cuda.synchronize()
+    require(same_bits(msc_t, outs[1]) and same_bits(fic_t, fics[1]),
+            "the unfused chain differs from the twin")
+    unfused = cuda_ms(lambda: unfused_chain(soft, carries, index, fic_index), 5)
+    print(f"K4 mode (b) deinterleave_depuncture_t MSC (E={N_ENS}, c={c}, S={s}) -> "
+          f"({index.shape[0] // 8}, 8, {len(subch) * n}) bf16: bit-equal to the twin "
+          f"(Viterbi input and new carries); kernel {ms:.4f} ms per subchannel, bound "
+          f"{bnd[0]:.4f} ms ({bnd[1]}); the group's {len(subch)} launches {group_ms:.4f} ms "
+          f"(the calls {group_call:.4f} ms); "
+          f"plain {plain:.3f} ms per subchannel, {group_plain:.3f} ms the group  [{card}]")
+    print(f"K4 mode (b) FIC ({N_ENS * N_FRAMES} frames) -> ({fic_index.shape[0] // 8}, 8, "
+          f"{n_fic}) bf16: bit-equal; kernel {fic_ms:.4f} ms, bound {fic_bnd[0]:.4f} ms "
+          f"({fic_bnd[1]}), plain {fic_plain:.3f} ms; the unfused chain (K4 mode (a), "
+          f"copies, depuncture_t gathers) for the group and the FIC {unfused:.3f} ms, "
+          f"mode (b) {group_ms + fic_ms:.4f} ms  [{card}]")
+    return {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain, "bound_ms": bnd[0],
+            "bound_by": bnd[1], "library_ms": None, "group_ms": group_ms,
+            "group_call_ms": group_call,
+            "group_plain_ms": group_plain, "fic_ms": fic_ms, "fic_plain_ms": fic_plain,
+            "fic_bound_ms": fic_bnd[0], "unfused_chain_ms": unfused}
 
 
 def awgn_mother(rng, profile, b: int) -> np.ndarray:
@@ -439,10 +598,17 @@ def run_main_path(dev, card):
         outs.append(out)
     torch.cuda.synchronize()
     launches = {name: KERNELS[name][2].launches for name in STEP_KERNELS}
-    print(f"main path: {N_STEPS} steps of E={N_ENS} x F={N_FRAMES}; launches {launches}")
+    mode_a = deinterleave_cuda.launches
+    print(f"main path: {N_STEPS} steps of E={N_ENS} x F={N_FRAMES}; launches {launches}; "
+          f"K4 mode (a) {mode_a}")
     for name, n in launches.items():
         if n == 0:
             raise AssertionError(f"kernel {name} was not launched by the main path")
+    n_chain = N_STEPS * (len(subch) + 1)   # each subchannel's, and the FIC's
+    require(launches["deinterleave_depuncture_t"] >= n_chain and mode_a == 0,
+            f"the step's FEC chain did not run through K4 mode (b) alone: "
+            f"{launches['deinterleave_depuncture_t']} launches (want {n_chain}), "
+            f"mode (a) {mode_a}")
     for k, out in enumerate(outs):
         check_outputs(out, payload, k, subch[0].subch_id)
     print("main path: FIB CRC 1.0 on every step; subchannel 1 payload byte-equal")
@@ -470,7 +636,7 @@ def run_main_path(dev, card):
 
     # step shares, each component timed alone at its in-step shapes
     x = torch.randn((N_ENS * N_FRAMES, 76, 2048), device=dev).to(torch.bfloat16)
-    dft_ms = cuda_ms(lambda: (torch.matmul(x + x, step.dft_re), torch.matmul(x, step.dft_sum),
+    dft_ms = cuda_ms(lambda: (torch.matmul(x, step.dft_re), torch.matmul(x, step.dft_sum),
                               torch.matmul(x, step.dft_diff)), 10)
 
     def demod():
@@ -484,6 +650,7 @@ def run_main_path(dev, card):
     print(f"step parts [{card}]: " + ", ".join(
         f"{k} {v:.2f} ms ({100 * v / step_ms:.1f}%)" for k, v in parts.items()))
     state["carry"] = device_breakdown(step, state["carry"], chunks[0], freq, step_ms, card)
+    fec_breakdown(step, state["carry"], soft, card)
     return launches, step_ms
 
 
@@ -516,6 +683,30 @@ def device_breakdown(step, carry, chunk, freq, step_ms: float, card: str):
     for name, ms, n in sorted(kernels, key=lambda r: -r[1])[:25]:
         print(f"  {ms:9.3f} ms {100 * ms / busy:5.1f}%  x{n:<4d} {name[:100]}")
     return carry
+
+
+def fec_breakdown(step, carry, soft, card: str) -> None:
+    """Phase 6, the FEC half (decode_soft) traced alone, device activity
+    only: its kernels by name. Fails if a gather, index_select or cat
+    kernel is left in it: K4's mode (b) does that work now."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        step.decode_soft(carry, soft)
+        torch.cuda.synchronize()
+    kernels = [(k.key, k.self_device_time_total / 1e3, k.count) for k in prof.key_averages()
+               if k.device_type == DeviceType.CUDA and k.self_device_time_total > 0]
+    if not kernels:
+        print("FEC breakdown: not measured (the profiler recorded no device time)")
+        return
+    print(f"FEC half alone, traced [{card}]: busy {sum(r[1] for r in kernels):.3f} ms, "
+          f"{sum(r[2] for r in kernels)} device activities")
+    for name, ms, n in sorted(kernels, key=lambda r: -r[1]):
+        print(f"  {ms:9.3f} ms  x{n:<4d} {name[:100]}")
+    left = [name for name, *_ in kernels if any(
+        w in name.lower() for w in ("indexselect", "index_select", "gather", "catarray"))]
+    require(not left, f"the FEC half still runs gather, index_select or cat kernels: {left}")
 
 
 def host_capture(n_frames: int):
@@ -860,9 +1051,11 @@ def main() -> None:
     build()
     rng = np.random.default_rng(SEED)
     res = check_kernels(dev, rng, card)
+    chain = check_chain(dev, card)
     launches, step_ms = run_main_path(dev, card)
     host_launches, _ = run_host_path(dev, card)
     launches["viterbi_bits"] = host_launches["viterbi_bits"]   # K3 runs on the host path only
+    launches["deinterleave"] = host_launches["deinterleave"]   # mode (a): the host path only
     host_k4 = [(cu, *res[f"deinterleave_host_{cu}cu"][1:]) for cu in (108, 96)]
     print(f"K4 deinterleave on the host path: {host_launches['deinterleave']} launches; "
           + ", ".join(f"f32 ({4 * HOST_BATCH + 15}, {cu * 64}) kernel {ms:.3f} ms, "
@@ -870,7 +1063,7 @@ def main() -> None:
     msc, fic = res["viterbi_msc"], res["viterbi_fic"]
     shares = {
         "viterbi_fwd_traceback": msc[1] + fic[1],
-        "deinterleave": res["deinterleave"][1] * 6,
+        "deinterleave_depuncture_t": chain["group_ms"] + chain["fic_ms"],
         "carve_rotate": res["carve_rotate"][1],
     }
     print(f"kernel shares of the step [{card}]: " + ", ".join(
@@ -898,7 +1091,9 @@ def main() -> None:
         "viterbi_fwd_traceback": old("viterbi_msc", "bound_viterbi_msc"),
         "viterbi_bits": old("viterbi_bits_msc", "bound_viterbi_bits_msc"),
         "deinterleave": old("deinterleave", "bound_deinterleave", res["library_deinterleave"]),
-        "carve_rotate": old("carve_rotate", "bound_carve_rotate"),
+        "deinterleave_depuncture_t": chain,
+        "carve_rotate": {**old("carve_rotate", "bound_carve_rotate"),
+                         **res["carve_rotate_extra"]},
         "viterbi_fwd_variant": new(fwd["full"]),
         "viterbi_traceback": new(tb["shuffle"]),
         "i16_probe": new(probe["add"]),
@@ -910,12 +1105,14 @@ def main() -> None:
                  "launches": launches[name], **measured[name]}
         if name in ALSO_REPLACES:
             entry["also_replaces"] = ALSO_REPLACES[name]
+        if name in FUSES:
+            entry["also_fuses"] = FUSES[name]
         if name == "viterbi_bits":
             entry["ms_by_shape"] = {k: res[f"viterbi_bits_{k}"][1:]
                                     for k in ("fic", "msc", "calibration")}
             entry["serial_bound_ms"] = res["bound_viterbi_bits_msc"][2]
         if name == "deinterleave":
-            entry["host_path_launches"] = host_launches["deinterleave"]
+            entry["call_ms"] = res["deinterleave_call_ms"]
             entry["host_path_ms_by_shape"] = {k: res[f"deinterleave_host_{k}"][1:]
                                               for k in ("108cu", "96cu")}
         if name == "viterbi_fwd_variant":

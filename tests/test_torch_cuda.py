@@ -11,11 +11,15 @@ import numpy as np
 import pytest
 import torch
 
-from tpudab_torch.constants.puncture import FIC_PROFILE, eep_profile
+from tpudab_torch.constants.dab_params import CU_BITS, get_dab_params
+from tpudab_torch.constants.ofdm_params import get_ofdm_params
+from tpudab_torch.constants.puncture import FIC_PROFILE, eep_profile, get_uep_profile
 from tpudab_torch.fec.depuncture import depuncture_index, depuncture_t
 from tpudab_torch.models.step import ReceiveStep, bench_subchannels
-from tpudab_torch.msc.interleave import deinterleave_cuda, deinterleave_ref
-from tpudab_torch.ops.carve import carve_rotate_cuda, carve_rotate_ref
+from tpudab_torch.msc.interleave import (SoftRows, deinterleave_cuda,
+                                         deinterleave_depuncture_t_cuda,
+                                         deinterleave_depuncture_t_ref, deinterleave_ref)
+from tpudab_torch.ops.carve import carve_rotate_cuda, carve_rotate_ref, carve_rotate_tables_ref
 from tpudab_torch.ops.carve_exp import carve_variant_cuda, carve_variant_ref
 from tpudab_torch.ops.i16_probe import OPS as I16_OPS
 from tpudab_torch.ops.i16_probe import i16_probe_cuda, i16_probe_ref
@@ -75,6 +79,89 @@ def test_deinterleave_kernel_exact(dev, dtype):
     torch.cuda.synchronize()
     assert torch.equal(got, deinterleave_ref(buf, 8))
     assert torch.equal(deinterleave_cuda(buf[0], 8), deinterleave_ref(buf[0], 8))
+
+
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    view = torch.int16 if a.element_size() == 2 else torch.int32
+    return a.dtype == b.dtype and torch.equal(a.view(view), b.view(view))
+
+
+# mode, ensembles, frames per ensemble, [(start CU, size CU)], (profile, padding)
+CHAINS = {
+    "mode2_E3_c5": (2, 3, 5, [(0, 24), (24, 24)], (eep_profile(24, 3, 0), 0)),
+    "16cu_eep2a": (1, 2, 2, [(100, 16)], (eep_profile(16, 2, 0), 0)),
+    "uep_group_padded": (1, 3, 1, [(0, 96), (96, 96)],
+                         (get_uep_profile(128, 3).to_profile(),
+                          get_uep_profile(128, 3).padding_bits)),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", sorted(CHAINS))
+def test_deinterleave_depuncture_t_kernel_exact(dev, case, dtype):
+    """K4 mode (b): the Viterbi input and the new carries bit-equal to the
+    twin at ragged shapes (c = 5; c < 15, so the new carry is part old
+    carry; a UEP group with padding), one launch per subchannel."""
+    mode, n_ens, n_frames, layout, (profile, padding) = CHAINS[case]
+    dab = get_dab_params(mode)
+    rng = np.random.default_rng(21)
+    soft = torch.from_numpy(rng.standard_normal((n_ens * n_frames, dab.nb_frame_bits),
+                                                dtype=np.float32)).to(dev, dtype)
+    index = torch.tensor(depuncture_index(profile), device=dev)
+    n = n_ens * n_frames * dab.nb_cifs
+    outs = [torch.full((index.shape[0] // 8, 8, len(layout) * n + 3), 7.0, dtype=dtype,
+                       device=dev) for _ in range(2)]
+    for i, (start, size) in enumerate(layout):
+        rows = SoftRows.cif_slices(dab.nb_fic_bits, dab.nb_cifs, start * CU_BITS, size * CU_BITS)
+        carry = torch.from_numpy(rng.standard_normal((n_ens, 15, size * CU_BITS),
+                                                     dtype=np.float32)).to(dev, dtype)
+        n0 = deinterleave_depuncture_t_cuda.launches
+        got = deinterleave_depuncture_t_cuda(soft, rows, carry, index, size * CU_BITS - padding,
+                                             outs[0], 1 + i * n)
+        torch.cuda.synchronize()
+        assert deinterleave_depuncture_t_cuda.launches == n0 + 1
+        want = deinterleave_depuncture_t_ref(soft, rows, carry, index, size * CU_BITS - padding,
+                                             outs[1], 1 + i * n)
+        assert same_bits(got, want)
+    assert same_bits(outs[0], outs[1])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_deinterleave_depuncture_t_fic_at_one_frame(dev, dtype):
+    """K4 mode (b) at depth 1: the FIC of one frame, 4 FIB groups."""
+    dab = get_dab_params(1)
+    rng = np.random.default_rng(22)
+    soft = torch.from_numpy(rng.standard_normal((1, dab.nb_frame_bits),
+                                                dtype=np.float32)).to(dev, dtype)
+    index = torch.tensor(depuncture_index(FIC_PROFILE), device=dev)
+    rows = SoftRows.fib_groups(dab.nb_fib_groups, dab.nb_fic_bits_per_group)
+    outs = [torch.full((index.shape[0] // 8, 8, 4), 7.0, dtype=dtype, device=dev)
+            for _ in range(2)]
+    assert deinterleave_depuncture_t_cuda(soft, rows, None, index, FIC_PROFILE.punctured_bits,
+                                          outs[0]) is None
+    deinterleave_depuncture_t_ref(soft, rows, None, index, FIC_PROFILE.punctured_bits, outs[1])
+    torch.cuda.synchronize()
+    assert same_bits(outs[0], outs[1])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", [1, 2, 3, 4])
+def test_carve_kernel_equals_tables_twin(dev, mode, dtype):
+    """K5's xr, xi and xs bit-equal to carve_rotate_tables_ref on the card,
+    in every mode (window starts at every alignment mod 8), f32 and bf16
+    frames; the two-output call gives the same xr, xi."""
+    rng = np.random.default_rng(23)
+    rows = get_ofdm_params(mode).nb_frame_length // 128
+    fr, fi = (torch.from_numpy(rng.standard_normal((3, rows, 128), dtype=np.float32)).to(dev, dtype)
+              for _ in range(2))
+    freq = torch.tensor([1999.0, -2000.0, 731.5], device=dev)
+    got = carve_rotate_cuda(fr, fi, freq, mode, with_sum=True)
+    two = carve_rotate_cuda(fr, fi, freq, mode)
+    torch.cuda.synchronize()
+    want = carve_rotate_tables_ref(fr, fi, freq, mode, with_sum=True)
+    for g, w in zip(got, want):
+        assert same_bits(g, w)
+    assert same_bits(two[0], got[0]) and same_bits(two[1], got[1])
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

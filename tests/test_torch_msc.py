@@ -58,15 +58,29 @@ def test_cif_slices(start, size):
 def test_kernel_wrappers_refuse_cpu_tensors():
     """Dispatch is by device alone: the CUDA wrappers never fall back to
     the plain twins, they raise on a CPU tensor."""
-    from tpudab_torch.msc.interleave import deinterleave_cuda
+    from tpudab_torch.constants.dab_params import get_dab_params
+    from tpudab_torch.fec.depuncture import depuncture_index
+    from tpudab_torch.msc.interleave import (SoftRows, deinterleave_cuda,
+                                             deinterleave_depuncture_t_cuda)
     from tpudab_torch.ops.carve import carve_rotate_cuda
     from tpudab_torch.ops.viterbi import radix_tables
     from tpudab_torch.ops.viterbi_cuda import viterbi_decode_bytes_t_cuda
     with pytest.raises(ValueError):
         deinterleave_cuda(torch.zeros((23, 16)), 8)
+    dab = get_dab_params(1)
+    index = torch.from_numpy(depuncture_index(eep_profile(24, 3, 0)))
+    rows = SoftRows.cif_slices(dab.nb_fic_bits, dab.nb_cifs, 0, 24 * 64)
+    n0 = deinterleave_depuncture_t_cuda.launches
+    with pytest.raises(ValueError):
+        deinterleave_depuncture_t_cuda(torch.zeros((1, dab.nb_frame_bits)), rows,
+                                       torch.zeros((15, 24 * 64)), index, 24 * 64,
+                                       torch.zeros((index.shape[0] // 8, 8, 4)))
+    assert deinterleave_depuncture_t_cuda.launches == n0
     frames = torch.zeros((1, 1536, 128))
     with pytest.raises(ValueError):
         carve_rotate_cuda(frames, frames, 0.0)
+    with pytest.raises(ValueError):
+        carve_rotate_cuda(frames, frames, 0.0, with_sum=True)
     with pytest.raises(ValueError):
         viterbi_decode_bytes_t_cuda(torch.zeros((16, 8, 4)),
                                     torch.from_numpy(radix_tables()[0]), 8)

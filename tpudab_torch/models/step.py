@@ -4,7 +4,8 @@ Counterpart of tpudab.models.step.ReceiveStep, the device program that
 tpudab's bench.py times and its live radio runs: PLL + carve (kernel K5),
 dense-DFT demod, FIC depuncture/Viterbi (K1 + K2)/descramble, and per
 subchannel the CIF slices, the 16-deep time deinterleave with its ring
-carry (K4), depuncture/Viterbi/descramble to packed bytes.
+carry and the depuncture (one K4 launch from the soft bits to the Viterbi
+input), then Viterbi/descramble to packed bytes.
 
 Subchannels with the same coding geometry (profile, slice size, padding)
 batch into one Viterbi call across subchannels and ensembles. Every static
@@ -20,13 +21,14 @@ import numpy as np
 import torch
 from torch import nn
 
-from tpudab_torch.constants.dab_params import get_dab_params
+from tpudab_torch.constants.dab_params import CU_BITS, get_dab_params
 from tpudab_torch.constants.ofdm_params import get_ofdm_params
 from tpudab_torch.constants.puncture import FIC_PROFILE, FIC_PROFILE_MODE3, eep_profile
-from tpudab_torch.fec.depuncture import depuncture_index, depuncture_t
+from tpudab_torch.fec.depuncture import depuncture_index
 from tpudab_torch.fec.prbs import prbs_bytes
-from tpudab_torch.msc.interleave import TIME_INTERLEAVE_DEPTH, deinterleave_batch
-from tpudab_torch.msc.subchannel import SubchannelConfig, subch_cif_slices
+from tpudab_torch.msc.interleave import (TIME_INTERLEAVE_DEPTH, SoftRows,
+                                         deinterleave_depuncture_t)
+from tpudab_torch.msc.subchannel import SubchannelConfig
 from tpudab_torch.ofdm.demod import demod_frames_split, dft_operands
 from tpudab_torch.ops.viterbi_cuda import signs_on, viterbi_decode_bytes_t
 from tpudab_torch.synth import (ASCTY_DAB_PLUS, EnsembleSpec, EnsembleSynthesizer,
@@ -124,21 +126,30 @@ class ReceiveStep(nn.Module):
 
     # -------- the chain --------
 
-    def _decode_descramble(self, punctured: torch.Tensor, profile) -> torch.Tensor:
-        """(B, n_punct) soft -> (B, data_bits // 8) descrambled bytes."""
-        i = self._profile_ids[profile]
-        soft_t = depuncture_t(punctured, getattr(self, f"depunct_{i}"))
+    def _viterbi_input(self, soft: torch.Tensor, profile, n_codewords: int):
+        """(index, n_punct, empty (T2p, 8, n_codewords) Viterbi input)."""
+        index = getattr(self, f"depunct_{self._profile_ids[profile]}")
+        return (index, profile.punctured_bits,
+                soft.new_empty((index.shape[0] // 8, 8, n_codewords)))
+
+    def _decode_descramble(self, soft_t: torch.Tensor, profile) -> torch.Tensor:
+        """(T2p, 8, B) Viterbi input -> (B, data_bits // 8) descrambled bytes."""
         by = viterbi_decode_bytes_t(soft_t, signs_on(soft_t.device), profile.data_bits)
-        return by ^ getattr(self, f"prbs_{i}")
+        return by ^ getattr(self, f"prbs_{self._profile_ids[profile]}")
 
     def decode_soft(self, carry, soft: torch.Tensor):
         """The FEC half of the step: flat soft (E*F, nb_frame_bits) in
-        soft_dtype -> (new carry, fic_bytes, subch)."""
+        soft_dtype -> (new carry, fic_bytes, subch). Each FIC batch and
+        each subchannel goes from the soft bits (and its carry) to its
+        columns of its group's Viterbi input in one deinterleave_depuncture_t
+        (kernel K4 on CUDA)."""
         dab, e = self.dab, self.n_ensembles
         f = soft.shape[0] // e
         g = dab.nb_fib_groups
-        fic_groups = soft[:, : dab.nb_fic_bits].reshape(-1, dab.nb_fic_bits_per_group)
-        fic_bytes = self._decode_descramble(fic_groups, self.fic_profile)
+        index, n_punct, fic_t = self._viterbi_input(soft, self.fic_profile, soft.shape[0] * g)
+        deinterleave_depuncture_t(soft, SoftRows.fib_groups(g, dab.nb_fic_bits_per_group),
+                                  None, index, n_punct, fic_t)
+        fic_bytes = self._decode_descramble(fic_t, self.fic_profile)
         if e > 1:
             fic_bytes = fic_bytes.reshape(e, f * g, -1)
 
@@ -146,18 +157,15 @@ class ReceiveStep(nn.Module):
         lead = (e,) if e > 1 else ()
         new_carry = dict(carry)
         subch = {}
-        for (profile, slice_bits, padding_bits), cfgs in self.groups.items():
-            logicals = []
-            for cfg in cfgs:
-                sl = subch_cif_slices(soft, cfg, dab.nb_fic_bits, dab.nb_cifs)
-                sl = sl.reshape(lead + (c, slice_bits))
-                buf = torch.cat([carry[f"deint_{cfg.subch_id}"], sl], dim=-2)
-                logicals.append(deinterleave_batch(buf, c).reshape(-1, slice_bits))
-                new_carry[f"deint_{cfg.subch_id}"] = \
-                    buf[..., -(TIME_INTERLEAVE_DEPTH - 1):, :].clone()
-            logical = torch.cat(logicals, dim=0) if len(logicals) > 1 else logicals[0]
-            body = logical[:, : slice_bits - padding_bits] if padding_bits else logical
-            by = self._decode_descramble(body, profile)
+        for (profile, slice_bits, _), cfgs in self.groups.items():
+            index, n_punct, soft_t = self._viterbi_input(soft, profile, len(cfgs) * e * c)
+            for i, cfg in enumerate(cfgs):
+                key = f"deint_{cfg.subch_id}"
+                rows = SoftRows.cif_slices(dab.nb_fic_bits, dab.nb_cifs,
+                                           cfg.start_cu * CU_BITS, slice_bits)
+                new_carry[key] = deinterleave_depuncture_t(
+                    soft, rows, carry[key], index, n_punct, soft_t, i * e * c)
+            by = self._decode_descramble(soft_t, profile)
             by = by.reshape((len(cfgs),) + lead + (c, -1))
             for i, cfg in enumerate(cfgs):
                 subch[cfg.subch_id] = by[i]

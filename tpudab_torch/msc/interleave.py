@@ -8,22 +8,35 @@ synthesizer-side interleave_np).
 
 with d the bit-reversed 0..15 delay table and buf holding 15 rows of
 history before the c new CIF slices. Pure selection, so exact in any dtype.
-A CPU tensor takes deinterleave_ref; a CUDA tensor the kernel in
-csrc/deinterleave.cu.
+
+Two entries, each dispatching on the tensor's device (CPU: the plain
+twin; CUDA: the kernel in csrc/deinterleave.cu, or an error):
+- deinterleave_batch: logical rows from a (..., c+15, S) buffer (the host
+  path's SubchannelDecoder);
+- deinterleave_depuncture_t: the receive step's whole index chain for one
+  subchannel, from the flat soft bits and the carry straight to its
+  columns of the Viterbi input (T2p, 8, B), plus the new carry; at depth 1
+  the same for the FIC's FIB groups.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
+from typing import Optional
 
 import numpy as np
 import torch
 
+from tpudab_torch.constants.dab_params import CIF_BITS
+from tpudab_torch.fec.depuncture import depuncture_t
 from tpudab_torch.ops import _build
 
 __all__ = ["TIME_INTERLEAVE_DEPTH", "interleave_delays", "interleave_np",
-           "deinterleave_batch", "deinterleave_ref", "deinterleave_cuda"]
+           "deinterleave_batch", "deinterleave_ref", "deinterleave_cuda",
+           "SoftRows", "deinterleave_depuncture_t", "deinterleave_depuncture_t_ref",
+           "deinterleave_depuncture_t_cuda"]
 
 TIME_INTERLEAVE_DEPTH = 16
 
@@ -104,3 +117,126 @@ def deinterleave_batch(buf: torch.Tensor, c: int) -> torch.Tensor:
     if buf.device.type == "cpu":
         return deinterleave_ref(buf, c)
     return deinterleave_cuda(buf, c)
+
+
+@dataclasses.dataclass(frozen=True)
+class SoftRows:
+    """Where a chain's input rows lie in the flat soft bits (E*F,
+    frame_bits): row n of ensemble e (F frames each) is the `width` bits at
+    soft[e*F + n // per_frame, base + (n % per_frame) * pitch]."""
+
+    base: int
+    per_frame: int
+    pitch: int
+    width: int
+
+    @classmethod
+    def cif_slices(cls, nb_fic_bits: int, nb_cifs: int, start_bit: int,
+                   slice_bits: int) -> "SoftRows":
+        """A subchannel's CIF slices, as msc.subchannel.subch_cif_slices."""
+        return cls(nb_fic_bits + start_bit, nb_cifs, CIF_BITS, slice_bits)
+
+    @classmethod
+    def fib_groups(cls, n_groups: int, group_bits: int) -> "SoftRows":
+        """The FIC's FIB groups at the head of each frame."""
+        return cls(0, n_groups, group_bits, group_bits)
+
+    def view(self, soft: torch.Tensor) -> torch.Tensor:
+        """Contiguous (E*F, frame_bits) -> (E*F, per_frame, width) view."""
+        return soft.as_strided((soft.shape[0], self.per_frame, self.width),
+                               (soft.shape[1], self.pitch, 1),
+                               soft.storage_offset() + self.base)
+
+
+def _chain_shape(soft, rows: SoftRows, carry, index, n_punct: int, out, col0: int):
+    """Check a deinterleave_depuncture_t call; return (E, c): ensembles and
+    codewords per ensemble."""
+    hist = TIME_INTERLEAVE_DEPTH - 1
+    if soft.dim() != 2 or not soft.is_contiguous() \
+            or rows.base + (rows.per_frame - 1) * rows.pitch + rows.width > soft.shape[1]:
+        raise ValueError(f"soft {tuple(soft.shape)} is not a contiguous (rows, "
+                         f"frame_bits) tensor holding {rows}")
+    e = 1
+    if carry is not None:
+        e = carry.shape[0] if carry.dim() == 3 else 1
+        if carry.shape[-2:] != (hist, rows.width) or carry.dim() not in (2, 3) \
+                or rows.width % TIME_INTERLEAVE_DEPTH or soft.shape[0] % e \
+                or carry.dtype != soft.dtype:
+            raise ValueError(f"carry {carry.dtype} {tuple(carry.shape)} is not "
+                             f"([E,] {hist}, {rows.width}) in {soft.dtype} with "
+                             f"E dividing {soft.shape[0]} frames")
+    c = soft.shape[0] // e * rows.per_frame
+    if index.dim() != 1 or index.shape[0] % 8 or not 0 < n_punct <= rows.width \
+            or out.shape[:2] != (index.shape[0] // 8, 8) or out.dim() != 3 \
+            or not 0 <= col0 <= out.shape[2] - e * c or out.dtype != soft.dtype:
+        raise ValueError(f"out {out.dtype} {tuple(out.shape)} at column {col0} does "
+                         f"not take the ({index.shape[0] // 8}, 8, {e * c}) "
+                         f"Viterbi input of n_punct {n_punct}")
+    return e, c
+
+
+def deinterleave_depuncture_t_ref(soft: torch.Tensor, rows: SoftRows,
+                                  carry: Optional[torch.Tensor], index: torch.Tensor,
+                                  n_punct: int, out: torch.Tensor, col0: int = 0):
+    """Plain torch twin of the receive step's chain for one subchannel:
+    the CIF slices of `rows` in the flat soft (E*F, frame_bits), the carry
+    ([E,] 15, width) before them, deinterleave_ref, the body cut to n_punct
+    bits and depuncture_t with index = depuncture_index(profile). Writes
+    the (T2p, 8, E*c) Viterbi input into out[:, :, col0:], codeword
+    e*c + j being ensemble e's logical frame j, and returns the new carry,
+    the buffer's last 15 rows. carry None: depth 1 (the FIC), no
+    deinterleave, returns None."""
+    e, c = _chain_shape(soft, rows, carry, index, n_punct, out, col0)
+    sl = rows.view(soft)
+    if carry is None:
+        logical, new_carry = sl.reshape(-1, rows.width), None
+    else:
+        buf = torch.cat([carry, sl.reshape(carry.shape[:-2] + (c, rows.width))], dim=-2)
+        logical = deinterleave_ref(buf, c).reshape(-1, rows.width)
+        new_carry = buf[..., -(TIME_INTERLEAVE_DEPTH - 1):, :].clone()
+    out[:, :, col0:col0 + e * c] = depuncture_t(logical[:, :n_punct], index)
+    return new_carry
+
+
+def deinterleave_depuncture_t_cuda(soft: torch.Tensor, rows: SoftRows,
+                                   carry: Optional[torch.Tensor], index: torch.Tensor,
+                                   n_punct: int, out: torch.Tensor, col0: int = 0):
+    """Kernel K4, mode (b), on CUDA tensors: one launch, same contract as
+    deinterleave_depuncture_t_ref. 2- or 4-byte elements; index int64;
+    the soft bits, the carry and every row start 16-byte aligned."""
+    e, c = _chain_shape(soft, rows, carry, index, n_punct, out, col0)
+    size = soft.element_size()
+    tensors = [soft, index, out] + ([carry] if carry is not None else [])
+    aligned = all(t.data_ptr() % 16 == 0 for t in tensors if t is not index) and all(
+        v * size % 16 == 0 for v in (rows.base, rows.pitch, rows.width, soft.shape[1]))
+    if not all(t.is_cuda and t.is_contiguous() for t in tensors) or size not in (2, 4) \
+            or index.dtype != torch.int64 or not aligned \
+            or e * -(-c // (128 // size)) > 65535:
+        raise ValueError(f"deinterleave_depuncture_t_cuda takes contiguous, 16-byte "
+                         f"aligned CUDA tensors with 2- or 4-byte elements and an "
+                         f"int64 index, got soft {soft.device} {soft.dtype} "
+                         f"{tuple(soft.shape)}, {rows}, index {index.dtype}")
+    new_carry = torch.empty_like(carry) if carry is not None else None
+    ptr = lambda t: ctypes.c_void_p(t.data_ptr() if t is not None else None)
+    lib = _build.load_library()
+    with torch.cuda.device(soft.device):
+        err = lib.tpudab_deinterleave_depuncture_t(
+            ptr(soft), ptr(carry), ptr(new_carry), ptr(index), ptr(out), e,
+            soft.shape[0] // e, rows.per_frame, soft.shape[1], rows.base, rows.pitch,
+            rows.width, c, index.shape[0], n_punct, out.shape[2], col0, size,
+            ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+    _build.check(err, "deinterleave_depuncture_t")
+    deinterleave_depuncture_t_cuda.launches += 1
+    return new_carry
+
+
+deinterleave_depuncture_t_cuda.launches = 0
+
+
+def deinterleave_depuncture_t(soft: torch.Tensor, rows: SoftRows,
+                              carry: Optional[torch.Tensor], index: torch.Tensor,
+                              n_punct: int, out: torch.Tensor, col0: int = 0):
+    """Dispatch on soft's device: CPU -> the plain twin, CUDA -> K4 mode (b)."""
+    if soft.device.type == "cpu":
+        return deinterleave_depuncture_t_ref(soft, rows, carry, index, n_punct, out, col0)
+    return deinterleave_depuncture_t_cuda(soft, rows, carry, index, n_punct, out, col0)

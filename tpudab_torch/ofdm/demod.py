@@ -6,7 +6,8 @@ select and frequency deinterleave are one dense DFT matmul per split part
 
 Two DFT paths, chosen by the operands' dtype (dft_operands):
 - bf16 (the receive step's): carve + rotate to bf16 (kernel K5 on CUDA,
-  tpudab_torch.ops.carve), then the 3-matmul Karatsuba complex product with
+  tpudab_torch.ops.carve, which also writes the sum ar + ai that the first
+  product takes), then the 3-matmul Karatsuba complex product with
   bf16 outputs. tpudab's dot accumulates in f32 and rounds once to bf16;
   cuBLAS may instead reduce split-K partial sums in bf16 unless
   torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction is
@@ -73,11 +74,13 @@ def demod_frames_split(frames_re, frames_im, freq_hz, operands, mode: int = 1,
 
     if operands[0].dtype == torch.bfloat16:
         wc, wcd, wdc = operands
-        xr, xi = carve_rotate(frames_re, frames_im, freq_hz, mode, window_offset)
+        xr, xi, xs = carve_rotate(frames_re, frames_im, freq_hz, mode, window_offset,
+                                  with_sum=True)
         ar = xr.view(f, n_sym, n_fft)
         ai = xi.view(f, n_sym, n_fft)
-        # Karatsuba: three products instead of four, bf16 outputs
-        m1 = torch.matmul(ar + ai, wc)
+        # Karatsuba: three products instead of four, bf16 outputs; xs is
+        # the bf16 ar + ai, written by the carve
+        m1 = torch.matmul(xs.view(f, n_sym, n_fft), wc)
         m2 = torch.matmul(ai, wcd)
         m3 = torch.matmul(ar, wdc)
         cr = m1 - m2

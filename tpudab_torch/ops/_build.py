@@ -35,7 +35,9 @@ SIGNATURES = {
     "tpudab_viterbi_decode_bytes_t": (_P, _I, _P, _P, _P, _I, _I, _I, _P),
     "tpudab_viterbi_decode_bits": (_P, _I, _P, _P, _P, _I, _I, _I, _I, _P),
     "tpudab_deinterleave": (_P, _P, _I, _I, _I, _I, _P),
-    "tpudab_carve_rotate": (_P, _P, _I, _P, _P, _P, _P, _P, _P,
+    "tpudab_deinterleave_depuncture_t": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                                         _I, _I, _I, _I, _I, _I, _P),
+    "tpudab_carve_rotate": (_P, _P, _I, _P, _P, _P, _P, _P, _P, _P,
                             _I, _I, _I, _I, _I, _I, _P),
     "tpudab_viterbi_fwd_variant": (_P, _I, _P, _P, _P, _I, _I, _I, _I, _P),
     "tpudab_viterbi_traceback": (_P, _P, _I, _I, _I, _I, _P),

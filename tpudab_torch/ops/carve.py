@@ -7,7 +7,10 @@ split. A CPU tensor takes carve_rotate_ref, which follows tpudab's XLA
 slice path (tpudab/ofdm/demod.py:175-194); a CUDA tensor takes the kernel
 in csrc/carve.cu, which builds the rotator by angle addition of two f32
 tables as the Pallas kernel does (tpudab/ops/carve.py:123-136). The two
-agree within one bf16 ulp.
+agree within one bf16 ulp; carve_rotate_tables_ref is the kernel's own
+arithmetic in torch, which it matches bit for bit. with_sum adds a third
+output, the bf16 sum xr + xi that the demod's first Karatsuba product
+takes (tpudab/ofdm/demod.py:214).
 """
 
 from __future__ import annotations
@@ -35,6 +38,14 @@ def _flat(x: torch.Tensor, frame_len: int) -> torch.Tensor:
     return x.reshape(x.shape[0], frame_len)
 
 
+def _windows(x: torch.Tensor, mode: int, window_offset: int) -> torch.Tensor:
+    """(F, frame_len) -> (F, n_sym, n_fft) strided view of the FFT windows."""
+    p, first, stride = _geometry(mode, window_offset)
+    start = first - p.nb_null_period
+    sym = x[:, p.nb_null_period:].reshape(x.shape[0], p.nb_symbols, stride)
+    return sym[:, :, start:start + p.nb_fft]
+
+
 def _freq(freq_hz, f: int, device) -> torch.Tensor:
     return torch.as_tensor(freq_hz, dtype=torch.float32,
                            device=device).broadcast_to((f,))
@@ -49,13 +60,7 @@ def carve_windows(frames_re, frames_im, freq_hz, mode: int = 1,
     f = frames_re.shape[0]
     fr = _flat(frames_re, p.nb_frame_length)
     fi = _flat(frames_im, p.nb_frame_length)
-    start = first - p.nb_null_period
-
-    def carve(x):
-        sym = x[:, p.nb_null_period:].reshape(f, n_sym, stride)
-        return sym[:, :, start:start + n_fft]
-
-    wr, wi = carve(fr), carve(fi)
+    wr, wi = _windows(fr, mode, window_offset), _windows(fi, mode, window_offset)
     t_sym = (first + stride * np.arange(n_sym)) / SAMPLING_RATE
     t_k = np.arange(n_fft) / SAMPLING_RATE
     t_abs = torch.as_tensor((t_sym[:, None] + t_k[None, :]).astype(np.float32),
@@ -67,12 +72,19 @@ def carve_windows(frames_re, frames_im, freq_hz, mode: int = 1,
 
 
 def carve_rotate_ref(frames_re, frames_im, freq_hz, mode: int = 1,
-                     window_offset: int = 12):
+                     window_offset: int = 12, with_sum: bool = False):
     """Plain torch twin of the kernel: (F, frame_len//128, 128) frames (or
     flat (F, frame_len)), bf16 or f32, and (F,) or scalar freq ->
-    (F, n_sym * n_fft//128, 128) bf16 re/im, tpudab's layout."""
+    (F, n_sym * n_fft//128, 128) bf16 re/im, tpudab's layout, and with_sum
+    their bf16 sum xr + xi as a third."""
     xr, xi = carve_windows(frames_re, frames_im, freq_hz, mode, window_offset)
-    return xr.reshape(xr.shape[0], -1, 128), xi.reshape(xi.shape[0], -1, 128)
+    return _outputs(xr, xi, with_sum)
+
+
+def _outputs(xr, xi, with_sum: bool):
+    f = xr.shape[0]
+    out = (xr.reshape(f, -1, 128), xi.reshape(f, -1, 128))
+    return out + (out[0] + out[1],) if with_sum else out
 
 
 def rotator_tables(freq: torch.Tensor, mode: int, window_offset: int):
@@ -90,17 +102,40 @@ def rotator_tables(freq: torch.Tensor, mode: int, window_offset: int):
             torch.cos(ph_idx), torch.sin(ph_idx))
 
 
+def carve_rotate_tables_ref(frames_re, frames_im, freq_hz, mode: int = 1,
+                            window_offset: int = 12, with_sum: bool = False):
+    """The kernel's own arithmetic in plain torch f32, one op per rounding:
+    the rotator by angle addition of rotator_tables, then the rotation,
+    each product and sum rounded to f32, then bf16. On the same device as
+    the kernel it gives the kernel's outputs bit for bit; it is within one
+    bf16 ulp of carve_rotate_ref. Same contract as carve_rotate_ref."""
+    p = get_ofdm_params(mode)
+    fr = _flat(frames_re, p.nb_frame_length).float()
+    fi = _flat(frames_im, p.nb_frame_length).float()
+    ca, sa, ci, si = rotator_tables(_freq(freq_hz, fr.shape[0], fr.device), mode,
+                                    window_offset)
+    wr, wi = _windows(fr, mode, window_offset), _windows(fi, mode, window_offset)
+    ca, sa, ci, si = ca[:, :, None], sa[:, :, None], ci[:, None, :], si[:, None, :]
+    c = ca * ci - sa * si
+    s = sa * ci + ca * si
+    xr = (wr * c - wi * s).to(torch.bfloat16)
+    xi = (wr * s + wi * c).to(torch.bfloat16)
+    return _outputs(xr, xi, with_sum)
+
+
 def carve_rotate_cuda(frames_re, frames_im, freq_hz, mode: int = 1,
-                      window_offset: int = 12):
-    """Kernel K5 on CUDA tensors; same contract as carve_rotate_ref."""
+                      window_offset: int = 12, with_sum: bool = False):
+    """Kernel K5 on CUDA tensors; same contract as carve_rotate_ref. The
+    frames must be 16-byte aligned."""
     p, first, stride = _geometry(mode, window_offset)
     fr = _flat(frames_re, p.nb_frame_length)
     fi = _flat(frames_im, p.nb_frame_length)
     if not (fr.is_cuda and fi.is_cuda) or fr.dtype != fi.dtype \
             or fr.dtype not in (torch.bfloat16, torch.float32) \
-            or not (fr.is_contiguous() and fi.is_contiguous()):
-        raise ValueError(f"carve_rotate_cuda takes contiguous CUDA bf16 or "
-                         f"f32 frames, got {fr.device} {fr.dtype}, "
+            or not (fr.is_contiguous() and fi.is_contiguous()) \
+            or fr.data_ptr() % 16 or fi.data_ptr() % 16:
+        raise ValueError(f"carve_rotate_cuda takes contiguous, 16-byte aligned "
+                         f"CUDA bf16 or f32 frames, got {fr.device} {fr.dtype}, "
                          f"{fi.device} {fi.dtype}")
     f = fr.shape[0]
     freq = _freq(freq_hz, f, fr.device).contiguous()
@@ -108,27 +143,28 @@ def carve_rotate_cuda(frames_re, frames_im, freq_hz, mode: int = 1,
     rows = p.nb_symbols * (p.nb_fft // 128)
     xr = torch.empty((f, rows, 128), dtype=torch.bfloat16, device=fr.device)
     xi = torch.empty_like(xr)
+    xs = torch.empty_like(xr) if with_sum else None
     lib = _build.load_library()
-    ptr = lambda t: ctypes.c_void_p(t.data_ptr())
+    ptr = lambda t: ctypes.c_void_p(t.data_ptr() if t is not None else None)
     with torch.cuda.device(fr.device):
         err = lib.tpudab_carve_rotate(
             ptr(fr), ptr(fi), int(fr.dtype == torch.bfloat16),
-            ptr(ca), ptr(sa), ptr(ci), ptr(si), ptr(xr), ptr(xi),
+            ptr(ca), ptr(sa), ptr(ci), ptr(si), ptr(xr), ptr(xi), ptr(xs),
             f, p.nb_frame_length, p.nb_symbols, p.nb_fft, stride, first,
             ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
     _build.check(err, "carve_rotate")
     carve_rotate_cuda.launches += 1
-    return xr, xi
+    return (xr, xi, xs) if with_sum else (xr, xi)
 
 
 carve_rotate_cuda.launches = 0
 
 
 def carve_rotate(frames_re, frames_im, freq_hz, mode: int = 1,
-                 window_offset: int = 12):
+                 window_offset: int = 12, with_sum: bool = False):
     """Dispatch on the frames' device: CPU -> plain torch, CUDA -> K5."""
     if frames_re.device.type == "cpu":
         return carve_rotate_ref(frames_re, frames_im, freq_hz, mode,
-                                window_offset)
+                                window_offset, with_sum)
     return carve_rotate_cuda(frames_re, frames_im, freq_hz, mode,
-                             window_offset)
+                             window_offset, with_sum)
