@@ -55,7 +55,19 @@ Phases, each of which raises on failure (nothing is caught):
    they rotate, exact where not, and full within 1 bf16 ulp of K5. Prints
    each kernel's ms, plain ms and bound; then runs each tool's main as
    `python -m tpudab_torch.tools.<name>` would (the Viterbi decomposition
-   among them), with the launch counts set to 0 before and read after.
+   among them), with the launch counts set to 0 before and read after;
+9. the decode path (`python -m tpudab_torch.host.cli decode`) on the
+   bench multiplex with DAB+ streams, 48 frames, impaired (CFO 3,400 Hz,
+   7,777 samples of delay, 15 dB, one echo): acquisition on the card
+   (frame start and coarse bins as made; B = 1 and B = 32 timed); the step
+   leg's kernels at its shapes (E = 1, F = 16, f32 frames) beside their
+   twins on a batch of the capture; `info`; the decode with and without
+   --device-step, untraced in the order step, host, host, step for the
+   walls, and traced once each for the device busy time. Gate: FIB CRC
+   1.0, subchannel 1's AUs byte-equal to the payload, every run's payload
+   files identical, the step leg launching all five kernels and the host
+   leg K1+K3, K4 (a) and K5 alone; then a --checkpoint run and a --resume
+   run whose AUs, concatenated, equal the one-shot run's.
 Every line with a device time carries the card's name and power limit. A
 bound is the least time the card could take for the work: the larger of
 its bytes over the HBM rate and its operations over the ALU rate (see
@@ -67,12 +79,16 @@ The line before the last is a JSON object of the kernels; the last is
 from __future__ import annotations
 
 import collections
+import contextlib
+import io
 import json
 import os
 import re
 import shutil
 import subprocess
+import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -84,6 +100,7 @@ from tpudab_torch.fec.conv import conv_encode
 from tpudab_torch.fec.crc import check_fib_crc
 from tpudab_torch.fec.depuncture import (depuncture_index, depuncture_np, depuncture_t,
                                          puncture)
+from tpudab_torch.host.cli import main as cli_main
 from tpudab_torch.models.receiver import Receiver
 from tpudab_torch.models.step import ReceiveStep, bench_capture, bench_subchannels
 from tpudab_torch.msc.interleave import (SoftRows, deinterleave_cuda,
@@ -92,6 +109,7 @@ from tpudab_torch.msc.interleave import (SoftRows, deinterleave_cuda,
                                          interleave_delays)
 from tpudab_torch.msc.subchannel import subch_cif_slices
 from tpudab_torch.ofdm.demod import demod_frames_split
+from tpudab_torch.ofdm.sync_device import acquire_device, acquire_host
 from tpudab_torch.ops import _build
 from tpudab_torch.ops.carve import carve_rotate_cuda, carve_rotate_ref, carve_rotate_tables_ref
 from tpudab_torch.ops.carve_exp import carve_variant_cuda, carve_variant_ref
@@ -104,7 +122,8 @@ from tpudab_torch.ops.viterbi_cuda import (signs_on, viterbi_decode_bits_cuda,
 from tpudab_torch.ops.viterbi_exp import (fwd_variant_cuda, fwd_variant_ref, traceback_bytes_cuda,
                                           traceback_bytes_ref)
 from tpudab_torch.synth import (ASCTY_DAB, ASCTY_DAB_PLUS, EnsembleSpec,
-                                EnsembleSynthesizer, ServiceSpec, SubchannelSpec)
+                                EnsembleSynthesizer, Impairments, ServiceSpec, SubchannelSpec,
+                                apply_impairments)
 from tpudab_torch.synth.payload import dabplus_stream
 from tpudab_torch.tools import (exp_carve, exp_depunct_t, exp_i16_probe, exp_tb_tree,
                                 exp_viterbi, exp_viterbi_decompose, exp_viterbi_i16)
@@ -153,6 +172,12 @@ TOOLS = (exp_viterbi_decompose, exp_viterbi, exp_viterbi_i16, exp_tb_tree, exp_d
          exp_i16_probe, exp_carve)
 HOST_FRAMES, HOST_BATCH, HOST_SIGMA = 64, 16, 0.5
 HOST_UEP = (7, 648, 96, 128, 3)   # subch id, start CU, size CU, kbps, protection level
+# phase 9: the decode path on an impaired capture of the bench multiplex
+DECODE_FRAMES, DECODE_BATCH, DECODE_SPLIT, ACQ_BATCH, ACQ_STRIDE = 48, 16, 20, 32, 6000
+DECODE_IMP = {"freq_offset_hz": 3400.0, "delay_samples": 7777, "snr_db": 15.0,
+              "multipath": ((300, 0.4, 1.1),), "seed": 9}   # echo inside the 504-sample guard
+DECODE_KERNELS = ("viterbi_bits", "deinterleave", "carve_rotate", "deinterleave_depuncture_t",
+                  "viterbi_fwd_traceback")
 
 # Bounds: the least time the card could take for a kernel's work, the
 # larger of its bytes (each input read once, each output written once) over
@@ -1045,7 +1070,283 @@ def run_tools(card):
     return launches, results
 
 
+def decode_capture(n_frames: int):
+    """Phase 9's input: the bench multiplex (bench_capture: six 108-CU EEP
+    3-A subchannels, the bench's spec and seeds) with a DAB+ stream on each
+    subchannel (superframes of seeded random AUs, subchannel 1's led by PAD
+    with a label and a slide), so that the decode's AU files carry a known
+    payload; then DECODE_IMP: CFO 3,400 Hz (3 carrier bins and 400 Hz),
+    7,777 samples of delay, 15 dB SNR, one echo inside the guard interval.
+    Returns (complex64 IQ, {subch id: the AUs in order})."""
+    streams, aus = {}, {}
+    for c in bench_subchannels():
+        streams[c.subch_id], aus[c.subch_id] = dabplus_stream(
+            c.data_bits // 24, 4 * n_frames, seed=20 + c.subch_id, with_pad=c.subch_id == 1)
+    frames, _ = bench_capture(n_frames, streams)
+    return apply_impairments(frames.reshape(-1), Impairments(**DECODE_IMP)), aus
+
+
+def write_iq(iq: np.ndarray, path: str) -> None:
+    """Interleaved f32 I/Q, the decode's --format f32."""
+    np.stack([iq.real, iq.imag], axis=-1).astype(np.float32).tofile(path)
+
+
+def read_aus(data: bytes) -> list:
+    """A subch<N>.aac.raw file's AUs (each behind its 4-byte LE length)."""
+    aus, pos = [], 0
+    while pos < len(data):
+        n = int.from_bytes(data[pos: pos + 4], "little")
+        aus.append(data[pos + 4: pos + 4 + n])
+        pos += 4 + n
+    return aus
+
+
+def cli_run(argv, traced: bool = False):
+    """One `python -m tpudab_torch.host.cli` command in this process, its
+    printed lines captured, with the decode path's launch counts set to 0
+    just before and read just after. traced: under torch.profiler (CUPTI,
+    device activity only), for the device busy time; an untraced run gives
+    the wall. Returns (lines, wall s, launches, device busy s or None)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    for name in DECODE_KERNELS:
+        KERNELS[name][2].launches = 0
+    out = io.StringIO()
+    prof = profile(activities=[ProfilerActivity.CUDA]) if traced else contextlib.nullcontext()
+    with prof, contextlib.redirect_stdout(out):
+        t0 = time.perf_counter()
+        rc = cli_main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    require(rc == 0, f"{argv}: exit code {rc}")
+    launches = {name: KERNELS[name][2].launches for name in DECODE_KERNELS}
+    busy = sum(k.self_device_time_total for k in prof.key_averages()
+               if k.device_type == DeviceType.CUDA) / 1e6 if traced else None
+    return out.getvalue().splitlines(), wall, launches, busy
+
+
+def decode_files(lines, out_dir: str, n_frames: int, label: str):
+    """Gate of one decode run: every FIB CRC passes. Returns its payload
+    files (no .wav is written: PCM is not ported)."""
+    fic = [ln for ln in lines if ln.startswith("FIC:")]
+    require(fic == [f"FIC: {12 * n_frames} FIBs, 0 CRC errors"],
+            f"{label}: FIB CRC not 1.0: {fic}")
+    return {f.name: f.read_bytes() for f in sorted(Path(out_dir).iterdir())}
+
+
+def check_acquisition(dev, iq, card):
+    """Phase 9, acquisition: acquire_host on the capture's first four
+    frames (one copy to the card, one read back), then acquire_device on
+    ACQ_BATCH buffers cut from the capture ACQ_STRIDE samples apart (the
+    32-ensemble layout of the step), each with its own frame start."""
+    fl = get_ofdm_params(1).nb_frame_length
+    n, delay = 4 * fl, DECODE_IMP["delay_samples"]
+    acquire_host(iq[:n], device=dev)                          # warm-up: cuFFT plans
+    t0 = time.perf_counter()
+    res = acquire_host(iq[:n], device=dev)
+    host_ms = (time.perf_counter() - t0) * 1e3
+    bins = int(DECODE_IMP["freq_offset_hz"] // (SAMPLING_RATE / get_ofdm_params(1).nb_fft))
+    require(res["frame_start"] == delay and res["coarse_bins"] == bins,
+            f"acquisition: frame_start {res['frame_start']} (want {delay}), coarse_bins "
+            f"{res['coarse_bins']} (want {bins})")
+    x = torch.from_numpy(np.stack([iq[k * ACQ_STRIDE: k * ACQ_STRIDE + n]
+                                   for k in range(ACQ_BATCH)])).to(dev)
+    re, im = x.real.contiguous(), x.imag.contiguous()
+    out = acquire_device(re, im)
+    want = [(delay - k * ACQ_STRIDE) % fl for k in range(ACQ_BATCH)]
+    require(out["frame_start"].tolist() == want and (out["coarse_bins"] == bins).all().item(),
+            f"batched acquisition: frame_start {out['frame_start'].tolist()} (want {want}), "
+            f"coarse_bins {out['coarse_bins'].tolist()}")
+    ms1 = cuda_ms(lambda: acquire_device(re[:1], im[:1]), 5)
+    ms32 = cuda_ms(lambda: acquire_device(re, im), 5)
+    print(f"decode path acquisition [{card}]: frame_start {res['frame_start']}, coarse_bins "
+          f"{res['coarse_bins']}, net {res['net_freq_hz']:.3f} Hz (CFO "
+          f"{DECODE_IMP['freq_offset_hz']} Hz), time quality {res['time_quality']:.1f}; "
+          f"acquire_host {host_ms:.2f} ms host wall (copy and read-back included); "
+          f"acquire_device B=1 {ms1:.3f} ms, B={ACQ_BATCH} {ms32:.3f} ms "
+          f"({ms32 / ACQ_BATCH:.3f} ms a buffer; {n} samples each; CUDA events); the "
+          f"{ACQ_BATCH} frame starts and coarse bins as cut")
+    return {"acquire_host_ms": host_ms, "acquire_device_ms_b1": ms1,
+            f"acquire_device_ms_b{ACQ_BATCH}": ms32}, res
+
+
+def check_step_leg(dev, iq, acq, card) -> None:
+    """Phase 9, the step leg's kernels at its own shapes (E = 1, F =
+    DECODE_BATCH, f32 frames), each wrapper beside its twin on the same
+    inputs: a step batch of the capture cut as the pipeline cuts it (from
+    the acquired frame start, at the acquired frequency), with the carry
+    that the batch before it leaves. K5 with the sum, bit-equal to the
+    tables twin and within 1 bf16 ulp of carve_rotate_ref; K4 mode (b) for
+    the FIC and each subchannel of the MSC group, Viterbi input and new
+    carries bit-equal; K1+K2 on the FIC (B = 64) and the group (B = 384),
+    bytes equal."""
+    fl, nf = get_ofdm_params(1).nb_frame_length, DECODE_BATCH
+    dab = get_dab_params(1)
+    t0 = time.perf_counter()
+    step = ReceiveStep(1, bench_subchannels()).to(dev)   # as StepDriver.new_step builds it
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+
+    def frames(k):
+        pos = acq["frame_start"] + k * nf * fl
+        x = torch.from_numpy(np.ascontiguousarray(iq[pos: pos + nf * fl])).to(dev)
+        return (x.real.reshape(nf, fl // 128, 128).contiguous(),
+                x.imag.reshape(nf, fl // 128, 128).contiguous())
+    freq = torch.tensor(acq["net_freq_hz"], dtype=torch.float32, device=dev)
+    carry, _ = step(step.init_carry(dev), *frames(0), freq)
+    re, im = frames(1)
+
+    xr, xi, xs = carve_rotate_cuda(re, im, freq, with_sum=True)
+    tr, ti, ts = carve_rotate_tables_ref(re, im, freq, with_sum=True)
+    rr, ri = carve_rotate_ref(re, im, freq)
+    require(same_bits(xr, tr) and same_bits(xi, ti) and same_bits(xs, ts),
+            "step leg: K5 on f32 frames differs from carve_rotate_tables_ref")
+    ulps = bf16_ulp_err(xr, xi, rr, ri)
+    require(ulps <= 1.0, f"step leg: K5 is {ulps} bf16 ulp from carve_rotate_ref")
+
+    soft, _ = demod_frames_split(re, im, freq, (step.dft_re, step.dft_sum, step.dft_diff),
+                                 out_dtype=step.soft_dtype)
+    signs = signs_on(dev)
+
+    def chain_and_decode(label, profile, n_codewords, calls):
+        """calls: (rows, carry, col0) of each K4 launch into one Viterbi input."""
+        index, n_punct, _ = step._viterbi_input(soft, profile, n_codewords)
+        outs = [soft.new_zeros((index.shape[0] // 8, 8, n_codewords)) for _ in range(2)]
+        for rows, c0, col0 in calls:
+            got = deinterleave_depuncture_t_cuda(soft, rows, c0, index, n_punct, outs[0], col0)
+            want = deinterleave_depuncture_t_ref(soft, rows, c0, index, n_punct, outs[1], col0)
+            require(c0 is None or same_bits(got, want),
+                    f"step leg: K4 mode (b) {label}: the new carry differs from the twin")
+        require(same_bits(outs[0], outs[1]),
+                f"step leg: K4 mode (b) {label}: the Viterbi input differs from the twin")
+        got = viterbi_decode_bytes_t_cuda(outs[0], signs, profile.data_bits)
+        want = viterbi_decode_bytes_t_ref(outs[0], signs, profile.data_bits)
+        require(torch.equal(got, want), f"step leg: K1+K2 {label}: "
+                f"{(got != want).sum().item()} bytes differ from the plain decoder")
+        return tuple(outs[0].shape)
+
+    g = dab.nb_fib_groups
+    shapes = [chain_and_decode("FIC", step.fic_profile, nf * g, [
+        (SoftRows.fib_groups(g, dab.nb_fic_bits_per_group), None, 0)])]
+    c = nf * dab.nb_cifs
+    for (profile, slice_bits, _), cfgs in step.groups.items():
+        shapes.append(chain_and_decode(f"MSC group of {len(cfgs)}", profile, len(cfgs) * c, [
+            (SoftRows.cif_slices(dab.nb_fic_bits, dab.nb_cifs, cfg.start_cu * CU_BITS,
+                                 slice_bits), carry[f"deint_{cfg.subch_id}"], i * c)
+            for i, cfg in enumerate(cfgs)]))
+    print(f"decode path step leg (E=1, F={nf}) [{card}]: ReceiveStep built in {build_s:.3f} s; "
+          f"K5 on f32 frames {tuple(re.shape)} with xs bit-equal to the tables twin, max "
+          f"{ulps:.0f} bf16 ulp from carve_rotate_ref; K4 mode (b) and K1+K2 on the Viterbi "
+          f"inputs {shapes} (FIC, then each MSC group): inputs, carries and bytes equal")
+
+
+def run_decode_path(dev, card, n_frames: int = DECODE_FRAMES):
+    """Phase 9: `python -m tpudab_torch.host.cli decode` on the impaired
+    bench multiplex, with and without --device-step, then split into a
+    --checkpoint and a --resume run, and `info`. The walls come from
+    untraced runs in the order step, host, host, step (so neither leg alone
+    pays the first call's costs); the device busy time from one traced run
+    of each leg."""
+    t_phase = time.perf_counter()
+    fl = get_ofdm_params(1).nb_frame_length
+    signal_s = n_frames * fl / SAMPLING_RATE
+    t0 = time.perf_counter()
+    iq, aus = decode_capture(n_frames)
+    print(f"decode path synth: {n_frames} frames, impaired, in {time.perf_counter() - t0:.1f} s")
+    numbers, acq = check_acquisition(dev, iq, card)
+    check_step_leg(dev, iq, acq, card)
+    batch = torch.from_numpy(np.ascontiguousarray(iq[:DECODE_BATCH * fl]))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    batch.to(dev)
+    torch.cuda.synchronize()
+    copy_ms = (time.perf_counter() - t0) * 1e3
+    print(f"decode path [{card}]: one {DECODE_BATCH}-frame batch to the card, "
+          f"{batch.numel() * 8 / 1e6:.1f} MB complex64 from pageable memory "
+          f"(torch.from_numpy(...).to), {copy_ms:.2f} ms "
+          f"({batch.numel() * 8 / copy_ms / 1e6:.2f} GB/s)")
+    numbers["h2d_batch_ms"] = copy_ms
+    # the first complete superframes, from logical frame 0 on
+    n_aus = 6 * ((4 * n_frames - 15) // 5)
+    legs = {"step": ["--device-step"], "host": []}
+    runs = {"step": [], "host": []}
+    with tempfile.TemporaryDirectory() as tmp:
+        cap = os.path.join(tmp, "capture.f32")
+        write_iq(iq, cap)
+        lines, *_ = cli_run(["info", cap])
+        print("info: " + "; ".join(lines))
+        order = [("step", False), ("host", False), ("host", False), ("step", False),
+                 ("step", True), ("host", True)]
+        for k, (label, traced) in enumerate(order):
+            out = os.path.join(tmp, f"run{k}")
+            lines, wall, launches, busy = cli_run(
+                ["decode", cap, *legs[label], "--batch-frames", str(DECODE_BATCH),
+                 "--out-dir", out], traced)
+            files = decode_files(lines, out, n_frames, f"{label} run {k}")
+            got = read_aus(files["subch1.aac.raw"])
+            require(got[:n_aus] == aus[1][:n_aus] and len(got) == n_aus,
+                    f"decode {label} run {k}: {len(got)} AUs of subchannel 1, want the first "
+                    f"{n_aus} of the payload")
+            runs[label].append({"files": files, "wall": wall, "launches": launches,
+                                "busy": busy, "lines": lines})
+        one = runs["step"][0]["files"]
+        require(all(r["files"] == one for rs in runs.values() for r in rs),
+                "decode runs with and without --device-step wrote different payload files")
+        for label, rs in runs.items():
+            walls = [r["wall"] for r in rs if r["busy"] is None]
+            tr = next(r for r in rs if r["busy"] is not None)
+            wall = sum(walls) / len(walls)
+            require(all(r["launches"] == tr["launches"] for r in rs),
+                    f"decode {label}: launches differ between runs")
+            print(f"decode {' '.join(legs[label]) or '(host leg only)'} [{card}]: wall "
+                  + ", ".join(f"{w:.3f}" for w in walls) + f" s untraced (mean {wall:.3f}) "
+                  f"for {signal_s:.3f} s of signal, real-time factor {signal_s / wall:.2f}; "
+                  f"traced run: wall {tr['wall']:.3f} s, device busy {tr['busy']:.3f} s "
+                  f"(share {tr['busy'] / tr['wall']:.4f}); launches {tr['launches']}; FIB CRC "
+                  f"1.0; subchannel 1's {n_aus} AUs byte-equal")
+            numbers[f"decode_{label}_wall_s"] = walls
+            for ln in tr["lines"]:
+                if ln.startswith(("Sync:", "Ensemble:")):
+                    print(f"  {ln}")
+        step_l, host_l = runs["step"][0]["launches"], runs["host"][0]["launches"]
+        require(all(step_l.values()), f"decode --device-step left a kernel unlaunched: {step_l}")
+        require(host_l["deinterleave_depuncture_t"] == host_l["viterbi_fwd_traceback"] == 0
+                and host_l["viterbi_bits"] and host_l["deinterleave"] and host_l["carve_rotate"],
+                f"the host leg's launches: {host_l}")
+        print(f"decode: {len(one)} payload files identical in all "
+              f"{sum(map(len, runs.values()))} runs with and without --device-step: "
+              f"{sorted(one)}")
+
+        split = DECODE_IMP["delay_samples"] + DECODE_SPLIT * fl
+        parts = [os.path.join(tmp, name) for name in ("a.f32", "b.f32")]
+        write_iq(iq[:split], parts[0])
+        write_iq(iq[split:], parts[1])
+        ck = os.path.join(tmp, "state")
+        outs = [os.path.join(tmp, name) for name in ("out_a", "out_b")]
+        common = ["--device-step", "--batch-frames", str(DECODE_BATCH)]
+        la, wa, *_ = cli_run(["decode", parts[0], *common, "--checkpoint", ck,
+                              "--out-dir", outs[0]])
+        require(f"Checkpoint -> {ck} (next_pos={split})" in la,
+                f"checkpoint: {[ln for ln in la if 'Checkpoint' in ln]} (want next_pos {split})")
+        lb, wb, *_ = cli_run(["decode", parts[1], *common, "--resume", ck, "--out-dir", outs[1]])
+        fa = decode_files(la, outs[0], DECODE_SPLIT, "checkpoint")
+        fb = decode_files(lb, outs[1], n_frames - DECODE_SPLIT, "resume")
+        for name, data in one.items():
+            if name.endswith(".aac.raw"):
+                require(read_aus(fa.get(name, b"")) + read_aus(fb.get(name, b""))
+                        == read_aus(data), f"checkpoint + resume: {name} differs from one run")
+        print(f"decode --checkpoint ({DECODE_SPLIT} frames, {wa:.3f} s) then --resume "
+              f"({n_frames - DECODE_SPLIT} frames, {wb:.3f} s): FIB CRC 1.0 in both; every "
+              f"subchannel's AUs, concatenated, equal the one-shot run's")
+    numbers["decode_launches"] = {"step": step_l, "host": host_l}
+    print(f"phase 9: {time.perf_counter() - t_phase:.1f} s in all")
+    return numbers
+
+
 def main() -> None:
+    t_start = time.perf_counter()
     card = identify()
     dev = torch.device("cuda", 0)
     build()
@@ -1075,6 +1376,9 @@ def main() -> None:
     probe, carve = check_tool_probe_carve(dev, rng8, card)
     tool_launches, _ = run_tools(card)
     launches.update(tool_launches)
+
+    # phase 9: the decode path, through the command line
+    decode = run_decode_path(dev, card)
 
     def old(key, bound_key, library=None):
         err, ms, plain = res[key]
@@ -1129,7 +1433,10 @@ def main() -> None:
             entry["by_op"] = probe
         if name == "carve_variant":
             entry["by_variant"] = carve
+        if name in DECODE_KERNELS:
+            entry["decode_launches"] = {k: v[name] for k, v in decode["decode_launches"].items()}
         kernels.append(entry)
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all, the build included")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -358,3 +358,78 @@ def test_entry_points_default_to_the_card(dev):
     n0 = viterbi_decode_bits_cuda.launches
     fibs, _ = decode_fic_frame(np.ones((1, get_dab_params(1).nb_fic_bits), np.float32))
     assert fibs.shape == (12, 32) and viterbi_decode_bits_cuda.launches == n0 + 1
+
+
+def impaired_capture(n_frames, imp, seed=1):
+    """A 24-CU EEP 3-A DAB+ service with a known payload, n_frames frames
+    through the port's impairments."""
+    from tpudab_torch.synth import (ASCTY_DAB_PLUS, EnsembleSpec, EnsembleSynthesizer,
+                                    Impairments, ServiceSpec, SubchannelSpec,
+                                    apply_impairments, modulate_frame_bits)
+    spec = EnsembleSpec(0xACC1, "Cuda Acq", [ServiceSpec(0xC201, "A", [(0, ASCTY_DAB_PLUS, 1)])],
+                        [SubchannelSpec(1, 0, 24, ("eep", 3, 0))])
+    synth = EnsembleSynthesizer(spec, seed=seed)
+    data = np.random.default_rng(seed).integers(0, 256, (4 * n_frames, 96)).astype(np.uint8)
+    synth.payload_fn[1] = lambda m: data[m].tobytes()
+    iq = np.concatenate([modulate_frame_bits(synth.frame_bits(i)) for i in range(n_frames)])
+    return apply_impairments(iq, Impairments(**imp)), data
+
+
+def test_acquire_device_cuda_equals_cpu(dev):
+    """A batch of three buffers (CFO and delay; a large negative CFO; a
+    late strong echo): frame_start and coarse_bins equal on the card and
+    the CPU, the Hz within 1 Hz, the qualities within a relative 1e-3."""
+    from tpudab_torch.ofdm.sync_device import acquire_device, acquire_host
+    imps = [dict(freq_offset_hz=3400.0, delay_samples=7777, snr_db=15, seed=1),
+            dict(freq_offset_hz=-47350.0, delay_samples=123, snr_db=10, seed=2),
+            dict(freq_offset_hz=800.0, snr_db=15, amplitude=0.63,
+                 multipath=((400, 1.0, 2.1), (150, 0.35, 0.7)), seed=9)]
+    iqs = [impaired_capture(3, imp, seed=i)[0] for i, imp in enumerate(imps)]
+    n = min(x.shape[0] for x in iqs)
+    re = torch.from_numpy(np.stack([x.real[:n] for x in iqs]).astype(np.float32))
+    im = torch.from_numpy(np.stack([x.imag[:n] for x in iqs]).astype(np.float32))
+    cpu = acquire_device(re, im)
+    gpu = acquire_device(re.to(dev), im.to(dev))
+    for k in ("frame_start", "coarse_bins"):
+        assert torch.equal(gpu[k].cpu(), cpu[k]), k
+    for k in ("coarse_hz", "fine_hz", "net_freq_hz"):
+        assert (gpu[k].cpu() - cpu[k]).abs().max().item() < 1.0, k
+    for k in ("null_quality", "coarse_quality", "time_quality"):
+        assert ((gpu[k].cpu() - cpu[k]).abs() <= 1e-3 * cpu[k].abs()).all(), k
+    assert gpu["frame_start"][:2].tolist() == [7777, 123]
+    one = acquire_host(iqs[0])                 # the card by default
+    assert one["frame_start"] == 7777 and one["coarse_bins"] == 3
+
+
+def test_checkpoint_bf16_carry_round_trip_on_cuda(dev, tmp_path):
+    from tpudab_torch.models.checkpoint import load_carry, save_carry
+    bits = torch.randint(-32768, 32767, (15, 1536), dtype=torch.int16,
+                         generator=torch.Generator().manual_seed(3))
+    carry = {"deint_1": bits.view(torch.bfloat16).to(dev),
+             "deint_2": bits.flip(0).contiguous().view(torch.bfloat16).to(dev)}
+    save_carry(str(tmp_path / "c"), carry, {"next_pos": 7})
+    back, extra = load_carry(str(tmp_path / "c"), dev)
+    assert extra == {"next_pos": 7, "carry_dtype": "bfloat16"}
+    for k, v in carry.items():
+        assert back[k].device == v.device and back[k].dtype == torch.bfloat16
+        assert torch.equal(back[k].view(torch.int16), v.view(torch.int16))
+
+
+@pytest.mark.parametrize("device_step", [False, True], ids=["host", "step"])
+def test_decode_iq_cuda_equals_cpu(dev, device_step):
+    """The offline pipeline on the card (acquisition, K5, K4 and the
+    Viterbi kernels) decodes the bytes the CPU run decodes."""
+    from tpudab_torch.models.pipeline import decode_iq
+    from tpudab_torch.models.receiver import Receiver
+    iq, data = impaired_capture(8, dict(freq_offset_hz=1234.0, delay_samples=777, snr_db=18,
+                                        seed=3))
+    rows = {}
+    for d in ("cpu", dev):
+        rx, acc, stats = decode_iq(iq, batch_frames=4, use_device_step=device_step,
+                                   receiver=Receiver(1, d, decode_audio=False))
+        rows[str(d)] = (np.concatenate([o.raw_frames for o in acc[1] if len(o.raw_frames)]),
+                        rx.stats, stats.frame_start)
+    cpu, gpu = rows["cpu"], rows[str(dev)]
+    np.testing.assert_array_equal(gpu[0], cpu[0])
+    assert gpu[1:] == cpu[1:] and cpu[1]["fib_crc_errors"] == 0
+    np.testing.assert_array_equal(gpu[0][1:], data[1: gpu[0].shape[0]])

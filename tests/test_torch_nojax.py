@@ -2,9 +2,9 @@
 GPU machine), and imports nothing of tpudab. A subprocess refuses jax,
 jaxlib, ml_dtypes and tpudab (by the first name component, so tpudab_torch
 passes), imports every module of the port, its tools and the smoke script,
-synthesises a 5-frame capture and runs one CPU ReceiveStep and the CPU
-Receiver (the host per-stage path) on it, and finds no tpudab module
-loaded at the end."""
+synthesises a 5-frame capture and runs one CPU ReceiveStep, the CPU
+Receiver (the host per-stage path) and the offline pipeline (with and
+without the step) on it, and finds no tpudab module loaded at the end."""
 
 import os
 import subprocess
@@ -63,6 +63,13 @@ SCRIPT = textwrap.dedent("""
     assert rx.stats["fibs"] == 60 and rx.stats["fib_crc_errors"] == 0
     assert rx.db.ensemble.label == "Guard" and 1 in rx.subch_decoders
     assert (outs[1].raw_frames == data[:5]).all()
+
+    from tpudab_torch.models.pipeline import decode_iq
+    for device_step in (False, True):
+        rx, acc, stats = decode_iq(frames.reshape(-1), batch_frames=2, device="cpu",
+                                   use_device_step=device_step)
+        assert stats.frame_start == 0 and rx.stats["fib_crc_errors"] == 0
+        assert (np.concatenate([o.raw_frames for o in acc[1]]) == data[:5]).all()
     bad = [m for m in sys.modules if m.split(".")[0] in REFUSED]
     assert not bad, bad
     print("OK", len(mods))

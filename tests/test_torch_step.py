@@ -1,7 +1,8 @@
 """The whole slice: the port's ReceiveStep against tpudab's ReceiveStep on
 synthesised mode I captures. Two 24-CU EEP 3-A subchannels (one profile
 group) and one 16-CU EEP 2-A subchannel (another), with a known payload
-on subchannel 1.
+on subchannel 1. Modes II and IV on tests/test_modes.py's captures (mode
+III: tests/test_torch_step_handoff.py).
 
 Tolerances: decoded bytes (FIC and every subchannel) must be equal. The
 carry after a full step holds demodulated soft bits, which the two
@@ -121,3 +122,30 @@ def test_step_matches_tpudab(soft_dtype, n_ens):
     np.testing.assert_array_equal(fic2.numpy(), np.asarray(jout["fic_bytes"]))
     for sid, v in jout["subch"].items():
         np.testing.assert_array_equal(subch2[sid].numpy(), np.asarray(v))
+
+
+@pytest.mark.parametrize("mode", [2, 4])
+def test_step_other_modes_match_tpudab(mode):
+    """Modes II (1 CIF a frame) and IV (2 CIFs): tests/test_modes.py:88-107's
+    captures and subchannel (one 36-CU EEP 3-A), at least 20 logical frames.
+    The FIC CRC-clean and equal to tpudab's bytes, the MSC bytes equal to
+    tpudab's and to the payload; the carry as in test_step_matches_tpudab."""
+    from test_modes import _payload_capture, _subch_cfg
+    from tpudab.constants.dab_params import get_dab_params
+
+    dab = get_dab_params(mode)
+    n_frames = -(-20 // dab.nb_cifs)
+    frames, payload = _payload_capture(mode, n_frames, seed=30 + mode)
+    re, im = split_iq(frames)
+    jstep = JaxStep(mode=mode, subchannels=(_subch_cfg(),))
+    tstep = ReceiveStep(mode, (SubchannelConfig(1, 0, 36, eep_profile(36, 3, 0)),))
+    jcarry, jout = jstep(jstep.init_carry(), re, im, np.float32(0.0))
+    tcarry, tout = tstep(tstep.init_carry("cpu"), torch.from_numpy(re),
+                         torch.from_numpy(im), 0.0)
+    assert_same_outputs(jout, tout)
+    assert_carry_close(tcarry, jcarry, "bfloat16")
+    fibs = tout["fic_bytes"].numpy().reshape(-1, 32)
+    assert fibs.shape[0] == n_frames * dab.nb_fibs and check_fib_crc(fibs).all()
+    got = tout["subch"][1].numpy()
+    assert got.shape[0] == n_frames * dab.nb_cifs
+    np.testing.assert_array_equal(got[15:], payload[: got.shape[0] - 15])

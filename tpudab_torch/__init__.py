@@ -1,6 +1,8 @@
 """tpudab_torch — the PyTorch/CUDA port of tpudab: the receive step
 (models/step.py), the host per-stage path behind decode-bits
-(models/receiver.py, host/cli.py) and the kernel-experiment tools
+(models/receiver.py), the offline decode of an IQ capture behind decode
+(ofdm/sync_device.py, models/pipeline.py, models/step_driver.py,
+models/checkpoint.py; host/cli.py) and the kernel-experiment tools
 (tools/, run as python -m tpudab_torch.tools.<name>).
 
 The package mirrors tpudab's layout (audio/, constants/, data/, database/,

@@ -1,14 +1,23 @@
-"""Command line of the port: the `decode-bits` entry point.
+"""Command line of the port: `decode`, `decode-bits` and `info`.
 
-Counterpart of tpudab.host.cli's decode-bits: a raw post-OFDM soft-bit file
-(one transmission frame = nb_frame_bits values) goes through the Receiver
-and comes out as the FIC database listing, the DAB+ access units
-(subch<N>.aac.raw, each AU behind its 4-byte little-endian length), the
-MP2 frames (subch<N>.mp2), the slideshow images and the dynamic labels.
-PCM/WAV output (tpudab's native codec shim) is not ported yet.
+Counterpart of tpudab.host.cli's subcommands of the same names, with the
+same flags plus --device:
+- decode: a raw IQ capture (u8, s8, s16 or f32 interleaved, 2.048 MS/s)
+  is acquired, demodulated and decoded by the OfflinePipeline (with
+  --device-step, the fused ReceiveStep once the FIC has found the layout);
+  --checkpoint saves the state at the end, --resume continues from it on
+  the remainder of the capture; --config reads a RadioConfig JSON;
+- decode-bits: a raw post-OFDM soft-bit file (one transmission frame =
+  nb_frame_bits values) goes through the Receiver;
+- info: the acquisition of a capture's first four frames.
+decode and decode-bits print the FIC database listing and write the DAB+
+access units (subch<N>.aac.raw, each AU behind its 4-byte little-endian
+length), the MP2 frames (subch<N>.mp2) and the slideshow images to
+--out-dir. PCM/WAV output (tpudab's native codec shim) is not ported yet.
 
+    python -m tpudab_torch.host.cli decode CAPTURE --device-step --out-dir D
     python -m tpudab_torch.host.cli decode-bits FILE --bits-format f32 --out-dir D
-    python -m tpudab_torch.host.cli decode-bits FILE --device cpu   # plain twins
+    python -m tpudab_torch.host.cli info CAPTURE --device cpu   # plain twins
 
 --device defaults to cuda, and a missing GPU is an error, not a fallback.
 """
@@ -22,6 +31,28 @@ from typing import Dict
 
 import numpy as np
 import torch
+
+
+def _device(args) -> torch.device:
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit(f"--device {args.device}: torch sees no CUDA device "
+                         f"(use --device cpu for the plain torch decoders)")
+    return device
+
+
+def _load_iq(path: str, fmt: str) -> np.ndarray:
+    raw = np.fromfile(path, dtype={"u8": np.uint8, "s8": np.int8,
+                                   "s16": np.int16, "f32": np.float32}[fmt])
+    if fmt == "u8":
+        x = (raw.astype(np.float32) - 127.5) / 128.0
+    elif fmt == "s8":
+        x = raw.astype(np.float32) / 128.0
+    elif fmt == "s16":
+        x = raw.astype(np.float32) / 32768.0
+    else:
+        x = raw
+    return (x[0::2] + 1j * x[1::2]).astype(np.complex64)
 
 
 def _print_db(receiver) -> None:
@@ -108,6 +139,67 @@ def _dump_audio(acc: Dict, out_dir: str) -> None:
             print(f"subch {subch_id}: {len(frames)} MP2 frames -> {mp2_path}")
 
 
+def _load_config(args):
+    """--config JSON (ConfigManager): file values fill in anything not
+    explicitly set on the command line."""
+    if not getattr(args, "config", None):
+        return None
+    from tpudab_torch.host.config import ConfigManager
+    return ConfigManager(args.config)
+
+
+def cmd_decode(args) -> int:
+    from tpudab_torch.models.pipeline import OfflinePipeline
+
+    device = _device(args)
+    mgr = _load_config(args)
+    mode, batch = args.mode, args.batch_frames
+    sync_cfg = None
+    if mgr is not None:
+        mode = mgr.config.mode if args.mode == 1 else args.mode
+        batch = mgr.config.batch_frames if args.batch_frames == 8 else batch
+        sync_cfg = mgr.config.sync_config()
+
+    iq = _load_iq(args.path, args.format)
+    print(f"Loaded {iq.shape[0]} samples ({iq.shape[0] / 2.048e6:.2f} s)")
+    kw = {"sync_cfg": sync_cfg} if sync_cfg is not None else {}
+    pipe = OfflinePipeline(mode=mode, batch_frames=batch,
+                           use_device_step=args.device_step, device=device, **kw)
+    if args.resume:
+        from tpudab_torch.models.checkpoint import pipeline_restore
+        pipeline_restore(pipe, args.resume)
+        print(f"Resumed from {args.resume} "
+              f"(net_freq={pipe.stats.net_freq_hz:+.1f} Hz)")
+    acc = pipe.run(iq)
+    receiver, stats = pipe.receiver, pipe.stats
+    if args.checkpoint:
+        from tpudab_torch.models.checkpoint import pipeline_checkpoint
+        pipeline_checkpoint(pipe, args.checkpoint)
+        print(f"Checkpoint -> {args.checkpoint} (next_pos={stats.next_pos})")
+    print(f"Sync: frame_start={stats.frame_start} "
+          f"net_freq={stats.net_freq_hz:+.1f} Hz "
+          f"frames={stats.total_frames} desync={stats.total_frames_desync}")
+    print(f"FIC: {receiver.stats['fibs']} FIBs, "
+          f"{receiver.stats['fib_crc_errors']} CRC errors")
+    _print_db(receiver)
+    if args.out_dir:
+        os.makedirs(args.out_dir, exist_ok=True)
+        _dump_audio(acc, args.out_dir)
+        _dump_slides_and_labels(receiver, args.out_dir)
+    return 0
+
+
+def cmd_info(args) -> int:
+    from tpudab_torch.ofdm.sync_device import acquire_host
+
+    device = _device(args)
+    iq = _load_iq(args.path, args.format)
+    res = acquire_host(iq[: min(iq.shape[0], 4 * 196608)], device=device)
+    for k, v in res.items():
+        print(f"{k}: {v}")
+    return 0
+
+
 def cmd_decode_bits(args) -> int:
     """Decode a raw soft-bit stream (post-OFDM), skipping the front end.
     Formats: s8 (viterbi_bit_t: positive = bit 1, negated into the
@@ -116,10 +208,7 @@ def cmd_decode_bits(args) -> int:
     from tpudab_torch.constants.dab_params import get_dab_params
     from tpudab_torch.models.receiver import Receiver
 
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise SystemExit(f"--device {args.device}: torch sees no CUDA device "
-                         f"(use --device cpu for the plain torch decoders)")
+    device = _device(args)
     dab = get_dab_params(args.mode)
     raw = np.fromfile(args.path, dtype={"s8": np.int8, "u8": np.uint8,
                                         "f32": np.float32}[args.bits_format])
@@ -160,6 +249,27 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="tpudab_torch", description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     sub = ap.add_subparsers(dest="cmd", required=True)
+    device_help = "torch device (default cuda; cpu runs the plain torch decoders)"
+
+    d = sub.add_parser("decode", help="decode an IQ capture")
+    d.add_argument("path")
+    d.add_argument("--format", choices=["u8", "s8", "s16", "f32"], default="f32")
+    d.add_argument("--mode", type=int, default=1)
+    d.add_argument("--batch-frames", type=int, default=8)
+    d.add_argument("--out-dir", default=None)
+    d.add_argument("--device-step", action="store_true",
+                   help="decode via the fused receive step once the FIC has the layout")
+    d.add_argument("--config", default=None,
+                   help="JSON RadioConfig (ConfigManager, autosaved)")
+    d.add_argument("--checkpoint", default=None,
+                   help="save resumable pipeline state here at end of run")
+    d.add_argument("--resume", default=None,
+                   help="restore state saved by --checkpoint; the input file "
+                        "must be the remainder of the capture "
+                        "(split at the reported next_pos)")
+    d.add_argument("--device", default="cuda", help=device_help)
+    d.set_defaults(fn=cmd_decode)
+
     db = sub.add_parser("decode-bits", help="decode a raw soft-bit file (post-OFDM)")
     db.add_argument("path")
     db.add_argument("--bits-format", choices=("s8", "u8", "f32"), default="s8",
@@ -167,10 +277,14 @@ def main(argv=None) -> int:
     db.add_argument("--mode", type=int, default=1)
     db.add_argument("--batch-frames", type=int, default=8)
     db.add_argument("--out-dir")
-    db.add_argument("--device", default="cuda",
-                    help="torch device of the FEC (default cuda; cpu runs the "
-                         "plain torch decoders)")
+    db.add_argument("--device", default="cuda", help=device_help)
     db.set_defaults(fn=cmd_decode_bits)
+
+    i = sub.add_parser("info", help="acquisition info for a capture")
+    i.add_argument("path")
+    i.add_argument("--format", choices=["u8", "s8", "s16", "f32"], default="f32")
+    i.add_argument("--device", default="cuda", help=device_help)
+    i.set_defaults(fn=cmd_info)
     args = ap.parse_args(argv)
     return args.fn(args)
 

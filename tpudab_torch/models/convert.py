@@ -6,6 +6,9 @@
   ml_dtypes is imported.
 - A host per-stage SubchannelDecoder: its deinterleave history, CIF count,
   geometry and UEP calibration state.
+- A checkpoint's carry (models/checkpoint.py): the port's, f32 or bf16
+  stored as its int16 view, or tpudab's, whose .npz holds f32 arrays and
+  whose JSON names no carry_dtype.
 
 Only attributes are read, and nothing of jax is imported.
 """
@@ -13,7 +16,7 @@ Only attributes are read, and nothing of jax is imported.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -35,6 +38,27 @@ def carry_from_jax(carry: Dict[str, np.ndarray], device) -> Dict[str, torch.Tens
             t = torch.from_numpy(v.copy())
         else:
             raise TypeError(f"carry {k!r} has dtype {v.dtype}, not f32 or bf16")
+        out[k] = t.to(device)
+    return out
+
+
+def carry_from_npz(arrays: Dict[str, np.ndarray], carry_dtype: Optional[str],
+                   device) -> Dict[str, torch.Tensor]:
+    """A checkpoint's arrays -> torch tensors on device, bit for bit:
+    carry_dtype "bfloat16" reads int16 views as bf16; "float32", or None
+    (a tpudab checkpoint, whose carry is f32), reads float32 arrays. None
+    also stands for a checkpoint whose JSON is gone: its int16 arrays can
+    only be the port's bf16 views."""
+    out = {}
+    for k, v in arrays.items():
+        v = np.asarray(v)
+        if carry_dtype in (None, "bfloat16") and v.dtype == np.int16:
+            t = torch.from_numpy(v.copy()).view(torch.bfloat16)
+        elif carry_dtype in (None, "float32") and v.dtype == np.float32:
+            t = torch.from_numpy(v.copy())
+        else:
+            raise TypeError(f"checkpoint carry {k!r} is {v.dtype}, which does not "
+                            f"hold a {carry_dtype or 'float32'} carry")
         out[k] = t.to(device)
     return out
 

@@ -47,10 +47,13 @@ def bench_subchannels() -> Tuple[SubchannelConfig, ...]:
                  for sid, start, size in layout)
 
 
-def bench_capture(n_frames: int):
+def bench_capture(n_frames: int, streams=None):
     """The bench's signal (tpudab bench.py:26-51, same spec and seeds) for
     bench_subchannels(): (n_frames, frame_len) complex64 frames and the
-    known payload of subchannel 1, (4 * n_frames, frame_bytes) uint8."""
+    known payload of subchannel 1, (4 * n_frames, frame_bytes) uint8.
+    streams, {subch_id: (4 * n_frames, frame_bytes) uint8}, replaces the
+    payloads of those subchannels (subchannel 1's seeded random bytes, the
+    others' synthesiser stream)."""
     subchannels = bench_subchannels()
     spec = EnsembleSpec(
         ensemble_id=0xBE9C, label="Bench Ensemble",
@@ -63,7 +66,10 @@ def bench_capture(n_frames: int):
     synth = EnsembleSynthesizer(spec, seed=1)
     rng = np.random.default_rng(2)
     data = rng.integers(0, 256, (n_frames * 4, subchannels[0].data_bits // 8)).astype(np.uint8)
-    synth.payload_fn[subchannels[0].subch_id] = lambda m: data[m].tobytes()
+    streams = {subchannels[0].subch_id: data, **(streams or {})}
+    for sid, stream in streams.items():
+        synth.payload_fn[sid] = lambda m, st=stream: st[m].tobytes()
+    data = streams[subchannels[0].subch_id]
     frames = np.stack([modulate_frame_bits(synth.frame_bits(i)) for i in range(n_frames)])
     return frames, data
 

@@ -1,6 +1,6 @@
 """DAB signal synthesizer without jax (counterpart of tpudab.synth)."""
 
-from tpudab_torch.synth.modulator import modulate_frame_bits
+from tpudab_torch.synth.modulator import modulate_frame_bits, Impairments, apply_impairments
 from tpudab_torch.synth.ensemble import (
     EnsembleSpec, ServiceSpec, SubchannelSpec, EnsembleSynthesizer,
     ASCTY_DAB, ASCTY_DAB_PLUS,

@@ -1,15 +1,19 @@
 """OFDM modulator: DAB transmission-frame bits -> baseband IQ (numpy).
 
 Counterpart of tpudab.synth.modulator (EN 300 401 sec 14: DQPSK mapping,
-frequency interleaving, PRS). Test and smoke fixture, host side.
+frequency interleaving, PRS) and of its channel impairments, which give
+the same samples as tpudab's for the same Impairments and seed. Test and
+smoke fixture, host side.
 """
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 
 from tpudab_torch.constants.interleaver import get_carrier_map_positions
-from tpudab_torch.constants.ofdm_params import get_ofdm_params
+from tpudab_torch.constants.ofdm_params import SAMPLING_RATE, get_ofdm_params
 from tpudab_torch.constants.prs import get_prs_carriers
 
 
@@ -48,3 +52,58 @@ def modulate_frame_bits(frame_bits: np.ndarray, mode: int = 1) -> np.ndarray:
     frame[p.nb_null_period:] = with_cp.reshape(-1)
     return frame
 
+
+@dataclasses.dataclass
+class Impairments:
+    """Channel impairments applied to a synthesised IQ stream."""
+
+    freq_offset_hz: float = 0.0      # carrier frequency offset
+    freq_ramp_hz_per_s: float = 0.0  # linear CFO drift (oscillator walk)
+    delay_samples: int = 0           # integer sample delay (prepended)
+    snr_db: float | None = None      # AWGN SNR vs unit signal power; None = clean
+    amplitude: float = 1.0
+    phase: float = 0.0
+    clock_ppm: float = 0.0           # receiver sample clock x ppm fast: the
+                                     # signal appears stretched
+    # tapped-delay-line multipath: echoes as (delay_samples, gain,
+    # phase_rad) relative to the implicit direct path (delay 0, gain 1)
+    multipath: tuple = ()
+    seed: int = 0
+
+
+def apply_impairments(iq: np.ndarray, imp: Impairments,
+                      sampling_rate: float = SAMPLING_RATE) -> np.ndarray:
+    """Clock offset (linear interpolation), multipath, delay, CFO and its
+    ramp, amplitude and phase, then AWGN from default_rng(imp.seed)."""
+    x = np.asarray(iq, dtype=np.complex64)
+    if imp.clock_ppm:
+        # resample on the receiver's time grid t_rx[k] = k / (1 + ppm*1e-6)
+        ratio = 1.0 / (1.0 + imp.clock_ppm * 1e-6)
+        n_out = int(np.floor((x.shape[0] - 1) / ratio)) + 1
+        t_rx = np.arange(n_out, dtype=np.float64) * ratio
+        x = (np.interp(t_rx, np.arange(x.shape[0]), x.real)
+             + 1j * np.interp(t_rx, np.arange(x.shape[0]), x.imag)
+             ).astype(np.complex64)
+    if imp.multipath:
+        # y[n] = x[n] + sum_k g_k e^{j phi_k} x[n - d_k], before CFO and noise
+        max_d = max(int(d) for d, _, _ in imp.multipath)
+        y = np.concatenate([x, np.zeros(max_d, np.complex64)])
+        for d, g, ph in imp.multipath:
+            tap = np.complex64(g * np.exp(1j * ph))
+            y[int(d): int(d) + x.shape[0]] += tap * x
+        x = y[: x.shape[0] + max_d]
+    if imp.delay_samples:
+        x = np.concatenate([np.zeros(imp.delay_samples, dtype=np.complex64), x])
+    n = np.arange(x.shape[0], dtype=np.float64)
+    t = n / sampling_rate
+    # instantaneous f(t) = f0 + r*t  ->  phase = 2pi (f0 t + r t^2 / 2)
+    rot = np.exp(1j * (2 * np.pi * (imp.freq_offset_hz * t
+                                    + 0.5 * imp.freq_ramp_hz_per_s * t * t)
+                       + imp.phase))
+    x = (imp.amplitude * x * rot).astype(np.complex64)
+    if imp.snr_db is not None:
+        rng = np.random.default_rng(imp.seed)
+        sigma = imp.amplitude * 10.0 ** (-imp.snr_db / 20.0) / np.sqrt(2.0)
+        noise = sigma * (rng.standard_normal(x.shape) + 1j * rng.standard_normal(x.shape))
+        x = (x + noise).astype(np.complex64)
+    return x
