@@ -7,14 +7,17 @@ Phases, each of which raises on failure (nothing is caught):
 1. identify the card (torch and CUDA versions, nvidia-smi name and power
    limit); no CUDA device is a failure;
 2. build the CUDA kernels from tpudab_torch/csrc/; print ptxas' registers
-   and spills of each, and the opcode mix of the Viterbi kernels' SASS;
+   and spills of each, the Viterbi decode and traceback kernels' in a table
+   (a decode kernel spilling more than PARENT_SPILLS allows fails), and the
+   opcode mix of the Viterbi kernels' SASS;
 3. hold each kernel against its plain torch twin at the receive step's
    shapes: Viterbi (K1+K2) for the MSC and the FIC batch, bytes equal;
    deinterleave (K4's mode (a), logical rows), exact; carve + rotate (K5)
    with the bf16 sum, bit-equal to carve_rotate_tables_ref and within 1
    bf16 ulp of carve_rotate_ref; the bit-level Viterbi (K1+K3) at the
    host path's three shapes (FIC (64, 774, 4), MSC (64, 3462, 4), UEP
-   calibration (260, 3078, 4)), bits equal; K4's mode (a) again as the
+   calibration (260, 3078, 4)), bits equal (K1+K2 and K1+K3 also by their
+   device time alone, device_ms, and their host time a launch); K4's mode (a) again as the
    host path runs it, on f32 (79, 108 * 64) and (79, 96 * 64) subchannel
    buffers, exact; and K4's mode (b), soft bits and carry to the Viterbi
    input, bit-equal on the step's MSC group and FIC, timed beside the
@@ -51,9 +54,12 @@ Phases, each of which raises on failure (nothing is caught):
    full on the whole batch; int16 (X3) equal to f32 full from the second
    group on; fwd_t + shuffle traceback (X6) equal to the fused K1+K2; the
    three traceback modes (X5) equal; every int16 probe op (X4) equal to
-   torch; the carve ablations (X7) within 1 bf16 ulp of their twins where
-   they rotate, exact where not, and full within 1 bf16 ulp of K5. Prints
-   each kernel's ms, plain ms and bound; then runs each tool's main as
+   torch, at the tools' (64, 256) and at a ragged, unaligned shape; the
+   carve ablations (X7) within 1 bf16 ulp of their twins where they rotate,
+   exact where not, and full within 1 bf16 ulp of K5. Prints each kernel's
+   ms, plain ms and bound (the traceback modes and each X4 op also by their
+   device time alone, device_ms, X4 beside torch.add's call in the same run, and
+   the host cost of each part of a ctypes launch); then runs each tool's main as
    `python -m tpudab_torch.tools.<name>` would (the Viterbi decomposition
    among them), with the launch counts set to 0 before and read after;
 9. the decode path (`python -m tpudab_torch.host.cli decode`) on the
@@ -120,7 +126,7 @@ from tpudab_torch.ops.viterbi_cuda import (signs_on, viterbi_decode_bits_cuda,
                                            viterbi_decode_bytes_t_cuda,
                                            viterbi_decode_bytes_t_ref, viterbi_decode_ref)
 from tpudab_torch.ops.viterbi_exp import (fwd_variant_cuda, fwd_variant_ref, traceback_bytes_cuda,
-                                          traceback_bytes_ref)
+                                          traceback_bytes_ref, traceback_maps_ref)
 from tpudab_torch.synth import (ASCTY_DAB, ASCTY_DAB_PLUS, EnsembleSpec,
                                 EnsembleSynthesizer, Impairments, ServiceSpec, SubchannelSpec,
                                 apply_impairments)
@@ -176,6 +182,9 @@ HOST_UEP = (7, 648, 96, 128, 3)   # subch id, start CU, size CU, kbps, protectio
 DECODE_FRAMES, DECODE_BATCH, DECODE_SPLIT, ACQ_BATCH, ACQ_STRIDE = 48, 16, 20, 32, 6000
 DECODE_IMP = {"freq_offset_hz": 3400.0, "delay_samples": 7777, "snr_db": 15.0,
               "multipath": ((300, 0.4, 1.1),), "seed": 9}   # echo inside the 504-sample guard
+# wrapper -> the kernel whose ptxas resources its kernels line carries
+PTXAS_OF = {"viterbi_fwd_traceback": "viterbi_kernel<", "viterbi_bits": "viterbi_bits_kernel<",
+            "viterbi_traceback": "viterbi_traceback_kernel<"}
 DECODE_KERNELS = ("viterbi_bits", "deinterleave", "carve_rotate", "deinterleave_depuncture_t",
                   "viterbi_fwd_traceback")
 
@@ -214,8 +223,14 @@ FWD_OPS.update(prefetch=FWD_OPS["full"], dbuf=FWD_OPS["full"], gmm4=FWD_OPS["ful
 # add -> compare -> select -> compare -> select, 4 cycles each at the
 # H100 SXM's 1.98 GHz boost clock.
 SERIAL_STEP_S = 5 * 4 / 1.98e9
-# A traceback's: per super-step its TB_OPS ops, each on the last one's result
+# The chain of the traceback before its group maps: per
+# super-step its TB_OPS ops, each on the last one's result. Not a bound of
+# the map design, whose chain is one pick per 4 super-steps: printed as the
+# old chain's figure only.
 TB_SERIAL_STEP_S = TB_OPS * 4 / 1.98e9
+# Spill stores (bytes) of each decode kernel before the traceback's group
+# maps (ptxas -v, the same flags): none may spill more.
+PARENT_SPILLS = {"viterbi_kernel": 4, "viterbi_bits_kernel": 0}
 SECTOR = 32       # bytes: the least a load from device memory moves
 CARVE_OPS = 12    # per output sample: rotator by angle addition (6), rotation (6)
 
@@ -236,14 +251,51 @@ def kernel_ms(fn, reps: int, name: str) -> float:
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    total = sum(k.self_device_time_total for k in prof.key_averages()
-                if k.device_type == DeviceType.CUDA and name in k.key)
-    require(total > 0, f"the profiler recorded no device time for {name}")
+    total = 0
+    for _ in range(3):   # a trace that recorded nothing is taken again
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total = sum(k.self_device_time_total for k in prof.key_averages()
+                    if k.device_type == DeviceType.CUDA and name in k.key)
+        if total > 0:
+            break
+    require(total > 0, f"the profiler recorded no device time for {name} in 3 traces")
     return total / 1e3 / reps
+
+
+def device_ms(fn, reps: int) -> float:
+    """Mean device ms per fn() call without the host's part: the calls are
+    queued behind a spin kernel (torch.cuda._sleep, ~2.5 ms) that outlasts
+    their enqueue, so the CUDA events around them time the device alone
+    (the kernels and the gaps between back-to-back launches). Phase 8 uses
+    it in phases 3 and 8, where the profiler recorded part of the launches
+    or none in some runs (kernel_ms)."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(5_000_000)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def host_us(fn, reps: int) -> float:
+    """Host microseconds per fn() call: the host clock over reps calls
+    issued back to back after a warm-up, synchronised after the clock
+    stops (the device's queue takes them without making the host wait)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t * 1e6 / reps
 
 
 def bound(n_bytes: float, n_ops: float):
@@ -297,7 +349,7 @@ def identify() -> str:
     return card
 
 
-def build() -> None:
+def build() -> dict:
     t0 = time.perf_counter()
     _build.load_library()
     print(f"build: {time.perf_counter() - t0:.2f} s (nvcc {_build.BuildInfo.seconds:.2f} s)"
@@ -305,11 +357,52 @@ def build() -> None:
     for line in _build.BuildInfo.log.splitlines():   # each kernel's name, then its resources
         if "Compiling entry function" in line or "registers" in line or "spill" in line:
             print(f"  ptxas: {line.strip()}")
+    resources = viterbi_resources(_build.BuildInfo.log)
+    for label, (regs, spill, smem) in resources.items():
+        print(f"  resources {label}: {regs} registers, {spill} bytes spill stores, {smem} bytes smem")
     sass_mix()
+    require(len(resources) == 7, f"ptxas reported {len(resources)} of the 7 Viterbi decode "
+            f"and traceback kernels: {sorted(resources)}")
+    for label, (_, spill, _) in resources.items():
+        kernel = label.split("<")[0]
+        require(spill <= PARENT_SPILLS.get(kernel, spill),
+                f"{label} spills {spill} bytes; before the group maps it spilled "
+                f"{PARENT_SPILLS.get(kernel)}")
+    return resources
+
+
+def viterbi_resources(log: str) -> dict:
+    """{label: (registers, spill store bytes, static shared bytes)} of the
+    Viterbi decode kernels (viterbi_kernel, viterbi_bits_kernel, each in
+    f32 and bf16) and the traceback kernel's three modes, from ptxas' -v
+    report."""
+    out, label = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            k = re.search(r"\d(viterbi_kernel|viterbi_bits_kernel|viterbi_traceback_kernel)I(\w+)",
+                          m.group(1))
+            label = None
+            if k:
+                arg = k.group(2)
+                tag = ("bf16" if "bfloat16" in arg else "f32") if not arg.startswith("Li") \
+                    else ("shuffle", "masked", "tree")[int(arg[2])]
+                label = f"{k.group(1)}<{tag}>"
+                out[label] = [0, 0, 0]
+            continue
+        if label is None:
+            continue
+        for pattern, slot in ((r"Used (\d+) registers", 0), (r"(\d+) bytes spill stores", 1),
+                              (r"(\d+) bytes smem", 2)):
+            m = re.search(pattern, line)
+            if m:
+                out[label][slot] = int(m.group(1))
+    return {k: tuple(v) for k, v in out.items()}
 
 
 SASS_KERNELS = {"viterbi_kernel<bf16>": r"viterbi_kernelI13__nv_bfloat16",
                 "viterbi_bits_kernel<f32>": r"viterbi_bits_kernelIf",
+                "viterbi_traceback_kernel<shuffle>": r"viterbi_traceback_kernelILi0E",
                 "forward full f32 rebase 32": r"variant_kernelIfNS_9F32MetricELi0ELi32"}
 
 
@@ -353,16 +446,21 @@ def check_kernels(dev, rng, card: str):
         if err != 0:
             raise AssertionError(f"viterbi {label}: {(got != want).sum().item()} "
                                  f"bytes differ from the plain decoder")
-        ms = cuda_ms(lambda: viterbi_decode_bytes_t_cuda(soft_t, signs, n), 10)
+        call = lambda: viterbi_decode_bytes_t_cuda(soft_t, signs, n)
+        ms = cuda_ms(call, 10)
+        dev_ms = device_ms(call, 10)
+        host = host_us(call, 10)
         plain = cuda_ms(lambda: viterbi_decode_bytes_t_ref(soft_t, signs, n), 1)
         t2p = soft_t.shape[0]
         bnd = bound(soft_t.numel() * soft_t.element_size() + got.numel(),
                     b * t2p * (FWD_OPS["full"] + TB_OPS))
         print(f"K1+K2 viterbi {label} B={b} T2p={t2p}: bytes equal; "
-              f"kernel {ms:.3f} ms ({b * n / ms / 1e3:.1f} Mbit/s decoded), "
+              f"kernel {ms:.3f} ms ({b * n / ms / 1e3:.1f} Mbit/s decoded; device time "
+              f"{dev_ms:.4f} ms, host {host:.1f} us a launch), "
               f"plain {plain:.3f} ms, bound {bnd[0]:.3f} ms ({bnd[1]})  [{card}]")
         res[f"viterbi_{label}"] = (err, ms, plain)
         res[f"bound_viterbi_{label}"] = bnd
+        res[f"viterbi_{label}_device"] = (dev_ms, host)
 
     for label, profile, b in (("fic", FIC_PROFILE, 64),
                               ("msc", eep_profile(108, 3, 0), 64),
@@ -381,15 +479,21 @@ def check_kernels(dev, rng, card: str):
         if not torch.equal(got, want):
             raise AssertionError(f"viterbi bits {label}: {(got != want).sum().item()} "
                                  f"bits differ from the plain decoder")
-        ms = cuda_ms(lambda: viterbi_decode_bits_cuda(x, signs, n), 10)
+        call = lambda: viterbi_decode_bits_cuda(x, signs, n)
+        ms = cuda_ms(call, 10)
+        dev_ms = device_ms(call, 10)
+        host = host_us(call, 10)
         t2p = -(-x.shape[1] // 32) * 16
         bnd = bound(x.numel() * 4 + got.numel(), b * t2p * (FWD_OPS["full"] + TB_OPS))
         serial = t2p * SERIAL_STEP_S * 1e3
         print(f"K1+K3 viterbi bits {label} {tuple(x.shape)} f32: bits equal; kernel "
-              f"{ms:.3f} ms ({b * n / ms / 1e3:.1f} Mbit/s decoded), plain {plain:.3f} ms, "
-              f"bound {bnd[0]:.4f} ms ({bnd[1]}), serial bound {serial:.4f} ms  [{card}]")
+              f"{ms:.3f} ms ({b * n / ms / 1e3:.1f} Mbit/s decoded; device time {dev_ms:.4f} ms, "
+              f"host {host:.1f} us a launch), plain {plain:.3f} ms, "
+              f"bound {bnd[0]:.4f} ms ({bnd[1]}), the forward's serial bound {serial:.4f} ms"
+              f"  [{card}]")
         res[f"viterbi_bits_{label}"] = (0.0, ms, plain)
         res[f"bound_viterbi_bits_{label}"] = (*bnd, serial)
+        res[f"viterbi_bits_{label}_device"] = (dev_ms, host)
 
     c, s = 4 * N_FRAMES, 108 * 64
     buf = torch.from_numpy(rng.standard_normal((N_ENS, c + 15, s), dtype=np.float32))
@@ -980,17 +1084,24 @@ def check_tool_forward(dev, rng, card):
         got = traceback_bytes_cuda(decs, mode)
         torch.cuda.synchronize()
         twin, plain = timed_once(lambda: traceback_bytes_ref(decs[:TWIN_B], mode))
-        require(torch.equal(got, want) and torch.equal(got[:TWIN_B], twin),
-                f"traceback {mode}: differs from shuffle or from its twin")
-        ms = cuda_ms(lambda: traceback_bytes_cuda(decs, mode), 10)
-        # the path reads one byte of each group's 64: one sector per group
+        require(torch.equal(got, want) and torch.equal(got[:TWIN_B], twin)
+                and torch.equal(twin[:16], traceback_maps_ref(decs[:16], mode)),
+                f"traceback {mode}: differs from shuffle, from its twin or from the maps' twin")
+        call = lambda: traceback_bytes_cuda(decs, mode)
+        ms = cuda_ms(call, 10)
+        dev_ms = device_ms(call, 10)
+        # the path reads one byte of each group's 64: one sector per group;
+        # the maps read both sectors of every row (the design's own floor)
         bnd = bound(EXP_B * decs.shape[1] * SECTOR + got.numel(), EXP_B * t2p * TB_OPS)
-        serial = t2p * TB_SERIAL_STEP_S * 1e3
-        print(f"X traceback {mode} {tuple(decs.shape)}: equal to shuffle and to its twin; "
-              f"kernel {ms:.3f} ms, plain {plain:.3f} ms ({TWIN_B} codewords), bound "
-              f"{bnd[0]:.4f} ms ({bnd[1]}), serial bound {serial:.4f} ms  [{card}]")
-        tb[mode] = {"ms": ms, "plain_ms": plain, "bound_ms": bnd[0], "bound_by": bnd[1],
-                    "serial_bound_ms": serial}
+        floor = bound(decs.numel() + got.numel(), 0)[0]
+        old_chain = t2p * TB_SERIAL_STEP_S * 1e3
+        print(f"X traceback {mode} {tuple(decs.shape)}: equal to shuffle, to its twin and to the "
+              f"group-map twin; kernel {ms:.4f} ms (device alone {dev_ms:.4f} ms), plain "
+              f"{plain:.3f} ms ({TWIN_B} codewords), bound {bnd[0]:.4f} ms ({bnd[1]}), the maps' "
+              f"read of every row {floor:.4f} ms; the old per-super-step chain {old_chain:.4f} ms"
+              f" (not a bound of the maps)  [{card}]")
+        tb[mode] = {"ms": ms, "kernel_ms": dev_ms, "plain_ms": plain, "bound_ms": bnd[0],
+                    "bound_by": bnd[1], "all_rows_ms": floor, "old_chain_ms": old_chain}
     return res, tb
 
 
@@ -1000,19 +1111,36 @@ def check_tool_probe_carve(dev, rng, card):
     rotating ones within 1 bf16 ulp (full also against K5), the others
     exact."""
     x, y = exp_i16_probe.inputs(dev)
+    # a ragged (12, 13) and views 2 bytes past a 16-byte boundary: the
+    # kernel's element-wise tail and unaligned paths
+    rng_i = np.random.default_rng(SEED + 4)
+    odd = [torch.from_numpy(rng_i.integers(-32768, 32768, (12, 13)).astype(np.int16)).to(dev)
+           for _ in range(2)]
+    shifted = [torch.empty(1 + 64 * 256, dtype=torch.int16, device=dev)[1:].view(64, 256)
+               .copy_(t) for t in (x, y)]
     probe = {}
     for op in I16_OPS:
-        got = i16_probe_cuda(x, y, op)
-        require(torch.equal(got, i16_probe_ref(x, y, op)), f"int16 probe {op} differs")
+        for a, b in ((x, y), odd, shifted):
+            require(torch.equal(i16_probe_cuda(a, b, op), i16_probe_ref(a, b, op)),
+                    f"int16 probe {op} differs at {tuple(a.shape)}, offset {a.data_ptr() % 16}")
         bnd = bound(3 * x.numel() * 2, x.numel())
-        probe[op] = {"ms": cuda_ms(lambda: i16_probe_cuda(x, y, op), 20),
+        call = lambda: i16_probe_cuda(x, y, op)
+        probe[op] = {"ms": cuda_ms(call, 20), "kernel_ms": device_ms(call, 20),
                      "plain_ms": cuda_ms(lambda: i16_probe_ref(x, y, op), 20),
                      "bound_ms": bnd[0], "bound_by": bnd[1]}
-    probe["add"]["library_ms"] = cuda_ms(lambda: torch.add(x, y), 20)
-    print(f"X int16 probe {tuple(x.shape)}: all {len(I16_OPS)} ops equal to the twin; kernel "
+    library = cuda_ms(lambda: torch.add(x, y), 20)
+    for v in probe.values():
+        v["library_ms"] = library       # torch.add in the same run: the yardstick of every op
+    probe["add"]["library_ms"] = library
+    slower = [op for op, v in probe.items() if v["ms"] > library]
+    print(f"X int16 probe {tuple(x.shape)}: all {len(I16_OPS)} ops equal to the twin (also at "
+          f"(12, 13) and on unaligned views); a call (20, CUDA events) "
           + ", ".join(f"{op} {v['ms']:.4f}" for op, v in probe.items())
-          + f" ms; add: plain {probe['add']['plain_ms']:.4f} ms, torch.add "
-          f"{probe['add']['library_ms']:.4f} ms, bound {probe['add']['bound_ms']:.6f} ms  [{card}]")
+          + " ms; device alone " + ", ".join(f"{op} {v['kernel_ms']:.5f}" for op, v in probe.items())
+          + f" ms; torch.add a call {library:.4f} ms; slower than torch.add: {slower or 'none'}; "
+          f"add: plain {probe['add']['plain_ms']:.4f} ms, bound {probe['add']['bound_ms']:.6f} ms"
+          f"  [{card}]")
+    probe_launch = launch_breakdown(x, y, card)
 
     rows = get_ofdm_params(1).nb_frame_length // 128
     fr = torch.from_numpy(rng.standard_normal((EXP_FRAMES, rows, 128), dtype=np.float32)).to(dev)
@@ -1042,7 +1170,61 @@ def check_tool_probe_carve(dev, rng, card):
                   (xi.float() - ri.float()).abs().max().item())
         carve[label] = {"ms": ms, "plain_ms": plain, "bound_ms": bnd[0], "bound_by": bnd[1],
                         "max_ulp": ulps, "max_abs_err": err}
-    return probe, carve
+    return probe, carve, probe_launch
+
+
+def launch_breakdown(x, y, card: str) -> dict:
+    """Host microseconds of each part of a ctypes launch of the int16 probe
+    (host clock, 2,000 calls each, no device work unless said): torch's
+    current stream as a torch.cuda.Stream object and as the raw handle; the
+    current device; a device guard; a ctypes.c_void_p; the C call alone
+    (op 99, which returns an error before launching); torch.empty_like; the
+    wrapper, the wrapper as it stood before the lean path (guard, stream
+    object, c_void_p pointers), and torch.add, each launching."""
+    import ctypes
+    lib = _build.load_library()
+    reps, out = 2000, torch.empty_like(x)
+    px, py, po = x.data_ptr(), y.data_ptr(), out.data_ptr()
+    rows, cols = x.shape
+
+    def old_path():
+        o = torch.empty_like(x)
+        with torch.cuda.device(x.device):
+            err = lib.tpudab_i16_probe(ctypes.c_void_p(x.data_ptr()), ctypes.c_void_p(y.data_ptr()),
+                                       ctypes.c_void_p(o.data_ptr()), rows, cols, 0,
+                                       ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+        _build.check(err, "int16 probe add")
+        return o
+
+    def guard():
+        with torch.cuda.device(x.device):
+            pass
+
+    parts = {
+        "stream_object": lambda: torch.cuda.current_stream().cuda_stream,
+        "raw_stream": lambda: torch._C._cuda_getCurrentRawStream(0),
+        "current_device": lambda: torch._C._cuda_getDevice(),
+        "device_guard": guard,
+        "c_void_p": lambda: ctypes.c_void_p(px),
+        "c_call_no_launch": lambda: lib.tpudab_i16_probe(px, py, po, rows, cols, 99, 0),
+        "empty_like": lambda: torch.empty_like(x),
+        "wrapper": lambda: i16_probe_cuda(x, y, "add"),
+        "old_wrapper": old_path,
+        "torch_add": lambda: torch.add(x, y),
+    }
+    res = {}
+    for name, fn in parts.items():
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        res[name] = (time.perf_counter() - t0) * 1e6 / reps
+        torch.cuda.synchronize()
+    require(torch.equal(old_path(), x + y), "the old launch path's add differs")
+    print(f"X4 launch path, host us a call ({reps} calls each) [{card}]: "
+          + ", ".join(f"{k} {v:.2f}" for k, v in res.items()))
+    return res
 
 
 def run_tools(card):
@@ -1349,7 +1531,7 @@ def main() -> None:
     t_start = time.perf_counter()
     card = identify()
     dev = torch.device("cuda", 0)
-    build()
+    resources = build()
     rng = np.random.default_rng(SEED)
     res = check_kernels(dev, rng, card)
     chain = check_chain(dev, card)
@@ -1373,7 +1555,7 @@ def main() -> None:
     # phase 8: the kernel-experiment tools
     rng8 = np.random.default_rng(SEED + 8)
     fwd, tb = check_tool_forward(dev, rng8, card)
-    probe, carve = check_tool_probe_carve(dev, rng8, card)
+    probe, carve, probe_launch = check_tool_probe_carve(dev, rng8, card)
     tool_launches, _ = run_tools(card)
     launches.update(tool_launches)
 
@@ -1411,9 +1593,14 @@ def main() -> None:
             entry["also_replaces"] = ALSO_REPLACES[name]
         if name in FUSES:
             entry["also_fuses"] = FUSES[name]
+        if name == "viterbi_fwd_traceback":
+            entry["kernel_ms_host_us"] = {k: res[f"viterbi_{k}_device"] for k in ("msc", "fic")}
+            entry["fic_ms"] = res["viterbi_fic"][1]
         if name == "viterbi_bits":
             entry["ms_by_shape"] = {k: res[f"viterbi_bits_{k}"][1:]
                                     for k in ("fic", "msc", "calibration")}
+            entry["kernel_ms_host_us_by_shape"] = {k: res[f"viterbi_bits_{k}_device"]
+                                                   for k in ("fic", "msc", "calibration")}
             entry["serial_bound_ms"] = res["bound_viterbi_bits_msc"][2]
         if name == "deinterleave":
             entry["call_ms"] = res["deinterleave_call_ms"]
@@ -1425,14 +1612,18 @@ def main() -> None:
             entry["plain_codewords"] = TWIN_B
             entry["by_variant"] = fwd
         if name == "viterbi_traceback":
-            entry["serial_bound_ms"] = tb["shuffle"]["serial_bound_ms"]
+            entry["old_chain_ms"] = tb["shuffle"]["old_chain_ms"]
             entry["plain_codewords"] = TWIN_B
             entry["by_mode"] = tb
         if name == "i16_probe":
             entry["library_call"] = "torch.add"
             entry["by_op"] = probe
+            entry["launch_host_us"] = probe_launch
         if name == "carve_variant":
             entry["by_variant"] = carve
+        if name in PTXAS_OF:
+            entry["ptxas"] = {k: dict(zip(("registers", "spill_stores", "smem"), v))
+                              for k, v in resources.items() if k.startswith(PTXAS_OF[name])}
         if name in DECODE_KERNELS:
             entry["decode_launches"] = {k: v[name] for k, v in decode["decode_launches"].items()}
         kernels.append(entry)

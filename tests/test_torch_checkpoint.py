@@ -172,13 +172,23 @@ def test_carry_round_trip_bit_exact(dtype, tmp_path):
     carry = {"deint_1": torch.from_numpy(bits).view(dtype),
              "deint_9": torch.from_numpy(bits[::-1].copy()).view(dtype)}
     save_carry(str(tmp_path / "c.npz"), carry, {"note": 1})
-    back, extra = load_carry(str(tmp_path / "c"))
+    back, extra = load_carry(str(tmp_path / "c"), "cpu")
     assert extra == {"note": 1, "carry_dtype": str(dtype)[6:]}
     assert set(back) == set(carry)
     view = torch.int16 if dtype == torch.bfloat16 else torch.int32
     for k, v in carry.items():
         assert back[k].dtype == dtype
         assert torch.equal(back[k].view(view), v.view(view))
+
+
+def test_load_carry_defaults_to_the_card(tmp_path, monkeypatch):
+    """Like every entry point of the port, load_carry runs on the card
+    unless "cpu" is passed: with no card, the default raises."""
+    save_carry(str(tmp_path / "c"), {"deint_1": torch.zeros((15, 16))})
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        load_carry(str(tmp_path / "c"))
+    assert load_carry(str(tmp_path / "c"), "cpu")[0]["deint_1"].device.type == "cpu"
 
 
 def test_save_carry_refuses_mixed_dtypes(tmp_path):

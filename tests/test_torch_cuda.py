@@ -28,7 +28,8 @@ from tpudab_torch.ops.viterbi_cuda import (signs_on, viterbi_decode_bits_cuda,
                                            viterbi_decode_bytes_t_cuda,
                                            viterbi_decode_bytes_t_ref, viterbi_decode_ref)
 from tpudab_torch.ops.viterbi_exp import (VARIANTS, fwd_variant_cuda, fwd_variant_ref,
-                                          traceback_bytes_cuda, traceback_bytes_ref)
+                                          traceback_bytes_cuda, traceback_bytes_ref,
+                                          traceback_maps_ref)
 
 pytestmark = pytest.mark.cuda
 
@@ -310,6 +311,82 @@ def test_traceback_mode_equals_plain(dev, mode):
     assert torch.equal(got, traceback_bytes_ref(decs, mode, n_out=15))
 
 
+def tie_decisions(rng, b, groups):
+    """Packed decisions (B, G, 64): random bytes, and in every third
+    codeword the all-tie rows of an erased codeword (every decision 0, as
+    the forward pass takes the lower predecessor on a tie)."""
+    decs = torch.from_numpy(rng.integers(0, 256, (b, groups, 64)).astype(np.uint8))
+    decs[::3] = 0
+    return decs
+
+
+@pytest.mark.parametrize("mode", ["shuffle", "masked", "tree"])
+@pytest.mark.parametrize("b,groups,n_out", [(1, 1, 1), (6, 7, 7), (37, 33, 30), (5, 450, 449),
+                                            (70, 64, 64)])
+def test_traceback_mode_ragged(dev, mode, b, groups, n_out):
+    """Each mode at batches that are not a multiple of the codewords per
+    block (4 warps; 32 tree threads) and at G not a multiple of a stage (8
+    rows), of the ring or of a 32-group output window, n_out < G: equal to
+    the twin and to the group-map twin."""
+    rng = np.random.default_rng(b * 1000 + groups)
+    decs = tie_decisions(rng, b, groups)
+    got = traceback_bytes_cuda(decs.to(dev), mode, n_out)
+    torch.cuda.synchronize()
+    want = traceback_bytes_ref(decs, mode, n_out)
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(want, traceback_maps_ref(decs, mode, n_out))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t2p,b", [(16, 3), (48, 17), (272, 9), (1744, 33)])
+def test_viterbi_kernel_ragged_groups(dev, t2p, b, dtype):
+    """K1+K2 at G = T2p / 4 of 4, 12, 68 and 436 groups (not multiples of
+    the 8-row stage or the 32-group window), ragged B, n_data_bits short of
+    2 T2p by 3 bytes; a fifth of the codewords erased (ties)."""
+    rng = np.random.default_rng(t2p + b)
+    soft_t = torch.from_numpy(rng.standard_normal((t2p, 8, b), dtype=np.float32))
+    soft_t[:, :, : b // 5] = 0.0
+    soft_t = soft_t.to(dev, dtype)
+    n = 2 * t2p - 24
+    got = viterbi_decode_bytes_t_cuda(soft_t, signs_on(dev), n)
+    torch.cuda.synchronize()
+    assert torch.equal(got, viterbi_decode_bytes_t_ref(soft_t, signs_on(dev), n))
+
+
+@pytest.mark.parametrize("b,t,n", [(1, 20, 13), (5, 270, 203), (70, 1550, 1541)])
+def test_viterbi_bits_kernel_ragged_groups(dev, b, t, n):
+    """K1+K3 at T whose groups (T2p / 4 = 4, 36, 196) are not multiples of
+    a stage or an output window, n_bits not a multiple of 8 (the 8-byte
+    stores' masked tail), ragged B with erased codewords."""
+    rng = np.random.default_rng(b + t)
+    mother = torch.from_numpy(rng.standard_normal((b, t, 4), dtype=np.float32))
+    mother[::4] = 0.0
+    x = mother.to(dev)
+    got = viterbi_decode_bits_cuda(x, signs_on(dev), n)
+    torch.cuda.synchronize()
+    assert torch.equal(got, viterbi_decode_ref(x, signs_on(dev), n))
+
+
+@pytest.mark.parametrize("op", list(I16_OPS))
+def test_i16_probe_ragged_and_unaligned(dev, op):
+    """(12, 13): a size that is not a multiple of the 8 elements a thread
+    takes; then the same on views 2 bytes past a 16-byte boundary (the
+    element-wise path)."""
+    rng = np.random.default_rng(16)
+    x, y = (torch.from_numpy(rng.integers(-32768, 32768, (12, 13)).astype(np.int16)).to(dev)
+            for _ in range(2))
+    got = i16_probe_cuda(x, y, op)
+    torch.cuda.synchronize()
+    assert torch.equal(got, i16_probe_ref(x, y, op))
+    xs, ys = (torch.empty(1 + 16 * 24, dtype=torch.int16, device=dev) for _ in range(2))
+    xo, yo = xs[1:].view(16, 24), ys[1:].view(16, 24)
+    xo.copy_(torch.from_numpy(rng.integers(-32768, 32768, (16, 24)).astype(np.int16)))
+    yo.copy_(torch.from_numpy(rng.integers(-32768, 32768, (16, 24)).astype(np.int16)))
+    got = i16_probe_cuda(xo, yo, op)
+    torch.cuda.synchronize()
+    assert torch.equal(got, i16_probe_ref(xo, yo, op))
+
+
 @pytest.mark.parametrize("op", list(I16_OPS))
 def test_i16_probe_equals_plain(dev, op):
     rng = np.random.default_rng(13)
@@ -345,9 +422,9 @@ def test_carve_variant_equals_plain(dev, fb, roll, rotate):
     assert (torch.maximum((xr - rr).abs(), (xi - ri).abs()) <= ulp).all()
 
 
-def test_entry_points_default_to_the_card(dev):
-    """Receiver, SubchannelDecoder and the FIC decode of a numpy input run
-    on the card when no device is given."""
+def test_entry_points_default_to_the_card(dev, tmp_path):
+    """Receiver, SubchannelDecoder, the FIC decode of a numpy input and
+    load_carry run on the card when no device is given."""
     from tpudab_torch.constants.dab_params import get_dab_params
     from tpudab_torch.fic.fib import decode_fic_frame
     from tpudab_torch.models.receiver import Receiver
@@ -358,6 +435,9 @@ def test_entry_points_default_to_the_card(dev):
     n0 = viterbi_decode_bits_cuda.launches
     fibs, _ = decode_fic_frame(np.ones((1, get_dab_params(1).nb_fic_bits), np.float32))
     assert fibs.shape == (12, 32) and viterbi_decode_bits_cuda.launches == n0 + 1
+    from tpudab_torch.models.checkpoint import load_carry, save_carry
+    save_carry(str(tmp_path / "c"), {"deint_1": torch.zeros((15, 16))})
+    assert load_carry(str(tmp_path / "c"))[0]["deint_1"].device.type == "cuda"
 
 
 def impaired_capture(n_frames, imp, seed=1):

@@ -40,8 +40,10 @@
 // super-step and codeword), so the forward pass is bound by instructions:
 // ALU work (the branch-metric sums, 4 adds, 3 compares and 3 selects per
 // state) and the shuffles and shared-memory accesses of the exchanges,
-// which an SM serves at one warp instruction per cycle. The traceback is a
-// chain of dependent byte picks over the decisions, which it reads once.
+// which an SM serves at one warp instruction per cycle. The traceback reads
+// the decisions once (its bytes bound: both 32-byte sectors of every row,
+// since the maps read all 64 states) and is a chain of dependent picks,
+// which the group maps below cut to one per 4 super-steps.
 //
 // Design: one warp per codeword, kWarps codewords per block.
 //   - Lane l holds states 2l and 2l + 1, which have the same four
@@ -83,10 +85,9 @@
 //     (step q in bits [6-2q, 8-2q) of each state's byte) into one uint16 at
 //     bytes 2l, 2l + 1 of the group's 64-byte row in a global scratch
 //     (B, T2p/4, 64). After its forward pass each warp walks its own
-//     codeword's traceback from state 0: rows are fetched 8 at a time into
-//     lanes (their addresses do not depend on the state), and the state's
-//     byte is picked with a warp shuffle, so the dependent chain costs
-//     shuffles, not loads.
+//     codeword's traceback from state 0 (see "Traceback" below): rows
+//     staged by cp.async in a per-warp ring, each group's map of all 64
+//     start states built off the chain, then one shuffle pick a group.
 //
 // The variants change only where the branch metrics come from and what is
 // kept, so the differences between their times measure the parts:
@@ -444,59 +445,225 @@ __device__ StatePair<typename Mt::M> forward_acs(const Loader& load,
   return {v0, v1};
 }
 
+// ---- Traceback ---------------------------------------------------------
+//
+// Group maps. A group's walk of 4 super-steps from a start state s depends
+// only on the group's 64-byte row: q = 3 reads j3 = row[s] & 3 and the
+// byte it emits is s | (j3 << 6) (the 2-bit shifts of the state carry s's
+// own bits into the byte's bits 0-5), and the state 4 super-steps back is reached by
+// three more reads, each at the state the last one made. So each lane
+// builds, for its states 2l and 2l + 1, an 8-bit map entry, next state
+// (bits 0-5) | j3 (bits 6-7), from the staged row in shared memory, with no
+// reference to the traceback's own state: the maps of a stage of groups are
+// built ahead while the chain walks the stage before. The chain is then one
+// pick a group, S -> entry[S] of the lane pair holding S (a warp shuffle from
+// lane S >> 1 and a select on S & 1), and emits S | (entry & 0xc0). It is
+// function composition, exact by construction, ties included.
+//
+// Staging. A codeword's rows are contiguous (groups x 64 bytes). Each warp
+// keeps a ring of kStages stages of kTbGroups rows in shared memory, filled
+// backward from the last group by cp.async (16 bytes a lane, one stage a
+// warp instruction): while the maps of stage k + 1 are built and stage k is
+// walked, stages up to k + kStages are in flight, so DRAM latency is paid
+// about once per codeword. A stage below group 0 copies nothing.
+//
+// Output. Lane l keeps the byte of every group g = l (mod 32), in one of
+// two registers by the parity of g / 32, and a warp flushes a window of 32
+// groups once the chain has passed its first group: 32 consecutive bytes
+// (K2, the tools), or 256 bytes of one bit a byte (K3), each lane's 8 as
+// one 8-byte store where aligned; the n_out tail is masked.
+
+constexpr int kTbGroups = 8;                        // rows a stage: 512 bytes
+constexpr int kTbStages = 4;                        // stages in a warp's ring, by default
+constexpr int kTreeRing = 8;                        // rows in a tree thread's ring
+constexpr int kTreeStride = kTreeRing * kStates + 16;      // its bytes, padded
+
+// Shared memory by 32-bit shared-window addresses (ld.shared, not generic
+// loads with 64-bit address arithmetic), volatile so that no read moves
+// above the cp.async wait that makes its row visible.
+__device__ __forceinline__ uint32_t shared_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+__device__ __forceinline__ uint32_t lds_u8(uint32_t a) {
+  uint32_t v;
+  asm volatile("ld.shared.u8 %0, [%1];\n" : "=r"(v) : "r"(a));
+  return v;
+}
+__device__ __forceinline__ uint32_t lds_u16(uint32_t a) {
+  uint32_t v;
+  asm volatile("ld.shared.u16 %0, [%1];\n" : "=r"(v) : "r"(a));
+  return v;
+}
+__device__ __forceinline__ uint4 lds_u128(uint32_t a) {
+  uint4 v;
+  asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w) : "r"(a));
+  return v;
+}
+__device__ __forceinline__ void cp_async16(uint32_t smem, const void* gmem) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem), "l"(gmem) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
 // Row byte of `state` (in its low 8 bits) in a group's 64 decision bytes,
-// which the warp holds in lanes (bytes 2*lane and 2*lane + 1): by a warp
+// or the 8-bit map entry of `state`, which the warp holds in lanes (bytes
+// or entries 2*lane and 2*lane + 1 in the low 16 bits of w): by a warp
 // shuffle, or by tpudab's pre-r5 masked sum over the 64 rows.
 template <int kMode>
 __device__ __forceinline__ uint32_t row_byte(uint32_t w, int state, int lane) {
   if constexpr (kMode == kShuffle) {
-    const uint32_t v = __shfl_sync(0xffffffffu, w, state >> 1);
+    const uint32_t v = __shfl_sync(kAll, w, state >> 1);
     return (state & 1) ? (v >> 8) : v;
   } else {
     uint32_t hit = (2 * lane == state ? (w & 0xffu) : 0u) +
                    (2 * lane + 1 == state ? ((w >> 8) & 0xffu) : 0u);
 #pragma unroll
-    for (int o = 16; o > 0; o >>= 1) hit += __shfl_xor_sync(0xffffffffu, hit, o);
+    for (int o = 16; o > 0; o >>= 1) hit += __shfl_xor_sync(kAll, hit, o);
     return hit;
   }
 }
 
-// Traceback from state 0 by one warp over `groups` packed decision rows.
-// kBits: one 0/1 byte per decoded bit, for bits < n_out (K3); otherwise
-// one MSB-first byte per 4 super-steps, for bytes < n_out (K2).
-template <bool kBits, int kMode = kShuffle>
-__device__ void traceback(const uint8_t* __restrict__ dcw, int groups,
-                          uint8_t* __restrict__ ocw, int n_out) {
+// Byte t of a staged row, as the map build reads it at step q (t's j in
+// bits 4-5): shuffle reads it; masked sums the 4 bytes the walk can reach
+// from t & 15 (t & 15 | j << 4, j = 0..3), each masked by j's match.
+template <int kMode>
+__device__ __forceinline__ uint32_t map_pick(uint32_t row, int t) {
+  if constexpr (kMode == kShuffle) {
+    return lds_u8(row + t);
+  } else {
+    const int a = t & 15, j = t >> 4;
+    uint32_t hit = 0;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) hit += lds_u8(row + a + 16 * i) & (0u - (uint32_t)(i == j));
+    return hit;
+  }
+}
+
+// This lane's map entries of one staged row (at shared address row): state
+// 2l in bits 0-7, state 2l + 1 in bits 8-15 (next state | j3 << 6).
+template <int kMode>
+__device__ __forceinline__ uint32_t group_map(uint32_t row, int lane) {
+  const uint32_t own = lds_u16(row + 2 * lane);
+  uint32_t m = 0;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const uint32_t j3 = (own >> (8 * h)) & 3;
+    int t = (lane >> 1) | (int)(j3 << 4);             // (2l + h) >> 2 | j3 << 4
+#pragma unroll
+    for (int q = 2; q >= 0; --q)
+      t = (t >> 2) | (int)(((map_pick<kMode>(row, t) >> (6 - 2 * q)) & 3) << 4);
+    m |= ((uint32_t)t | (j3 << 6)) << (8 * h);
+  }
+  return m;
+}
+
+// The 8 decoded bits of a byte, MSB first, one a byte (little-endian u64).
+__device__ __forceinline__ unsigned long long bits_of(uint32_t byte) {
+  unsigned long long v = 0;
+#pragma unroll
+  for (int k = 0; k < 8; ++k) v |= (unsigned long long)((byte >> (7 - k)) & 1) << (8 * k);
+  return v;
+}
+
+// Store of group g's byte (bytes out) or its 8 bits (kBits), for what lies
+// below n_out: one 8-byte store where whole and aligned.
+template <bool kBits>
+__device__ __forceinline__ void put_group(uint8_t* __restrict__ ocw, int g, uint32_t byte,
+                                          int n_out) {
+  if (!kBits) {
+    if (g < n_out) ocw[g] = (uint8_t)byte;
+    return;
+  }
+  const unsigned long long v = bits_of(byte);
+  uint8_t* p = ocw + 8 * (size_t)g;
+  if (8 * g + 8 <= n_out && (reinterpret_cast<uintptr_t>(p) & 7) == 0) {
+    *reinterpret_cast<unsigned long long*>(p) = v;
+  } else {
+#pragma unroll
+    for (int k = 0; k < 8; ++k)
+      if (8 * g + k < n_out) p[k] = (uint8_t)(v >> (8 * k));
+  }
+}
+
+// Bytes of a warp's ring of kStages stages.
+template <int kStages>
+__host__ __device__ constexpr int tb_ring() { return kStages * kTbGroups * kStates; }
+
+// Traceback from state 0 by one warp over `groups` packed decision rows
+// (dcw: 16-byte aligned), through the warp's ring (tb_ring<kStages>() bytes
+// of shared memory, 16-byte aligned). kBits: one 0/1 byte per decoded bit,
+// for bits < n_out (K3); otherwise one MSB-first byte per 4 super-steps,
+// for bytes < n_out (K2). Not inlined: in the decode kernels it runs after
+// the forward pass under the same 64-register bound, and a call keeps its
+// registers apart from the forward pass's.
+template <bool kBits, int kMode = kShuffle, int kStages = kTbStages>
+__device__ __noinline__ void traceback(const uint8_t* __restrict__ dcw, int groups,
+                          uint8_t* __restrict__ ocw, int n_out, uint8_t* ring) {
+  static_assert(kStages >= 2, "a stage is read while the next lands");
   const int lane = threadIdx.x & 31;
-  const uint16_t* rows = reinterpret_cast<const uint16_t*>(dcw);
+  const int stages = (groups + kTbGroups - 1) / kTbGroups;
+  const uint32_t ring_s = shared_addr(ring);
+  // stage k: rows base(k) + u, u < kTbGroups, base(k) = groups - kTbGroups (k + 1);
+  // lane l copies bytes [16 (l & 3), +16) of row u = l >> 2
+  auto fetch = [&](int k) {
+    const int g = groups - kTbGroups * (k + 1) + (lane >> 2);
+    if (k < stages && g >= 0)
+      cp_async16(ring_s + (k % kStages) * kTbGroups * kStates + 16 * lane,
+                 dcw + (size_t)g * kStates + 16 * (lane & 3));
+    cp_async_commit();
+  };
+  // two groups' entries a register (row u in bits 16 (u & 1)): 64 registers
+  // hold the forward pass of the decode kernels, and these are live beside
+  // its values
+  auto maps = [&](int k, uint32_t (&m)[kTbGroups / 2]) {
+    const uint32_t slot = ring_s + (k % kStages) * kTbGroups * kStates;
+#pragma unroll
+    for (int u = 0; u < kTbGroups; u += 2)
+      m[u / 2] = group_map<kMode>(slot + u * kStates, lane) |
+                 (group_map<kMode>(slot + (u + 1) * kStates, lane) << 16);
+  };
+#pragma unroll
+  for (int k = 0; k < kStages; ++k) fetch(k);
+  cp_async_wait<kStages - 1>();
+  __syncwarp();
+  uint32_t next[kTbGroups / 2], cur[kTbGroups / 2];
+  maps(0, next);
   int state = 0;
-  for (int g_hi = groups; g_hi > 0; g_hi -= 8) {
-    uint32_t v[8];
+  uint32_t keep0 = 0, keep1 = 0;   // this lane's bytes of the windows of even / odd g >> 5
+  for (int k = 0; k < stages; ++k) {
+    // every lane has read stage k's slot (maps(k)), which this refills
+    __syncwarp();
+    fetch(k + kStages);
+    cp_async_wait<kStages - 1>();     // stage k + 1 has landed for this lane
+    __syncwarp();                     // ... and for every lane
 #pragma unroll
-    for (int u = 0; u < 8; ++u) {
-      const int g = g_hi - 1 - u;
-      v[u] = g >= 0 ? rows[(size_t)g * (kStates / 2) + lane] : 0u;
-    }
+    for (int u = 0; u < kTbGroups / 2; ++u) cur[u] = next[u];
+    maps(k + 1, next);                // off the chain (stale past the last stage)
+    const int base = groups - kTbGroups * (k + 1);
 #pragma unroll
-    for (int u = 0; u < 8; ++u) {
-      const int g = g_hi - 1 - u;
-      if (g < 0) break;
-      uint32_t byte = 0;
-#pragma unroll
-      for (int q = 3; q >= 0; --q) {
-        const int j = (row_byte<kMode>(v[u], state, lane) >> (6 - 2 * q)) & 3;
-        if (kBits) {
-          // super-step t = 4g + q decodes bits 2t ((state >> 1) & 1) and
-          // 2t + 1 (state & 1); the state is the same in every lane
-          const int bit = 8 * g + 2 * q;
-          if (lane == 0 && bit < n_out) ocw[bit] = (uint8_t)((state >> 1) & 1);
-          if (lane == 0 && bit + 1 < n_out) ocw[bit + 1] = (uint8_t)(state & 1);
-        } else {
-          byte |= (uint32_t)(state & 3) << (6 - 2 * q);
+    for (int u = kTbGroups - 1; u >= 0; --u) {
+      const int g = base + u;
+      const uint32_t e = row_byte<kMode>(cur[u / 2] >> (16 * (u & 1)), state, lane);
+      const uint32_t byte = (uint32_t)state | (e & 0xc0u);
+      if (g >= 0) {                   // the last stage's rows below 0 are not walked
+        if (lane == (g & 31)) {
+          if ((g >> 5) & 1) keep1 = byte;
+          else keep0 = byte;
         }
-        state = (state >> 2) | (j << 4);
+        state = (int)(e & 63u);
       }
-      if (!kBits && lane == 0 && g < n_out) ocw[g] = (uint8_t)byte;
+    }
+    // flush the window of 32 groups whose first group this stage walked
+    const int lo = base > 0 ? base : 0, w = (base + kTbGroups - 1) >> 5;
+    if (32 * w >= lo) {
+      const int g = 32 * w + lane;
+      if (g < groups) put_group<kBits>(ocw, g, (w & 1) ? keep1 : keep0, n_out);
     }
   }
 }
@@ -504,15 +671,33 @@ __device__ void traceback(const uint8_t* __restrict__ dcw, int groups,
 // The same by one thread, bytes out, picking the state's byte by a 6-level
 // binary select on the state bits, high bit first, over the row held in 16
 // registers, as tools/exp_tb_tree.py::_tb_kernel_tree halves its 64 rows.
+// Rows come through the thread's own ring of kTreeRing rows in shared
+// memory (kTreeStride bytes, padded so that a quarter warp's 16-byte reads
+// fall on distinct banks), filled by cp.async kTreeRing - 1 rows ahead.
+// Bytes are kept 4 groups to a word and stored as one word where aligned.
 __device__ void traceback_tree(const uint8_t* __restrict__ dcw, int groups,
-                               uint8_t* __restrict__ ocw, int n_out) {
-  const uint4* rows = reinterpret_cast<const uint4*>(dcw);
+                               uint8_t* __restrict__ ocw, int n_out, uint8_t* ring) {
+  const uint32_t ring_s = shared_addr(ring);
+  auto fetch = [&](int g) {
+    if (g >= 0) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        cp_async16(ring_s + (g % kTreeRing) * kStates + 16 * c, dcw + (size_t)g * kStates + 16 * c);
+    }
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int d = 1; d < kTreeRing; ++d) fetch(groups - d);
   int state = 0;
+  uint32_t word = 0;
   for (int g = groups - 1; g >= 0; --g) {
+    fetch(g - (kTreeRing - 1));
+    cp_async_wait<kTreeRing - 1>();   // row g has landed
     uint32_t r[16];
+    const uint32_t row = ring_s + (g % kTreeRing) * kStates;
 #pragma unroll
     for (int u = 0; u < 4; ++u) {
-      const uint4 w = rows[(size_t)g * 4 + u];
+      const uint4 w = lds_u128(row + 16 * u);
       r[4 * u] = w.x; r[4 * u + 1] = w.y; r[4 * u + 2] = w.z; r[4 * u + 3] = w.w;
     }
     uint32_t byte = 0;
@@ -534,7 +719,18 @@ __device__ void traceback_tree(const uint8_t* __restrict__ dcw, int groups,
       byte |= (uint32_t)(state & 3) << (6 - 2 * q);
       state = (state >> 2) | (j << 4);
     }
-    if (g < n_out) ocw[g] = (uint8_t)byte;
+    word |= byte << (8 * (g & 3));
+    if ((g & 3) == 0) {
+      uint8_t* p = ocw + g;
+      if (g + 4 <= n_out && (reinterpret_cast<uintptr_t>(p) & 3) == 0) {
+        *reinterpret_cast<uint32_t*>(p) = word;
+      } else {
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+          if (g + k < n_out) p[k] = (uint8_t)(word >> (8 * k));
+      }
+      word = 0;
+    }
   }
 }
 
@@ -542,17 +738,25 @@ __device__ void traceback_tree(const uint8_t* __restrict__ dcw, int groups,
 // registers a thread).
 #define TPUDAB_WARPS_BOUNDS(W) __launch_bounds__((W) * kLanes, 1024 / ((W) * kLanes))
 
+// Traceback ring stages of a decode kernel of kWarps warps: 2 where 4
+// would take the block past 48 KB of static shared memory (bf16, 16 warps).
+__host__ __device__ constexpr int decode_tb_stages(int warps) { return warps > 8 ? 2 : kTbStages; }
+
 template <typename T, int kWarps = transposed_warps<T>()>
 __global__ void TPUDAB_WARPS_BOUNDS(kWarps)
 viterbi_kernel(const T* __restrict__ soft, const int* __restrict__ table,
                uint8_t* __restrict__ dec, uint8_t* __restrict__ out,
                int t2p, int b, int n_out) {
+  constexpr int kRing = tb_ring<decode_tb_stages(kWarps)>();
+  __shared__ __align__(16) uint8_t ring[kWarps * kRing];
   const int cw0 = blockIdx.x * kWarps, cw = cw0 + (int)(threadIdx.x >> 5);
   uint8_t* dcw = dec + (size_t)cw * (t2p / 4) * kStates;
   forward_acs<kFull, F32Metric, kStage, kWarps>(
       TransposedSoft<T, F32Metric, kWarps>{soft, b, cw0}, table, t2p,
       cw < b ? reinterpret_cast<uint16_t*>(dcw) : nullptr);
-  if (cw < b) traceback<false>(dcw, t2p / 4, out + (size_t)cw * n_out, n_out);
+  if (cw < b)
+    traceback<false, kShuffle, decode_tb_stages(kWarps)>(
+        dcw, t2p / 4, out + (size_t)cw * n_out, n_out, ring + (threadIdx.x >> 5) * kRing);
 }
 
 template <typename T>
@@ -560,6 +764,8 @@ __global__ void TPUDAB_WARPS_BOUNDS(kBitsWarps)
 viterbi_bits_kernel(const T* __restrict__ soft, const int* __restrict__ table,
                     uint8_t* __restrict__ dec, uint8_t* __restrict__ out,
                     int t_mother, int t2p, int b, int n_bits) {
+  constexpr int kRing = tb_ring<decode_tb_stages(kBitsWarps)>();
+  __shared__ __align__(16) uint8_t ring[kBitsWarps * kRing];
   const int cw = blockIdx.x * kBitsWarps + (int)(threadIdx.x >> 5);
   const bool live = cw < b;
   uint8_t* dcw = dec + (size_t)cw * (t2p / 4) * kStates;
@@ -567,7 +773,9 @@ viterbi_bits_kernel(const T* __restrict__ soft, const int* __restrict__ table,
   forward_acs<kPrefetch, F32Metric, kStage, kBitsWarps>(
       MotherSoft<T>{soft + (size_t)cw * n_vals, n_vals}, table, t2p,
       live ? reinterpret_cast<uint16_t*>(dcw) : nullptr);
-  if (live) traceback<true>(dcw, t2p / 4, out + (size_t)cw * n_bits, n_bits);
+  if (live)
+    traceback<true, kShuffle, decode_tb_stages(kBitsWarps)>(
+        dcw, t2p / 4, out + (size_t)cw * n_bits, n_bits, ring + (threadIdx.x >> 5) * kRing);
 }
 
 template <typename T, typename Mt, int kVariant, int kRebase, int kWarps = transposed_warps<T>()>
@@ -584,21 +792,28 @@ viterbi_fwd_variant_kernel(const T* __restrict__ soft, const int* __restrict__ t
         make_float2((float)v.lo, (float)v.hi);
 }
 
-// Shuffle and masked: one warp per codeword, the block's warps on
-// consecutive codewords; tree: one thread per codeword.
+constexpr int kTbWarps = 4;      // codewords per block of the warp modes
+constexpr int kTreeBlock = 32;   // codewords (threads) per block of tree
+
+// Shuffle and masked: one warp per codeword, the block's kTbWarps warps on
+// consecutive codewords; tree: one thread per codeword, kTreeBlock a block.
 template <int kMode>
-__global__ void viterbi_traceback_kernel(const uint8_t* __restrict__ dec,
-                                         uint8_t* __restrict__ out, int groups,
-                                         int b, int n_out) {
+__global__ void __launch_bounds__(kMode == kTree ? kTreeBlock : kTbWarps * kLanes)
+viterbi_traceback_kernel(const uint8_t* __restrict__ dec, uint8_t* __restrict__ out,
+                         int groups, int b, int n_out) {
   if constexpr (kMode == kTree) {
-    const int cw = blockIdx.x * blockDim.x + threadIdx.x;
+    __shared__ __align__(16) uint8_t ring[kTreeBlock * kTreeStride];
+    const int cw = blockIdx.x * kTreeBlock + threadIdx.x;
     if (cw < b)
-      traceback_tree(dec + (size_t)cw * groups * kStates, groups, out + (size_t)cw * n_out, n_out);
+      traceback_tree(dec + (size_t)cw * groups * kStates, groups, out + (size_t)cw * n_out,
+                     n_out, ring + threadIdx.x * kTreeStride);
   } else {
-    const int cw = blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32;
+    constexpr int kRing = tb_ring<kTbStages>();
+    __shared__ __align__(16) uint8_t ring[kTbWarps * kRing];
+    const int cw = blockIdx.x * kTbWarps + threadIdx.x / 32;
     if (cw < b)
       traceback<false, kMode>(dec + (size_t)cw * groups * kStates, groups,
-                              out + (size_t)cw * n_out, n_out);
+                              out + (size_t)cw * n_out, n_out, ring + (threadIdx.x / 32) * kRing);
   }
 }
 
@@ -710,13 +925,11 @@ extern "C" int tpudab_viterbi_traceback(const void* dec, void* out, int groups, 
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const uint8_t* d = static_cast<const uint8_t*>(dec);
   uint8_t* o = static_cast<uint8_t*>(out);
-  constexpr int kWarps = 4;   // codewords per block for the warp modes
-  constexpr int kTreeBlock = 128;
   if (mode == kShuffle)
-    viterbi_traceback_kernel<kShuffle><<<(b + kWarps - 1) / kWarps, 32 * kWarps, 0, st>>>(
+    viterbi_traceback_kernel<kShuffle><<<(b + kTbWarps - 1) / kTbWarps, kTbWarps * kLanes, 0, st>>>(
         d, o, groups, b, n_out);
   else if (mode == kMasked)
-    viterbi_traceback_kernel<kMasked><<<(b + kWarps - 1) / kWarps, 32 * kWarps, 0, st>>>(
+    viterbi_traceback_kernel<kMasked><<<(b + kTbWarps - 1) / kTbWarps, kTbWarps * kLanes, 0, st>>>(
         d, o, groups, b, n_out);
   else if (mode == kTree)
     viterbi_traceback_kernel<kTree><<<(b + kTreeBlock - 1) / kTreeBlock, kTreeBlock, 0, st>>>(

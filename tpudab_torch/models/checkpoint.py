@@ -22,6 +22,7 @@ import torch
 from tpudab_torch.constants.puncture import PunctureProfile
 from tpudab_torch.models.convert import carry_from_npz
 from tpudab_torch.msc.subchannel import SubchannelConfig
+from tpudab_torch.utils.device import DEFAULT_DEVICE, resolve_device
 
 _DTYPE_NAMES = {torch.bfloat16: "bfloat16", torch.float32: "float32"}
 
@@ -47,9 +48,10 @@ def save_carry(path: str, carry: Dict[str, torch.Tensor],
             json.dump(extra, f)
 
 
-def load_carry(path: str, device="cpu"):
+def load_carry(path: str, device=DEFAULT_DEVICE):
     """(carry tensors on device, extra dict or None) from save_carry's or
-    tpudab's files."""
+    tpudab's files. The card by default; no card is an error."""
+    device = resolve_device(device)
     extra = None
     jpath = _base(path) + ".json"
     if os.path.exists(jpath):

@@ -21,7 +21,6 @@ twin; CUDA: the kernel in csrc/deinterleave.cu, or an error):
 
 from __future__ import annotations
 
-import ctypes
 import dataclasses
 import functools
 from typing import Optional
@@ -97,13 +96,8 @@ def deinterleave_cuda(buf: torch.Tensor, c: int) -> torch.Tensor:
     e = buf.shape[0] if buf.dim() == 3 else 1
     s = buf.shape[-1]
     out = torch.empty(buf.shape[:-2] + (c, s), dtype=buf.dtype, device=buf.device)
-    lib = _build.load_library()
-    with torch.cuda.device(buf.device):
-        err = lib.tpudab_deinterleave(
-            ctypes.c_void_p(buf.data_ptr()), ctypes.c_void_p(out.data_ptr()),
-            e, c, s, buf.element_size(),
-            ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
-    _build.check(err, "deinterleave")
+    _build.launch(_build.load_library().tpudab_deinterleave, buf.get_device(), "deinterleave",
+                  buf.data_ptr(), out.data_ptr(), e, c, s, buf.element_size())
     deinterleave_cuda.launches += 1
     return out
 
@@ -217,15 +211,12 @@ def deinterleave_depuncture_t_cuda(soft: torch.Tensor, rows: SoftRows,
                          f"int64 index, got soft {soft.device} {soft.dtype} "
                          f"{tuple(soft.shape)}, {rows}, index {index.dtype}")
     new_carry = torch.empty_like(carry) if carry is not None else None
-    ptr = lambda t: ctypes.c_void_p(t.data_ptr() if t is not None else None)
-    lib = _build.load_library()
-    with torch.cuda.device(soft.device):
-        err = lib.tpudab_deinterleave_depuncture_t(
-            ptr(soft), ptr(carry), ptr(new_carry), ptr(index), ptr(out), e,
-            soft.shape[0] // e, rows.per_frame, soft.shape[1], rows.base, rows.pitch,
-            rows.width, c, index.shape[0], n_punct, out.shape[2], col0, size,
-            ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
-    _build.check(err, "deinterleave_depuncture_t")
+    ptr = lambda t: t.data_ptr() if t is not None else None
+    _build.launch(_build.load_library().tpudab_deinterleave_depuncture_t, soft.get_device(),
+                  "deinterleave_depuncture_t", soft.data_ptr(), ptr(carry), ptr(new_carry),
+                  index.data_ptr(), out.data_ptr(), e, soft.shape[0] // e, rows.per_frame,
+                  soft.shape[1], rows.base, rows.pitch, rows.width, c, index.shape[0], n_punct,
+                  out.shape[2], col0, size)
     deinterleave_depuncture_t_cuda.launches += 1
     return new_carry
 

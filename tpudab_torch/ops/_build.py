@@ -22,6 +22,8 @@ import tempfile
 import time
 from pathlib import Path
 
+import torch
+
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
@@ -49,7 +51,8 @@ SIGNATURES = {
 
 class BuildInfo:
     """What the last build did: seconds spent (0.0 when the library was
-    already built) and nvcc's output, including ptxas' register report."""
+    already built) and nvcc's output, including ptxas' register report
+    (kept beside the library, so that a later process reads it too)."""
 
     seconds = 0.0
     log = ""
@@ -103,7 +106,10 @@ def load_library() -> ctypes.CDLL:
             for cmd, log, rc in runs:
                 if rc != 0:
                     raise RuntimeError(f"nvcc failed ({rc}):\n{' '.join(cmd)}\n{log}")
+            so.with_suffix(".log").write_text(BuildInfo.log)
             os.replace(f"{tmp}/lib.so", so)
+    elif so.with_suffix(".log").exists():
+        BuildInfo.log = so.with_suffix(".log").read_text()
     lib = ctypes.CDLL(str(so))
     for name, argtypes in SIGNATURES.items():
         fn = getattr(lib, name)
@@ -116,3 +122,19 @@ def check(err: int, what: str) -> None:
     """Raise if a kernel's launch returned a CUDA error."""
     if err != 0:
         raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")
+
+
+def launch(fn, index: int, what: str, *args) -> None:
+    """fn(*args, stream) on the current stream of CUDA device `index`
+    (tensor.get_device()), then check(). Pointers go in as plain ints
+    (tensor.data_ptr(); None for a null pointer), which the declared
+    c_void_p argtypes take as they are; the stream as torch's raw handle,
+    with no torch.cuda.Stream object built; a device guard is entered only
+    when `index` is not the current device (the launch must run in its
+    context)."""
+    if index == torch._C._cuda_getDevice():
+        err = fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    else:
+        with torch.cuda.device(index):
+            err = fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    check(err, what)

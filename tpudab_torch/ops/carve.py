@@ -15,7 +15,6 @@ takes (tpudab/ofdm/demod.py:214).
 
 from __future__ import annotations
 
-import ctypes
 import math
 
 import numpy as np
@@ -144,15 +143,11 @@ def carve_rotate_cuda(frames_re, frames_im, freq_hz, mode: int = 1,
     xr = torch.empty((f, rows, 128), dtype=torch.bfloat16, device=fr.device)
     xi = torch.empty_like(xr)
     xs = torch.empty_like(xr) if with_sum else None
-    lib = _build.load_library()
-    ptr = lambda t: ctypes.c_void_p(t.data_ptr() if t is not None else None)
-    with torch.cuda.device(fr.device):
-        err = lib.tpudab_carve_rotate(
-            ptr(fr), ptr(fi), int(fr.dtype == torch.bfloat16),
-            ptr(ca), ptr(sa), ptr(ci), ptr(si), ptr(xr), ptr(xi), ptr(xs),
-            f, p.nb_frame_length, p.nb_symbols, p.nb_fft, stride, first,
-            ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
-    _build.check(err, "carve_rotate")
+    _build.launch(_build.load_library().tpudab_carve_rotate, fr.get_device(), "carve_rotate",
+                  fr.data_ptr(), fi.data_ptr(), int(fr.dtype == torch.bfloat16),
+                  ca.data_ptr(), sa.data_ptr(), ci.data_ptr(), si.data_ptr(), xr.data_ptr(),
+                  xi.data_ptr(), xs.data_ptr() if with_sum else None,
+                  f, p.nb_frame_length, p.nb_symbols, p.nb_fft, stride, first)
     carve_rotate_cuda.launches += 1
     return (xr, xi, xs) if with_sum else (xr, xi)
 

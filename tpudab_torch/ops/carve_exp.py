@@ -20,8 +20,6 @@ CUDA tensor the kernel.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from tpudab_torch.ops import _build
@@ -74,15 +72,11 @@ def carve_variant_cuda(frames_re, frames_im, freq_hz, fb: int = 8, roll: bool = 
     rows = p.nb_symbols * (p.nb_fft // 128)
     xr = torch.empty((f, rows, 128), dtype=torch.bfloat16, device=fr.device)
     xi = torch.empty_like(xr)
-    lib = _build.load_library()
-    ptr = lambda t: ctypes.c_void_p(t.data_ptr())
-    with torch.cuda.device(fr.device):
-        err = lib.tpudab_carve_variant(
-            ptr(fr), ptr(fi), int(fr.dtype == torch.bfloat16),
-            ptr(ca), ptr(sa), ptr(ci), ptr(si), ptr(xr), ptr(xi),
-            f, fb, p.nb_frame_length, p.nb_symbols, p.nb_fft, stride, first,
-            int(roll), int(rotate), ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
-    _build.check(err, "carve variant")
+    _build.launch(_build.load_library().tpudab_carve_variant, fr.get_device(), "carve variant",
+                  fr.data_ptr(), fi.data_ptr(), int(fr.dtype == torch.bfloat16),
+                  ca.data_ptr(), sa.data_ptr(), ci.data_ptr(), si.data_ptr(), xr.data_ptr(),
+                  xi.data_ptr(), f, fb, p.nb_frame_length, p.nb_symbols, p.nb_fft, stride,
+                  first, int(roll), int(rotate))
     carve_variant_cuda.launches += 1
     return xr, xi
 

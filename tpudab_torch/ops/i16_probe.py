@@ -12,8 +12,6 @@ CPU tensor takes the twin, a CUDA tensor the kernel in csrc/i16_probe.cu.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from tpudab_torch.ops import _build
@@ -67,14 +65,12 @@ def i16_probe_cuda(x: torch.Tensor, y: torch.Tensor, op: str) -> torch.Tensor:
     _check(x, y, op)
     if not (x.is_cuda and y.is_cuda and x.is_contiguous() and y.is_contiguous()):
         raise ValueError("i16_probe_cuda takes contiguous CUDA tensors")
+    if x.get_device() != y.get_device():
+        raise ValueError(f"x and y lie on different cards: {x.device}, {y.device}")
     out = torch.empty_like(x)
-    lib = _build.load_library()
-    with torch.cuda.device(x.device):
-        err = lib.tpudab_i16_probe(
-            ctypes.c_void_p(x.data_ptr()), ctypes.c_void_p(y.data_ptr()),
-            ctypes.c_void_p(out.data_ptr()), x.shape[0], x.shape[1], OP_IDS[op],
-            ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
-    _build.check(err, f"int16 probe {op}")
+    rows, cols = x.shape
+    _build.launch(_build.load_library().tpudab_i16_probe, x.get_device(), f"int16 probe {op}",
+                  x.data_ptr(), y.data_ptr(), out.data_ptr(), rows, cols, OP_IDS[op])
     i16_probe_cuda.launches += 1
     return out
 

@@ -18,7 +18,6 @@ decoder bit for bit. There is no fallback from one to the other.
 
 from __future__ import annotations
 
-import ctypes
 import functools
 
 import torch
@@ -101,15 +100,9 @@ def viterbi_decode_bytes_t_cuda(soft_t: torch.Tensor, signs: torch.Tensor,
                       device=soft_t.device)
     out = torch.empty((b, n_data_bits // 8), dtype=torch.uint8,
                       device=soft_t.device)
-    lib = _build.load_library()
-    with torch.cuda.device(soft_t.device):
-        err = lib.tpudab_viterbi_decode_bytes_t(
-            ctypes.c_void_p(soft_t.data_ptr()),
-            int(soft_t.dtype == torch.bfloat16),
-            ctypes.c_void_p(table.data_ptr()), ctypes.c_void_p(dec.data_ptr()),
-            ctypes.c_void_p(out.data_ptr()), t2p, b, n_data_bits // 8,
-            ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
-    _build.check(err, "viterbi")
+    _build.launch(_build.load_library().tpudab_viterbi_decode_bytes_t, soft_t.get_device(),
+                  "viterbi", soft_t.data_ptr(), int(soft_t.dtype == torch.bfloat16),
+                  table.data_ptr(), dec.data_ptr(), out.data_ptr(), t2p, b, n_data_bits // 8)
     viterbi_decode_bytes_t_cuda.launches += 1
     return out
 
@@ -145,15 +138,9 @@ def viterbi_decode_bits_cuda(mother_soft: torch.Tensor, signs: torch.Tensor,
     out = torch.empty((b, n_data_bits), dtype=torch.uint8, device=mother_soft.device)
     dec = torch.empty((b, t2p // 4, N_STATES), dtype=torch.uint8,
                       device=mother_soft.device)
-    lib = _build.load_library()
-    with torch.cuda.device(mother_soft.device):
-        err = lib.tpudab_viterbi_decode_bits(
-            ctypes.c_void_p(mother_soft.data_ptr()),
-            int(mother_soft.dtype == torch.bfloat16),
-            ctypes.c_void_p(table.data_ptr()), ctypes.c_void_p(dec.data_ptr()),
-            ctypes.c_void_p(out.data_ptr()), t, t2p, b, n_data_bits,
-            ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
-    _build.check(err, "viterbi bits")
+    _build.launch(_build.load_library().tpudab_viterbi_decode_bits, mother_soft.get_device(),
+                  "viterbi bits", mother_soft.data_ptr(), int(mother_soft.dtype == torch.bfloat16),
+                  table.data_ptr(), dec.data_ptr(), out.data_ptr(), t, t2p, b, n_data_bits)
     viterbi_decode_bits_cuda.launches += 1
     return out
 

@@ -20,6 +20,12 @@ off, run by tpudab_torch/tools/:
   first bytes (B, n_out), mode "shuffle" (the production traceback, X2's
   tbonly and X6's tb_t), "masked" (X5's pre-r5 masked reduction) or
   "tree" (X5's select tree). The three give identical bytes.
+- traceback_maps_ref(decs, mode, n_out, bits, compose): the same walk as
+  csrc/viterbi.cu's traceback takes it (group_maps: each group's map of
+  its 64 start states, built off the chain; then one pick a group, or one
+  a pair of groups with compose=2), bytes out or, with bits, K3's one bit
+  a byte. Held equal to traceback_bytes_ref and to tpudab's
+  _tb_kernel_packed / _tb_kernel by tests/test_torch_traceback_maps.py.
 
 Each dispatches on the tensor's device: a CPU tensor takes the plain torch
 twin, a CUDA tensor the kernel in csrc/viterbi.cu, whose full variant is
@@ -28,8 +34,6 @@ There is no fallback from one to the other.
 """
 
 from __future__ import annotations
-
-import ctypes
 
 import torch
 
@@ -90,14 +94,10 @@ def fwd_variant_cuda(soft_t: torch.Tensor, signs: torch.Tensor, variant: str = "
     t2p, _, b = soft_t.shape
     decs = torch.empty((b, t2p // 4, N_STATES), dtype=torch.uint8, device=soft_t.device)
     pm = torch.empty((b, N_STATES), dtype=torch.float32, device=soft_t.device)
-    lib = _build.load_library()
-    with torch.cuda.device(soft_t.device):
-        err = lib.tpudab_viterbi_fwd_variant(
-            ctypes.c_void_p(soft_t.data_ptr()), _DTYPES[soft_t.dtype],
-            ctypes.c_void_p(table.data_ptr()), ctypes.c_void_p(decs.data_ptr()),
-            ctypes.c_void_p(pm.data_ptr()), t2p, b, VARIANTS[variant], rebase,
-            ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
-    _build.check(err, f"viterbi forward {variant}")
+    _build.launch(_build.load_library().tpudab_viterbi_fwd_variant, soft_t.get_device(),
+                  f"viterbi forward {variant}", soft_t.data_ptr(), _DTYPES[soft_t.dtype],
+                  table.data_ptr(), decs.data_ptr(), pm.data_ptr(), t2p, b, VARIANTS[variant],
+                  rebase)
     fwd_variant_cuda.launches += 1
     return decs, pm
 
@@ -126,20 +126,21 @@ def _check_tb(decs: torch.Tensor, mode: str, n_out):
     return n_out
 
 
-def _row_byte(row: torch.Tensor, state: torch.Tensor, mode: str) -> torch.Tensor:
-    """row (B, 64) int64, state (B,) -> row[b, state[b]] by the mode's
-    method: a gather, a masked sum over the 64 rows, or a 6-level select."""
+def _pick(table: torch.Tensor, state: torch.Tensor, mode: str) -> torch.Tensor:
+    """table (..., 64) int64, state (..., K) -> table[..., state] (..., K)
+    by the mode's method: a gather, a masked sum over the 64 entries, or a
+    6-level select."""
     if mode == "shuffle":
-        return row.gather(1, state[:, None])[:, 0]
+        return table.gather(-1, state)
     if mode == "masked":
-        hit = torch.arange(N_STATES, device=row.device)[None, :] == state[:, None]
-        return torch.where(hit, row, 0).sum(1)
-    v = row
+        hit = torch.arange(N_STATES, device=table.device) == state[..., None]
+        return torch.where(hit, table[..., None, :], 0).sum(-1)
+    v = table[..., None, :].expand(*state.shape, N_STATES)
     for k in range(5, -1, -1):
-        half = v.shape[1] // 2
-        bit = ((state >> k) & 1).bool()[:, None]
-        v = torch.where(bit, v[:, half:], v[:, :half])
-    return v[:, 0]
+        half = v.shape[-1] // 2
+        bit = ((state >> k) & 1).bool()[..., None]
+        v = torch.where(bit, v[..., half:], v[..., :half])
+    return v[..., 0]
 
 
 def traceback_bytes_ref(decs: torch.Tensor, mode: str = "shuffle", n_out=None) -> torch.Tensor:
@@ -153,11 +154,71 @@ def traceback_bytes_ref(decs: torch.Tensor, mode: str = "shuffle", n_out=None) -
         row = decs[:, g].to(torch.long)
         acc = torch.zeros_like(state)
         for q in range(3, -1, -1):
-            j = (_row_byte(row, state, mode) >> (6 - 2 * q)) & 3
+            j = (_pick(row, state[:, None], mode)[:, 0] >> (6 - 2 * q)) & 3
             acc = acc | ((state & 3) << (6 - 2 * q))
             state = (state >> RADIX) | (j << (6 - RADIX))
         out[:, g] = acc.to(torch.uint8)
     return out[:, :n_out].contiguous()
+
+
+def group_maps(decs: torch.Tensor, mode: str = "shuffle") -> torch.Tensor:
+    """Packed decisions (B, G, 64) -> the groups' maps (B, G, 64) int64.
+    Entry s of group g: the state 4 super-steps back from start state s
+    (bits 0-5) | j3 << 6, j3 = row_g[s] & 3 the walk's first decision. The
+    group emits s | (entry & 0xc0): the walk's 2-bit shifts carry s itself
+    into the byte's low 6 bits. Each entry needs the row alone, never the
+    traceback's state."""
+    _check_tb(decs, mode, None)
+    row = decs.to(torch.long)
+    j3 = row & 3
+    t = (torch.arange(N_STATES, device=decs.device) >> RADIX) | (j3 << 4)
+    for q in (2, 1, 0):
+        t = (t >> RADIX) | (((_pick(row, t, mode) >> (6 - 2 * q)) & 3) << 4)
+    return t | (j3 << 6)
+
+
+def traceback_maps_ref(decs: torch.Tensor, mode: str = "shuffle", n_out=None,
+                       bits: bool = False, compose: int = 1) -> torch.Tensor:
+    """The traceback by group maps, from state 0 at the last group:
+    packed decisions (B, G, 64) -> (B, n_out) MSB-first bytes, or with bits
+    (B, n_out) one decoded bit a byte (n_out <= 8 G; K3's output). The
+    chain picks one map entry a group (compose=1), or one a pair of groups
+    (compose=2: group g's map composed with group g - 1's off the chain,
+    from the last group down; an odd group 0 is picked alone)."""
+    if compose not in (1, 2):
+        raise ValueError(f"compose={compose}: 1 or 2 groups a pick")
+    b, groups = decs.shape[:2]
+    if bits:
+        n_bits = 8 * groups if n_out is None else n_out
+        if not 0 < n_bits <= 8 * groups:
+            raise ValueError(f"n_out={n_bits} bits outside 1..{8 * groups}")
+    else:
+        n_out = _check_tb(decs, mode, n_out)
+    maps = group_maps(decs, mode)
+    state = torch.zeros((b, 1), dtype=torch.long, device=decs.device)
+    out = torch.empty((b, groups), dtype=torch.long, device=decs.device)
+    g = groups - 1
+    if compose == 2 and groups > 1:
+        # pair entries: group g's entry | group g-1's entry at its next state << 8
+        hi, lo = maps[:, 1:], maps[:, :-1]
+        pairs = hi | (_pick(lo, hi & 63, mode) << 8)           # (B, G - 1, 64)
+        while g >= 1:
+            e = _pick(pairs[:, g - 1], state, mode)
+            out[:, g: g + 1] = state | (e & 0xc0)
+            mid = e & 63
+            out[:, g - 1: g] = mid | ((e >> 8) & 0xc0)
+            state = (e >> 8) & 63
+            g -= 2
+    while g >= 0:
+        e = _pick(maps[:, g], state, mode)
+        out[:, g: g + 1] = state | (e & 0xc0)
+        state = e & 63
+        g -= 1
+    if not bits:
+        return out[:, :n_out].to(torch.uint8).contiguous()
+    shifts = torch.arange(7, -1, -1, device=decs.device)
+    unpacked = (out[:, :, None] >> shifts) & 1
+    return unpacked.reshape(b, 8 * groups)[:, :n_bits].to(torch.uint8).contiguous()
 
 
 def traceback_bytes_cuda(decs: torch.Tensor, mode: str = "shuffle", n_out=None) -> torch.Tensor:
@@ -168,13 +229,9 @@ def traceback_bytes_cuda(decs: torch.Tensor, mode: str = "shuffle", n_out=None) 
                          "CUDA tensor")
     b, groups, _ = decs.shape
     out = torch.empty((b, n_out), dtype=torch.uint8, device=decs.device)
-    lib = _build.load_library()
-    with torch.cuda.device(decs.device):
-        err = lib.tpudab_viterbi_traceback(
-            ctypes.c_void_p(decs.data_ptr()), ctypes.c_void_p(out.data_ptr()),
-            groups, b, n_out, TB_MODES[mode],
-            ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
-    _build.check(err, f"viterbi traceback {mode}")
+    _build.launch(_build.load_library().tpudab_viterbi_traceback, decs.get_device(),
+                  f"viterbi traceback {mode}", decs.data_ptr(), out.data_ptr(), groups, b,
+                  n_out, TB_MODES[mode])
     traceback_bytes_cuda.launches += 1
     return out
 
