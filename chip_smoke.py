@@ -8,7 +8,8 @@ Phases, each of which raises on failure (nothing is caught):
    limit); no CUDA device is a failure;
 2. build the CUDA kernels from tpudab_torch/csrc/; print ptxas' registers
    and spills of each, the Viterbi decode and traceback kernels' in a table
-   (a decode kernel spilling more than PARENT_SPILLS allows fails), and the
+   (a decode kernel spilling more than PARENT_SPILLS allows fails), K5's
+   (more registers or spills than PARENT_K5_REGS fails), and the
    opcode mix of the Viterbi kernels' SASS;
 3. hold each kernel against its plain torch twin at the receive step's
    shapes: Viterbi (K1+K2) for the MSC and the FIC batch, bytes equal;
@@ -55,9 +56,11 @@ Phases, each of which raises on failure (nothing is caught):
    group on; fwd_t + shuffle traceback (X6) equal to the fused K1+K2; the
    three traceback modes (X5) equal; every int16 probe op (X4) equal to
    torch, at the tools' (64, 256) and at a ragged, unaligned shape; the
-   carve ablations (X7) within 1 bf16 ulp of their twins where they rotate,
-   exact where not, and full within 1 bf16 ulp of K5. Prints each kernel's
-   ms, plain ms and bound (the traceback modes and each X4 op also by their
+   carve ablations (X7, instantiations of K5's body) bit-equal to their
+   twins, the three that roll and rotate also to K5, no-rotate also to
+   torch's .to(bfloat16) of the windows (its library yardstick, timed in
+   the same run). Prints each kernel's ms, plain ms and bound (the
+   traceback modes, each X4 op and each carve ablation also by their
    device time alone, device_ms, X4 beside torch.add's call in the same run, and
    the host cost of each part of a ctypes launch); then runs each tool's main as
    `python -m tpudab_torch.tools.<name>` would (the Viterbi decomposition
@@ -117,7 +120,8 @@ from tpudab_torch.msc.subchannel import subch_cif_slices
 from tpudab_torch.ofdm.demod import demod_frames_split
 from tpudab_torch.ofdm.sync_device import acquire_device, acquire_host
 from tpudab_torch.ops import _build
-from tpudab_torch.ops.carve import carve_rotate_cuda, carve_rotate_ref, carve_rotate_tables_ref
+from tpudab_torch.ops.carve import (_windows, carve_rotate_cuda, carve_rotate_ref,
+                                   carve_rotate_tables_ref, rotator_tables)
 from tpudab_torch.ops.carve_exp import carve_variant_cuda, carve_variant_ref
 from tpudab_torch.ops.i16_probe import OPS as I16_OPS
 from tpudab_torch.ops.i16_probe import i16_probe_cuda, i16_probe_ref
@@ -156,7 +160,7 @@ KERNELS = {  # name -> (source, replaced TPU kernel, wrapper)
     "viterbi_traceback": ("tpudab_torch/csrc/viterbi.cu", "tools/exp_tb_tree.py:42",
                           traceback_bytes_cuda),
     "i16_probe": ("tpudab_torch/csrc/i16_probe.cu", "tools/exp_i16_probe.py:7", i16_probe_cuda),
-    "carve_variant": ("tpudab_torch/csrc/carve_exp.cu", "tools/exp_carve.py:33",
+    "carve_variant": ("tpudab_torch/csrc/carve.cu", "tools/exp_carve.py:33",
                       carve_variant_cuda),
 }
 ALSO_REPLACES = {   # the other TPU kernels each wrapper's kernel stands for
@@ -231,11 +235,17 @@ TB_SERIAL_STEP_S = TB_OPS * 4 / 1.98e9
 # Spill stores (bytes) of each decode kernel before the traceback's group
 # maps (ptxas -v, the same flags): none may spill more.
 PARENT_SPILLS = {"viterbi_kernel": 4, "viterbi_bits_kernel": 0}
+# K5's registers before X7 shared its body (ptxas -v, the same flags; no
+# spills): the body's templating must not cost K5 any.
+PARENT_K5_REGS = {"carve_kernel<f32>": 64, "carve_kernel<bf16>": 48}
 SECTOR = 32       # bytes: the least a load from device memory moves
 CARVE_OPS = 12    # per output sample: rotator by angle addition (6), rotation (6)
 
 EXP_B, EXP_BITS, EXP_CHUNK, TWIN_B = 6144, 3456, 32, 128   # the Viterbi tools' shapes
 EXP_FRAMES = 256                                            # exp_carve's frames
+CARVE_VARIANTS = (("fb4", 4, True, True), ("fb8", 8, True, True), ("fb16", 16, True, True),
+                  ("noroll", 8, False, True), ("norotate", 8, True, False),
+                  ("copy", 8, False, False))              # exp_carve's: label, fb, roll, rotate
 
 
 cuda_ms = timer(torch.device("cuda", 0))   # cuda_ms(fn, reps): mean device ms after a warm-up
@@ -357,12 +367,16 @@ def build() -> dict:
     for line in _build.BuildInfo.log.splitlines():   # each kernel's name, then its resources
         if "Compiling entry function" in line or "registers" in line or "spill" in line:
             print(f"  ptxas: {line.strip()}")
-    resources = viterbi_resources(_build.BuildInfo.log)
+    resources = ptxas_resources(_build.BuildInfo.log)
     for label, (regs, spill, smem) in resources.items():
         print(f"  resources {label}: {regs} registers, {spill} bytes spill stores, {smem} bytes smem")
     sass_mix()
-    require(len(resources) == 7, f"ptxas reported {len(resources)} of the 7 Viterbi decode "
-            f"and traceback kernels: {sorted(resources)}")
+    require(len(resources) == 9, f"ptxas reported {len(resources)} of the 7 Viterbi decode "
+            f"and traceback kernels and K5's 2: {sorted(resources)}")
+    for label, regs in PARENT_K5_REGS.items():
+        require(resources[label][0] <= regs and resources[label][1] == 0,
+                f"{label}: {resources[label][0]} registers, {resources[label][1]} bytes spill "
+                f"stores; before X7 shared its body, {regs} and 0")
     for label, (_, spill, _) in resources.items():
         kernel = label.split("<")[0]
         require(spill <= PARENT_SPILLS.get(kernel, spill),
@@ -371,22 +385,22 @@ def build() -> dict:
     return resources
 
 
-def viterbi_resources(log: str) -> dict:
+def ptxas_resources(log: str) -> dict:
     """{label: (registers, spill store bytes, static shared bytes)} of the
     Viterbi decode kernels (viterbi_kernel, viterbi_bits_kernel, each in
-    f32 and bf16) and the traceback kernel's three modes, from ptxas' -v
-    report."""
+    f32 and bf16), the traceback kernel's three modes and K5
+    (carve_kernel, f32 and bf16), from ptxas' -v report."""
     out, label = {}, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            k = re.search(r"\d(viterbi_kernel|viterbi_bits_kernel|viterbi_traceback_kernel)I(\w+)",
-                          m.group(1))
+            k = re.search(r"\d(viterbi_kernel|viterbi_bits_kernel|viterbi_traceback_kernel|"
+                          r"carve_kernel)I(\w+)", m.group(1))
             label = None
             if k:
                 arg = k.group(2)
-                tag = ("bf16" if "bfloat16" in arg else "f32") if not arg.startswith("Li") \
-                    else ("shuffle", "masked", "tree")[int(arg[2])]
+                tag = ("shuffle", "masked", "tree")[int(arg[2])] if arg.startswith("Li") \
+                    else "bf16" if arg.startswith("13__nv_bfloat16") else "f32"
                 label = f"{k.group(1)}<{tag}>"
                 out[label] = [0, 0, 0]
             continue
@@ -1107,9 +1121,10 @@ def check_tool_forward(dev, rng, card):
 
 def check_tool_probe_carve(dev, rng, card):
     """Phase 8, the int16 probe (X4) on every op and the carve ablations
-    (X7) at exp_carve's 256 frames: each against its twin on the card, the
-    rotating ones within 1 bf16 ulp (full also against K5), the others
-    exact."""
+    (X7) at exp_carve's 256 frames: each against its twin on the card,
+    bit for bit, the ones that roll and rotate also against K5, no-rotate
+    also against its library yardstick; each timed by its device time
+    (device_ms) beside a call's."""
     x, y = exp_i16_probe.inputs(dev)
     # a ragged (12, 13) and views 2 bytes past a 16-byte boundary: the
     # kernel's element-wise tail and unaligned paths
@@ -1147,29 +1162,43 @@ def check_tool_probe_carve(dev, rng, card):
     fi = torch.from_numpy(rng.standard_normal((EXP_FRAMES, rows, 128), dtype=np.float32)).to(dev)
     freq = torch.from_numpy(rng.uniform(-2000.0, 2000.0, EXP_FRAMES).astype(np.float32)).to(dev)
     k5 = carve_rotate_cuda(fr, fi, freq)
+    # the no-rotate variant's library yardstick: torch's .to(bfloat16) of
+    # the windows' strided view, one call a plane, both timed together
+    flat = [t.reshape(EXP_FRAMES, -1) for t in (fr, fi)]
+    yardstick = lambda: [_windows(t, 1, 12).to(torch.bfloat16) for t in flat]
+    lib_out = [t.reshape(k5[0].shape) for t in yardstick()]
+    library = {"ms": cuda_ms(yardstick, 10), "kernel_ms": device_ms(yardstick, 10)}
+    tables_ms = device_ms(lambda: rotator_tables(freq, 1, 12), 10)
     carve = {}
-    for label, fb, roll, rotate in (("fb4", 4, True, True), ("fb8", 8, True, True),
-                                    ("fb16", 16, True, True), ("noroll", 8, False, True),
-                                    ("norotate", 8, True, False), ("copy", 8, False, False)):
+    for label, fb, roll, rotate in CARVE_VARIANTS:
         xr, xi = carve_variant_cuda(fr, fi, freq, fb, roll, rotate)
         torch.cuda.synchronize()
         (rr, ri), plain = timed_once(lambda: carve_variant_ref(fr, fi, freq, fb, roll, rotate))
-        ulps = bf16_ulp_err(xr, xi, rr, ri)
-        require(ulps <= 1.0 if rotate else (torch.equal(xr, rr) and torch.equal(xi, ri)),
-                f"carve {label}: {ulps} bf16 ulp from its twin")
-        k5_ulps = bf16_ulp_err(xr, xi, *k5) if roll and rotate else None
-        require(k5_ulps is None or k5_ulps <= 1.0, f"carve {label}: {k5_ulps} bf16 ulp from K5")
-        ms = cuda_ms(lambda: carve_variant_cuda(fr, fi, freq, fb, roll, rotate), 10)
+        require(same_bits(xr, rr) and same_bits(xi, ri), f"carve {label} differs from its twin")
+        if roll and rotate:
+            require(same_bits(xr, k5[0]) and same_bits(xi, k5[1]), f"carve {label} differs from K5")
+        if label == "norotate":
+            require(same_bits(xr, lib_out[0]) and same_bits(xi, lib_out[1]),
+                    "carve norotate differs from torch's .to(bfloat16) of the windows")
+        call = lambda: carve_variant_cuda(fr, fi, freq, fb, roll, rotate)
+        ms, dev_ms = cuda_ms(call, 10), device_ms(call, 10)
         bnd = carve_bound(fr, xr, rotate)
+        lib = library if label == "norotate" else None
         print(f"X carve {label} (fb={fb}, roll={roll}, rotate={rotate}) {tuple(fr.shape)} f32: "
-              f"{ulps:.0f} bf16 ulp from its twin"
-              + (f", {k5_ulps:.0f} from K5" if k5_ulps is not None else "")
-              + f"; kernel {ms:.3f} ms, plain {plain:.3f} ms, bound {bnd[0]:.3f} ms ({bnd[1]})"
-              f"  [{card}]")
-        err = max((xr.float() - rr.float()).abs().max().item(),
-                  (xi.float() - ri.float()).abs().max().item())
-        carve[label] = {"ms": ms, "plain_ms": plain, "bound_ms": bnd[0], "bound_by": bnd[1],
-                        "max_ulp": ulps, "max_abs_err": err}
+              f"bit-equal to its twin" + (", and to K5" if roll and rotate else "")
+              + (", and to the yardstick" if lib else "")
+              + f"; device {dev_ms:.4f} ms ({100 * bnd[0] / dev_ms:.0f}% of the bound), a call "
+              f"{ms:.4f} ms, plain {plain:.3f} ms, bound {bnd[0]:.4f} ms ({bnd[1]})"
+              + (f"; .to(bfloat16) x2 device {lib['kernel_ms']:.4f} ms, a call {lib['ms']:.4f} ms"
+                 if lib else "") + f"  [{card}]")
+        carve[label] = {"ms": ms, "kernel_ms": dev_ms, "plain_ms": plain, "bound_ms": bnd[0],
+                        "bound_by": bnd[1], "bound_share": bnd[0] / dev_ms,
+                        "k5_bit_equal": True if roll and rotate else None,
+                        "library_ms": lib["ms"] if lib else None,
+                        "library_kernel_ms": lib["kernel_ms"] if lib else None,
+                        "tables_kernel_ms": tables_ms if rotate else None, "max_abs_err": 0.0}
+    print(f"X carve: the rotator tables alone (part of each rotating call) device "
+          f"{tables_ms:.4f} ms  [{card}]")
     return probe, carve, probe_launch
 
 
@@ -1583,7 +1612,8 @@ def main() -> None:
         "viterbi_fwd_variant": new(fwd["full"]),
         "viterbi_traceback": new(tb["shuffle"]),
         "i16_probe": new(probe["add"]),
-        "carve_variant": new(carve["fb8"], carve["fb8"]["max_abs_err"]),
+        "carve_variant": {**new(carve["fb8"]), "kernel_ms": carve["fb8"]["kernel_ms"],
+                          "library_ms": carve["norotate"]["library_ms"]},
     }
     kernels = []
     for name, (src, replaces, _) in KERNELS.items():
@@ -1620,6 +1650,8 @@ def main() -> None:
             entry["by_op"] = probe
             entry["launch_host_us"] = probe_launch
         if name == "carve_variant":
+            entry["library_call"] = ("torch .to(bfloat16) of ops/carve.py::_windows' view of re "
+                                     "and of im: the norotate variant's function")
             entry["by_variant"] = carve
         if name in PTXAS_OF:
             entry["ptxas"] = {k: dict(zip(("registers", "spill_stores", "smem"), v))

@@ -1,17 +1,21 @@
 """Times the port's Viterbi traceback modes (X2's tbonly, X5), K1+K3 at
 the host path's three shapes, K1+K2 at the step's two, the 13 int16 probe
-ops beside torch.add, and the bench step, in the checkout given as the
-first argument, on one NVIDIA GPU; one JSON line with the card's name and
-power limit. Two checkouts are compared on one card by running it on each
-in turns (A, B, B, A) in one command:
+ops beside torch.add, K5 at the step's shape, the six carve ablations (X7)
+at their tool's, and the bench step, in the checkout given as the first
+argument, on one NVIDIA GPU; one JSON line with the card's name and power
+limit, and ptxas' registers and spill stores of each carve kernel. Two
+checkouts are compared on one card by running it on each in turns
+(A, B, B, A) in one command:
 
     python3 compare_trees.py /path/to/other/checkout; python3 compare_trees.py .
 
-Each entry is (CUDA-event ms a call, profiler device ms a call); the step
-is three CUDA-event means of 5 steps.
+Each entry is (CUDA-event ms a call, profiler device ms a call); K5's
+and X7's also hold the device ms of a call queued behind a spin kernel
+(device_ms). The step is three CUDA-event means of 5 steps.
 """
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -30,6 +34,40 @@ def kernel_ms(fn, reps, name):
         torch.cuda.synchronize()
     return sum(k.self_device_time_total for k in prof.key_averages()
                if k.device_type == DeviceType.CUDA and name in k.key) / 1e3 / reps
+
+
+def device_ms(fn, reps):
+    """Mean device ms per fn() call, queued behind a spin kernel that
+    outlasts the host's enqueue (chip_smoke.py::device_ms)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(5_000_000)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def carve_resources(log):
+    """{kernel: [registers, spill store bytes]} of the carve kernels in
+    ptxas' -v report."""
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1) if "carve" in m.group(1) else None
+            if name:
+                out[name] = [0, 0]
+        elif name:
+            for pattern, slot in ((r"Used (\d+) registers", 0), (r"(\d+) bytes spill stores", 1)):
+                m = re.search(pattern, line)
+                if m:
+                    out[name][slot] = int(m.group(1))
+    return out
 
 
 def main(tree: str) -> None:
@@ -58,7 +96,8 @@ def main(tree: str) -> None:
                           capture_output=True, text=True).stdout.strip()
     t0 = time.perf_counter()
     _build.load_library()
-    res = {"tree": tree, "card": card, "build_s": time.perf_counter() - t0}
+    res = {"tree": tree, "card": card, "build_s": time.perf_counter() - t0,
+           "carve_ptxas": carve_resources(_build.BuildInfo.log)}
     rng = np.random.default_rng(8)
     signs = signs_on(dev)
 
@@ -91,6 +130,23 @@ def main(tree: str) -> None:
     y = torch.from_numpy(np.random.default_rng(1).integers(-100, 100, (64, 256)).astype(np.int16)).to(dev)
     res["x4_call"] = {op: cuda_ms(lambda: i16_probe_cuda(x, y, op), 20) for op in OPS}
     res["x4_torch_add"] = cuda_ms(lambda: torch.add(x, y), 20)
+
+    from tpudab_torch.ops.carve import carve_rotate_cuda
+    from tpudab_torch.ops.carve_exp import carve_variant_cuda
+    fr, fi = (torch.from_numpy(rng.standard_normal((512, 1536, 128), dtype=np.float32))
+              .to(dev, torch.bfloat16) for _ in range(2))
+    freq = torch.from_numpy(rng.uniform(-2000.0, 2000.0, 512).astype(np.float32)).to(dev)
+    f = lambda: carve_rotate_cuda(fr, fi, freq, with_sum=True)
+    res["k5"] = (cuda_ms(f, 20), kernel_ms(f, 20, "carve_kernel"), device_ms(f, 10))
+    fr, fi = (torch.from_numpy(rng.standard_normal((256, 1536, 128), dtype=np.float32)).to(dev)
+              for _ in range(2))
+    freq = freq[:256].contiguous()
+    for label, fb, roll, rotate in (("fb4", 4, True, True), ("fb8", 8, True, True),
+                                    ("fb16", 16, True, True), ("noroll", 8, False, True),
+                                    ("norotate", 8, True, False), ("copy", 8, False, False)):
+        f = lambda: carve_variant_cuda(fr, fi, freq, fb, roll, rotate)
+        res[f"x7_{label}"] = (cuda_ms(f, 10), kernel_ms(f, 10, "carve"), device_ms(f, 10))
+    del fr, fi
 
     from tpudab_torch.models.step import ReceiveStep, bench_capture, bench_subchannels
     frames, _ = bench_capture(16)

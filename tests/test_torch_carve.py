@@ -60,6 +60,24 @@ def test_rotator_tables_angle_addition():
     np.testing.assert_allclose(c.numpy(), want, atol=2e-3)
 
 
+@pytest.mark.parametrize("mode", [1, 2, 3, 4])
+def test_rotator_tables_equal_tpudab_tables(mode):
+    """The window-start phases are built on the device from integer starts;
+    the tables equal carve.py:123-136's f32 arithmetic (starts cast from
+    numpy) bit for bit."""
+    p = get_ofdm_params(mode)
+    freq = torch.tensor([1999.0, -2000.0, 0.0, 731.5])
+    first = p.nb_null_period + p.nb_cyclic_prefix - 12
+    scale = (-2.0 * np.pi / 2.048e6) * freq
+    a_sym = torch.from_numpy((first + (p.nb_fft + p.nb_cyclic_prefix)
+                              * np.arange(p.nb_symbols)).astype(np.float32))
+    ph_a = scale[:, None] * a_sym[None, :]
+    ph_idx = scale[:, None] * torch.arange(p.nb_fft, dtype=torch.float32)[None, :]
+    want = (torch.cos(ph_a), torch.sin(ph_a), torch.cos(ph_idx), torch.sin(ph_idx))
+    for got, w in zip(rotator_tables(freq, mode, 12), want):
+        assert got.dtype == torch.float32 and torch.equal(got, w)
+
+
 
 def carve_inputs(mode: int, in_dtype: str, f: int = 2):
     p = get_ofdm_params(mode)

@@ -399,27 +399,50 @@ def test_i16_probe_equals_plain(dev, op):
     assert torch.equal(got, i16_probe_ref(x, y, op))
 
 
-@pytest.mark.parametrize("fb,roll,rotate", [(3, True, True), (8, False, True),
-                                            (1, True, False), (16, False, False)])
-def test_carve_variant_equals_plain(dev, fb, roll, rotate):
-    """Within 1 bf16 ulp where it rotates (the twin rounds the same f32
-    products, so usually equal), exact where it copies."""
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("roll,rotate", [(True, True), (False, True), (True, False),
+                                         (False, False)])
+@pytest.mark.parametrize("fb", [1, 3, 8, 16])
+def test_carve_variant_equals_plain(dev, fb, roll, rotate, dtype):
+    """Bit-equal to the twin at 5 frames (fb 3, 8 and 16 leave a ragged
+    last block): the kernel rounds the twin's f32 products one by one."""
     rng = np.random.default_rng(14)
-    fr, fi = (torch.from_numpy(rng.standard_normal((5, 1536, 128), dtype=np.float32)).to(dev)
-              for _ in range(2))
+    fr, fi = (torch.from_numpy(rng.standard_normal((5, 1536, 128), dtype=np.float32))
+              .to(dev, dtype) for _ in range(2))
     freq = torch.tensor([1999.0, -2000.0, 0.0, 731.5, 12.25], device=dev)
     n0 = carve_variant_cuda.launches
     xr, xi = carve_variant_cuda(fr, fi, freq, fb, roll, rotate)
     torch.cuda.synchronize()
     assert carve_variant_cuda.launches == n0 + 1
     rr, ri = carve_variant_ref(fr, fi, freq, fb, roll, rotate)
-    if not rotate:
-        assert torch.equal(xr, rr) and torch.equal(xi, ri)
-        return
-    xr, xi, rr, ri = xr.float(), xi.float(), rr.float(), ri.float()
-    mag = torch.maximum(torch.hypot(xr, xi), torch.hypot(rr, ri)).clamp_min(2.0 ** -126)
-    ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
-    assert (torch.maximum((xr - rr).abs(), (xi - ri).abs()) <= ulp).all()
+    assert same_bits(xr, rr) and same_bits(xi, ri)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_carve_variant_full_equals_k5(dev, dtype):
+    """Roll and rotate on, every fb gives K5's xr and xi bit for bit: one
+    kernel body."""
+    rng = np.random.default_rng(15)
+    fr, fi = (torch.from_numpy(rng.standard_normal((5, 1536, 128), dtype=np.float32))
+              .to(dev, dtype) for _ in range(2))
+    freq = torch.tensor([1999.0, -2000.0, 0.0, 731.5, 12.25], device=dev)
+    kr, ki = carve_rotate_cuda(fr, fi, freq)
+    for fb in (1, 3, 8, 16):
+        xr, xi = carve_variant_cuda(fr, fi, freq, fb)
+        torch.cuda.synchronize()
+        assert same_bits(xr, kr) and same_bits(xi, ki)
+
+
+def test_carve_variant_refuses_misaligned(dev):
+    """A contiguous view 4 bytes past a 16-byte boundary raises."""
+    n = 2 * 1536 * 128
+    good = torch.zeros((2, 1536, 128), device=dev)
+    bad = torch.zeros(n + 1, device=dev)[1:].view(2, 1536, 128)
+    assert bad.is_contiguous() and bad.data_ptr() % 16 == 4
+    with pytest.raises(ValueError, match="aligned"):
+        carve_variant_cuda(bad, good, 0.0)
+    with pytest.raises(ValueError, match="aligned"):
+        carve_variant_cuda(good, bad, 0.0, 8, False, False)
 
 
 def test_entry_points_default_to_the_card(dev, tmp_path):

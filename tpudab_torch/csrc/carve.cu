@@ -3,10 +3,14 @@
 // Karatsuba product.
 //
 // Replaces tpudab/ops/carve.py::carve_rotate (K5, kernel from _make_kernel,
-// :33-166) and the `(ar + ai).astype(dt)` beside it (tpudab/ofdm/demod.py:214).
-// Plain torch twins: tpudab_torch/ops/carve.py::carve_rotate_tables_ref
-// (the same f32 arithmetic, held equal bit for bit) and ::carve_rotate_ref
-// (phase from the absolute sample time, within 1 bf16 ulp).
+// :33-166) and the `(ar + ai).astype(dt)` beside it (tpudab/ofdm/demod.py:214),
+// and tools/exp_carve.py::make_variant (X7, :33, pallas_call at :94), the
+// ablations of K5, as instantiations of the same kernel. Plain torch twins:
+// tpudab_torch/ops/carve.py::carve_rotate_tables_ref (the same f32
+// arithmetic, held equal bit for bit), ::carve_rotate_ref (phase from the
+// absolute sample time, within 1 bf16 ulp) and
+// tpudab_torch/ops/carve_exp.py::carve_variant_ref (the ablations, bit for
+// bit).
 //
 // For frame f, symbol s and window sample k the kernel reads
 // x[f, a_s + k] with a_s = null + s * (n_fft + n_cp) + n_cp - window_offset,
@@ -31,6 +35,20 @@
 // moving), so a thread loads the aligned 16-byte vectors that cover its 8
 // samples and shifts them into place in registers; the shift is the same
 // for the whole block, so it costs no divergence.
+//
+// The ablations switch two template flags and tile by frames per block:
+//   kRoll    off: each window starts at the 128-aligned row start
+//            128 * (a_s / 128) below a_s (tpudab's r0), wrong numerics by
+//            design; those starts are 16-byte aligned, so no shift;
+//   kRotate  off: a cast copy, with no table read and no product;
+//   fb       frames per block. On the TPU it was the number of frames one
+//            program staged in VMEM; here a block's tile is fb frames x
+//            `per` symbols, and the wrapper (ops/carve_exp.py::carve_tiling)
+//            shrinks `per` as fb grows, so a block holds about as many
+//            samples as K5's and the grid keeps several blocks an SM.
+// K5's kernel (carve_kernel) runs the body at <T, true, true> for one
+// frame a block on K5's own grid, with the same registers as before the
+// ablations shared it; X7's (carve_tile_kernel) loops it over fb frames.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -39,14 +57,16 @@
 namespace {
 
 constexpr int kPer = 8;       // window samples per thread
-constexpr int kChunks = 4;    // blocks per frame, each a share of the symbols
+constexpr int kChunks = 4;    // K5's blocks per frame, each a share of the symbols
 
 __device__ __forceinline__ float bf16_lo(uint32_t w) { return __uint_as_float(w << 16); }
 __device__ __forceinline__ float bf16_hi(uint32_t w) { return __uint_as_float(w & 0xFFFF0000u); }
 
-// 8 consecutive samples starting at row[a], for any a.
+// 8 consecutive samples starting at row[a]: for any a (kShift), or for a
+// multiple of 8 (16-byte aligned, one load).
+template <bool kShift>
 __device__ __forceinline__ void load8(const __nv_bfloat16* row, int a, float (&w)[kPer]) {
-  const int r = a & 7;
+  const int r = kShift ? a & 7 : 0;
   const uint4* p = reinterpret_cast<const uint4*>(row + (a - r));
   const uint4 lo = p[0];
   const uint4 hi = r ? p[1] : make_uint4(0, 0, 0, 0);
@@ -72,8 +92,9 @@ __device__ __forceinline__ void pick(const float (&x)[12], float (&w)[kPer]) {
   for (int i = 0; i < kPer; ++i) w[i] = x[R + i];
 }
 
+template <bool kShift>
 __device__ __forceinline__ void load8(const float* row, int a, float (&w)[kPer]) {
-  const int r = a & 3;
+  const int r = kShift ? a & 3 : 0;
   const float4* p = reinterpret_cast<const float4*>(row + (a - r));
   const float4 v0 = p[0], v1 = p[1];
   const float4 v2 = r ? p[2] : make_float4(0.f, 0.f, 0.f, 0.f);
@@ -97,21 +118,18 @@ __device__ __forceinline__ void store8(__nv_bfloat16* dst, const float (&v)[kPer
       make_uint4(pack(v[0], v[1]), pack(v[2], v[3]), pack(v[4], v[5]), pack(v[6], v[7]));
 }
 
-// block (f, chunk): n_fft / 8 threads, thread t owns samples 8t .. 8t + 7
-template <typename T>
-__global__ void carve_kernel(const T* __restrict__ re, const T* __restrict__ im,
-                             const float* __restrict__ ca, const float* __restrict__ sa,
-                             const float* __restrict__ ci, const float* __restrict__ si,
-                             __nv_bfloat16* __restrict__ xr, __nv_bfloat16* __restrict__ xi,
-                             __nv_bfloat16* __restrict__ xs, int frame_len, int n_sym,
-                             int n_fft, int sym_stride, int first) {
-  const int f = blockIdx.x;
+// The one body: frame f, symbols s0 .. s1 - 1, thread t owning samples
+// 8t .. 8t + 7 of each window.
+template <typename T, bool kRoll, bool kRotate>
+__device__ __forceinline__ void carve_frame(
+    const T* __restrict__ re, const T* __restrict__ im, const float* __restrict__ ca,
+    const float* __restrict__ sa, const float* __restrict__ ci, const float* __restrict__ si,
+    __nv_bfloat16* __restrict__ xr, __nv_bfloat16* __restrict__ xi,
+    __nv_bfloat16* __restrict__ xs, int f, int s0, int s1, int frame_len, int n_sym, int n_fft,
+    int sym_stride, int first) {
   const int k0 = threadIdx.x * kPer;
-  const int per = (n_sym + gridDim.y - 1) / gridDim.y;
-  const int s0 = blockIdx.y * per;
-  const int s1 = min(n_sym, s0 + per);
   float c_i[kPer], s_i[kPer];
-  {
+  if (kRotate) {
     const float4* pc = reinterpret_cast<const float4*>(ci + (size_t)f * n_fft + k0);
     const float4* ps = reinterpret_cast<const float4*>(si + (size_t)f * n_fft + k0);
     const float4 c0 = pc[0], c1 = pc[1], q0 = ps[0], q1 = ps[1];
@@ -124,19 +142,26 @@ __global__ void carve_kernel(const T* __restrict__ re, const T* __restrict__ im,
   const T* fi = im + (size_t)f * frame_len;
 #pragma unroll 2
   for (int s = s0; s < s1; ++s) {
-    const int a = first + s * sym_stride + k0;
+    const int a_s = first + s * sym_stride;
+    const int a = (kRoll ? a_s : a_s / 128 * 128) + k0;
     float wr[kPer], wi[kPer];
-    load8(fr, a, wr);
-    load8(fi, a, wi);
+    load8<kRoll>(fr, a, wr);
+    load8<kRoll>(fi, a, wi);
     const int w = f * n_sym + s;
-    const float c_a = ca[w], s_a = sa[w];
     float vr[kPer], vi[kPer], vs[kPer];
+    float c_a = 0.f, s_a = 0.f;
+    if (kRotate) { c_a = ca[w]; s_a = sa[w]; }
 #pragma unroll
     for (int i = 0; i < kPer; ++i) {
-      const float c = __fsub_rn(__fmul_rn(c_a, c_i[i]), __fmul_rn(s_a, s_i[i]));
-      const float sn = __fadd_rn(__fmul_rn(s_a, c_i[i]), __fmul_rn(c_a, s_i[i]));
-      vr[i] = __fsub_rn(__fmul_rn(wr[i], c), __fmul_rn(wi[i], sn));
-      vi[i] = __fadd_rn(__fmul_rn(wr[i], sn), __fmul_rn(wi[i], c));
+      if (kRotate) {
+        const float c = __fsub_rn(__fmul_rn(c_a, c_i[i]), __fmul_rn(s_a, s_i[i]));
+        const float sn = __fadd_rn(__fmul_rn(s_a, c_i[i]), __fmul_rn(c_a, s_i[i]));
+        vr[i] = __fsub_rn(__fmul_rn(wr[i], c), __fmul_rn(wi[i], sn));
+        vi[i] = __fadd_rn(__fmul_rn(wr[i], sn), __fmul_rn(wi[i], c));
+      } else {
+        vr[i] = wr[i];
+        vi[i] = wi[i];
+      }
       vs[i] = __fadd_rn(__bfloat162float(__float2bfloat16(vr[i])),
                         __bfloat162float(__float2bfloat16(vi[i])));
     }
@@ -147,10 +172,53 @@ __global__ void carve_kernel(const T* __restrict__ re, const T* __restrict__ im,
   }
 }
 
+// K5: block (f, chunk), one frame and a share of its symbols.
+template <typename T>
+__global__ void carve_kernel(const T* __restrict__ re, const T* __restrict__ im,
+                             const float* __restrict__ ca, const float* __restrict__ sa,
+                             const float* __restrict__ ci, const float* __restrict__ si,
+                             __nv_bfloat16* __restrict__ xr, __nv_bfloat16* __restrict__ xi,
+                             __nv_bfloat16* __restrict__ xs, int frame_len, int n_sym,
+                             int n_fft, int sym_stride, int first) {
+  const int per = (n_sym + gridDim.y - 1) / gridDim.y;
+  const int s0 = blockIdx.y * per;
+  carve_frame<T, true, true>(re, im, ca, sa, ci, si, xr, xi, xs, blockIdx.x, s0,
+                             min(n_sym, s0 + per), frame_len, n_sym, n_fft, sym_stride, first);
+}
+
+// X7: block (x, y) carves frames fb * x .. fb * x + fb - 1 and symbols
+// per * y .. per * y + per - 1, each range cut at its end (f, n_sym).
+template <typename T, bool kRoll, bool kRotate>
+__global__ void carve_tile_kernel(const T* __restrict__ re, const T* __restrict__ im,
+                                  const float* __restrict__ ca, const float* __restrict__ sa,
+                                  const float* __restrict__ ci, const float* __restrict__ si,
+                                  __nv_bfloat16* __restrict__ xr,
+                                  __nv_bfloat16* __restrict__ xi, int n_frames, int fb, int per,
+                                  int frame_len, int n_sym, int n_fft, int sym_stride,
+                                  int first) {
+  const int f0 = blockIdx.x * fb;
+  const int f1 = min(n_frames, f0 + fb);
+  const int s0 = blockIdx.y * per;
+  const int s1 = min(n_sym, s0 + per);
+  for (int f = f0; f < f1; ++f)
+    carve_frame<T, kRoll, kRotate>(re, im, ca, sa, ci, si, xr, xi, nullptr, f, s0, s1,
+                                   frame_len, n_sym, n_fft, sym_stride, first);
+}
+
+template <typename T, bool kRoll, bool kRotate>
+void launch_tile(const void* re, const void* im, const float* ca, const float* sa,
+                 const float* ci, const float* si, __nv_bfloat16* xr, __nv_bfloat16* xi,
+                 dim3 grid, int f, int fb, int per, int frame_len, int n_sym, int n_fft,
+                 int sym_stride, int first, cudaStream_t st) {
+  carve_tile_kernel<T, kRoll, kRotate><<<grid, dim3(n_fft / kPer), 0, st>>>(
+      static_cast<const T*>(re), static_cast<const T*>(im), ca, sa, ci, si, xr, xi, f, fb, per,
+      frame_len, n_sym, n_fft, sym_stride, first);
+}
+
 }  // namespace
 
-// re, im: (f, frame_len) bf16 (in_bf16=1) or f32, 16-byte aligned; ca, sa:
-// (f, n_sym) f32; ci, si: (f, n_fft) f32; xr, xi and xs (null: not
+// K5. re, im: (f, frame_len) bf16 (in_bf16=1) or f32, 16-byte aligned; ca,
+// sa: (f, n_sym) f32; ci, si: (f, n_fft) f32; xr, xi and xs (null: not
 // written): (f, n_sym, n_fft) bf16. n_fft a multiple of 256.
 extern "C" int tpudab_carve_rotate(const void* re, const void* im, int in_bf16,
                                    const void* ca, const void* sa,
@@ -176,5 +244,37 @@ extern "C" int tpudab_carve_rotate(const void* re, const void* im, int in_bf16,
     carve_kernel<float><<<grid, block, 0, st>>>(
         static_cast<const float*>(re), static_cast<const float*>(im),
         fca, fsa, fci, fsi, oxr, oxi, oxs, frame_len, n_sym, n_fft, sym_stride, first);
+  return (int)cudaGetLastError();
+}
+
+// X7. As K5 without xs; ca, sa, ci, si are read only when rotate (null
+// otherwise). The tiling is the caller's (ops/carve_exp.py::carve_tiling):
+// a grid of (grid_x, grid_y) blocks of fb frames and per symbols, which must
+// cover the f frames and n_sym symbols with no block left empty.
+extern "C" int tpudab_carve_variant(const void* re, const void* im, int in_bf16,
+                                    const void* ca, const void* sa, const void* ci,
+                                    const void* si, void* xr, void* xi, int f, int fb, int per,
+                                    int grid_x, int grid_y, int frame_len, int n_sym, int n_fft,
+                                    int sym_stride, int first, int roll, int rotate,
+                                    void* stream) {
+  if (fb < 1 || per < 1 || grid_y > 65535 || (long long)(grid_x - 1) * fb >= f
+      || (long long)grid_x * fb < f || (grid_y - 1) * per >= n_sym || grid_y * per < n_sym)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const dim3 grid(grid_x, grid_y);
+#define TPUDAB_TILE(T, R, O)                                                                 \
+  launch_tile<T, R, O>(re, im, static_cast<const float*>(ca), static_cast<const float*>(sa), \
+                       static_cast<const float*>(ci), static_cast<const float*>(si),         \
+                       static_cast<__nv_bfloat16*>(xr), static_cast<__nv_bfloat16*>(xi), grid, \
+                       f, fb, per, frame_len, n_sym, n_fft, sym_stride, first, st)
+#define TPUDAB_TILES(T)                        \
+  if (roll && rotate) TPUDAB_TILE(T, true, true); \
+  else if (roll) TPUDAB_TILE(T, true, false);     \
+  else if (rotate) TPUDAB_TILE(T, false, true);   \
+  else TPUDAB_TILE(T, false, false)
+  if (in_bf16) { TPUDAB_TILES(__nv_bfloat16); }
+  else { TPUDAB_TILES(float); }
+#undef TPUDAB_TILES
+#undef TPUDAB_TILE
   return (int)cudaGetLastError();
 }

@@ -44,8 +44,8 @@ SIGNATURES = {
     "tpudab_viterbi_fwd_variant": (_P, _I, _P, _P, _P, _I, _I, _I, _I, _P),
     "tpudab_viterbi_traceback": (_P, _P, _I, _I, _I, _I, _P),
     "tpudab_i16_probe": (_P, _P, _P, _I, _I, _I, _P),
-    "tpudab_carve_variant": (_P, _P, _I, _P, _P, _P, _P, _P, _P,
-                             _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    "tpudab_carve_variant": (_P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                             _I, _I, _I, _I, _I, _I, _I, _P),
 }
 
 

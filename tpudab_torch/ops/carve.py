@@ -89,13 +89,14 @@ def _outputs(xr, xi, with_sum: bool):
 def rotator_tables(freq: torch.Tensor, mode: int, window_offset: int):
     """f32 tables of carve.py:123-136 for (F,) freq: the window-start
     rotator (ca, sa) of shape (F, n_sym) and the in-window ramp (ci, si) of
-    shape (F, n_fft)."""
+    shape (F, n_fft). Built on freq's device with no copy from the host (a
+    copy from pageable memory would wait for the stream): the window
+    starts are integers below 2^24, exact in f32."""
     p, first, stride = _geometry(mode, window_offset)
     scale = (-2.0 * np.pi / SAMPLING_RATE) * freq
     idx = torch.arange(p.nb_fft, dtype=torch.float32, device=freq.device)
     ph_idx = scale[:, None] * idx[None, :]
-    a_sym = torch.as_tensor((first + stride * np.arange(p.nb_symbols)
-                             ).astype(np.float32), device=freq.device)
+    a_sym = (first + stride * torch.arange(p.nb_symbols, device=freq.device)).to(torch.float32)
     ph_a = scale[:, None] * a_sym[None, :]
     return (torch.cos(ph_a), torch.sin(ph_a),
             torch.cos(ph_idx), torch.sin(ph_idx))

@@ -10,7 +10,7 @@ module per tool with the tool's name:
     python -m tpudab_torch.tools.exp_carve [iters]               # X7
 
 Each runs what tpudab's main() runs, at the same shapes and seeds, with its
-kernels in csrc/viterbi.cu, csrc/i16_probe.cu and csrc/carve_exp.cu, and
+kernels in csrc/viterbi.cu, csrc/i16_probe.cu and csrc/carve.cu (K5's), and
 prints its times, taken with CUDA events, beside the card's name and power
 limit. --device cpu runs the plain torch twins, with host times. Each
 module's run(device, iters, ...) does main's work at a size it is given,

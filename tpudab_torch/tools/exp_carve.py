@@ -2,7 +2,9 @@
 K5 with frames per block fb in (4, 8, 16), and at fb = 8 without the
 window roll (wrong numerics), without the PLL rotation (wrong numerics) and
 with neither (a cast copy, the lower bound), beside the production carve
-(K5) on 256 mode-I frames of f32 IQ.
+(K5) on 256 mode-I frames of f32 IQ; then the no-rotate variant's library
+yardstick, torch's .to(bfloat16) of the windows' strided view of re and
+of im (one call a plane). Every variant runs K5's body (csrc/carve.cu).
 
 Run: python -m tpudab_torch.tools.exp_carve [iters]
 """
@@ -13,7 +15,7 @@ import numpy as np
 import torch
 
 from tpudab_torch.constants.ofdm_params import get_ofdm_params
-from tpudab_torch.ops.carve import carve_rotate
+from tpudab_torch.ops.carve import _windows, carve_rotate
 from tpudab_torch.ops.carve_exp import carve_variant
 from tpudab_torch.tools._common import card, parse, timer
 
@@ -59,6 +61,9 @@ def run(dev: torch.device, iters: int, f: int = 256) -> dict:
     timeit("variant fb=8 NO-ROTATE (wrong numerics)", lambda: v(re3, im3, freq))
     v = make_variant(8, do_roll=False, do_rotate=False)
     timeit("variant fb=8 copy-only (lower bound)", lambda: v(re3, im3, freq))
+    flat = [t.reshape(f, -1) for t in (re3, im3)]
+    timeit("torch .to(bfloat16) of the windows (NO-ROTATE yardstick)",
+           lambda: [_windows(t, 1, 12).to(torch.bfloat16) for t in flat])
     return {"ms": res, "checks": {}}
 
 
