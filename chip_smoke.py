@@ -76,7 +76,28 @@ Phases, each of which raises on failure (nothing is caught):
    1.0, subchannel 1's AUs byte-equal to the payload, every run's payload
    files identical, the step leg launching all five kernels and the host
    leg K1+K3, K4 (a) and K5 alone; then a --checkpoint run and a --resume
-   run whose AUs, concatenated, equal the one-shot run's.
+   run whose AUs, concatenated, equal the one-shot run's;
+10. the live loop (`stream`, tpudab_torch.host.streaming.StreamingRadio)
+   on phase 9's capture, written as an f32 file and read by the port's
+   native IQReader, batches of 4 frames. First each tracking tap of
+   ofdm/sync_device.py alone (its ms a call; this also builds its cuFFT
+   plans) and the step's kernels at F = 4 beside their twins, as in phase
+   9; then on the device step (the default on the card) and on the host
+   path, untraced in the order step, host, host, step for the walls and
+   traced once each for the device busy share; the first host run keeps
+   the first input of each shape that K1+K3 and K4 (a) get, and these are
+   held against viterbi_decode_ref and deinterleave_ref. Gate, on every
+   run: FIB CRC 1.0 and no reacquisition; each subchannel's AUs are the
+   payload's, in order, from the first that decodes on; all runs
+   byte-equal; the step built on the step path only; K1+K2, K4 (b) and K5
+   launched on the step path, K1+K3, K4 (a) and K5 on the host path, the
+   same in each run. Prints each path's walls, real-time factors,
+   StageTimer summaries and track stage a batch. Then `python -m tpudab_torch.host.cli
+   stream CAP --no-dashboard --wav mix.wav` must exit 0 with one mix block
+   a batch; and the codec probe's line: where it finds FFmpeg, `stream` of
+   a capture whose DAB+ service carries AAC of a tone (the port's encoder)
+   on each path must write equal WAVs with an RMS above CODEC_RMS_FLOOR;
+   where it does not, the WAV above must be silence.
 Every line with a device time carries the card's name and power limit. A
 bound is the least time the card could take for the work: the larger of
 its bytes over the HBM rate and its operations over the ALU rate (see
@@ -95,6 +116,7 @@ import os
 import re
 import shutil
 import subprocess
+import sys
 import tempfile
 import time
 from pathlib import Path
@@ -133,13 +155,14 @@ from tpudab_torch.ops.viterbi_exp import (fwd_variant_cuda, fwd_variant_ref, tra
                                           traceback_bytes_ref, traceback_maps_ref)
 from tpudab_torch.synth import (ASCTY_DAB, ASCTY_DAB_PLUS, EnsembleSpec,
                                 EnsembleSynthesizer, Impairments, ServiceSpec, SubchannelSpec,
-                                apply_impairments)
+                                apply_impairments, modulate_frame_bits)
 from tpudab_torch.synth.payload import dabplus_stream
 from tpudab_torch.tools import (exp_carve, exp_depunct_t, exp_i16_probe, exp_tb_tree,
                                 exp_viterbi, exp_viterbi_decompose, exp_viterbi_i16)
 from tpudab_torch.tools._common import card as card_name
 from tpudab_torch.tools._common import timer
 
+ROOT = Path(__file__).resolve().parent
 N_ENS, N_FRAMES, N_STEPS = 32, 16, 3
 SEED = 0
 KERNELS = {  # name -> (source, replaced TPU kernel, wrapper)
@@ -186,6 +209,12 @@ HOST_UEP = (7, 648, 96, 128, 3)   # subch id, start CU, size CU, kbps, protectio
 DECODE_FRAMES, DECODE_BATCH, DECODE_SPLIT, ACQ_BATCH, ACQ_STRIDE = 48, 16, 20, 32, 6000
 DECODE_IMP = {"freq_offset_hz": 3400.0, "delay_samples": 7777, "snr_db": 15.0,
               "multipath": ((300, 0.4, 1.1),), "seed": 9}   # echo inside the 504-sample guard
+# phase 10: the live loop (StreamingRadio) on phase 9's capture, and a short
+# capture whose DAB+ service carries AAC of a tone (96 kbps EEP 3-A, 72 CU)
+STREAM_BATCH, CODEC_FRAMES, CODEC_RMS_FLOOR = 4, 16, 2000.0   # floor: int16 RMS of the WAV
+STREAM_PATHS = {"step": ({}, []), "host": ({"use_device_step": False}, ["--no-device-step"])}
+STREAM_KERNELS = {"step": ("viterbi_fwd_traceback", "deinterleave_depuncture_t", "carve_rotate"),
+                  "host": ("viterbi_bits", "deinterleave", "carve_rotate")}
 # wrapper -> the kernel whose ptxas resources its kernels line carries
 PTXAS_OF = {"viterbi_fwd_traceback": "viterbi_kernel<", "viterbi_bits": "viterbi_bits_kernel<",
             "viterbi_traceback": "viterbi_traceback_kernel<"}
@@ -1383,17 +1412,18 @@ def check_acquisition(dev, iq, card):
             f"acquire_device_ms_b{ACQ_BATCH}": ms32}, res
 
 
-def check_step_leg(dev, iq, acq, card) -> None:
-    """Phase 9, the step leg's kernels at its own shapes (E = 1, F =
-    DECODE_BATCH, f32 frames), each wrapper beside its twin on the same
-    inputs: a step batch of the capture cut as the pipeline cuts it (from
-    the acquired frame start, at the acquired frequency), with the carry
-    that the batch before it leaves. K5 with the sum, bit-equal to the
-    tables twin and within 1 bf16 ulp of carve_rotate_ref; K4 mode (b) for
-    the FIC and each subchannel of the MSC group, Viterbi input and new
-    carries bit-equal; K1+K2 on the FIC (B = 64) and the group (B = 384),
+def check_step_leg(dev, iq, acq, card, nf: int = DECODE_BATCH, label: str = "decode") -> None:
+    """Phases 9 and 10, the step's kernels at the shapes the step gives them
+    at E = 1 and F = nf (DECODE_BATCH in `decode`, STREAM_BATCH in the live
+    loop), f32 frames, each wrapper beside its twin on the same inputs: a
+    step batch of the capture cut as the pipeline cuts it (from the
+    acquired frame start, at the acquired frequency), with the carry that
+    the batch before it leaves. K5 with the sum, bit-equal to the tables
+    twin and within 1 bf16 ulp of carve_rotate_ref; K4 mode (b) for the FIC
+    and each subchannel of the MSC group, Viterbi input and new carries
+    bit-equal; K1+K2 on the FIC (B = 4 nf) and the group (B = 24 nf),
     bytes equal."""
-    fl, nf = get_ofdm_params(1).nb_frame_length, DECODE_BATCH
+    fl = get_ofdm_params(1).nb_frame_length
     dab = get_dab_params(1)
     t0 = time.perf_counter()
     step = ReceiveStep(1, bench_subchannels()).to(dev)   # as StepDriver.new_step builds it
@@ -1412,16 +1442,17 @@ def check_step_leg(dev, iq, acq, card) -> None:
     xr, xi, xs = carve_rotate_cuda(re, im, freq, with_sum=True)
     tr, ti, ts = carve_rotate_tables_ref(re, im, freq, with_sum=True)
     rr, ri = carve_rotate_ref(re, im, freq)
+    where = f"{label} step leg (F={nf})"
     require(same_bits(xr, tr) and same_bits(xi, ti) and same_bits(xs, ts),
-            "step leg: K5 on f32 frames differs from carve_rotate_tables_ref")
+            f"{where}: K5 on f32 frames differs from carve_rotate_tables_ref")
     ulps = bf16_ulp_err(xr, xi, rr, ri)
-    require(ulps <= 1.0, f"step leg: K5 is {ulps} bf16 ulp from carve_rotate_ref")
+    require(ulps <= 1.0, f"{where}: K5 is {ulps} bf16 ulp from carve_rotate_ref")
 
     soft, _ = demod_frames_split(re, im, freq, (step.dft_re, step.dft_sum, step.dft_diff),
                                  out_dtype=step.soft_dtype)
     signs = signs_on(dev)
 
-    def chain_and_decode(label, profile, n_codewords, calls):
+    def chain_and_decode(part, profile, n_codewords, calls):
         """calls: (rows, carry, col0) of each K4 launch into one Viterbi input."""
         index, n_punct, _ = step._viterbi_input(soft, profile, n_codewords)
         outs = [soft.new_zeros((index.shape[0] // 8, 8, n_codewords)) for _ in range(2)]
@@ -1429,12 +1460,12 @@ def check_step_leg(dev, iq, acq, card) -> None:
             got = deinterleave_depuncture_t_cuda(soft, rows, c0, index, n_punct, outs[0], col0)
             want = deinterleave_depuncture_t_ref(soft, rows, c0, index, n_punct, outs[1], col0)
             require(c0 is None or same_bits(got, want),
-                    f"step leg: K4 mode (b) {label}: the new carry differs from the twin")
+                    f"{where}: K4 mode (b) {part}: the new carry differs from the twin")
         require(same_bits(outs[0], outs[1]),
-                f"step leg: K4 mode (b) {label}: the Viterbi input differs from the twin")
+                f"{where}: K4 mode (b) {part}: the Viterbi input differs from the twin")
         got = viterbi_decode_bytes_t_cuda(outs[0], signs, profile.data_bits)
         want = viterbi_decode_bytes_t_ref(outs[0], signs, profile.data_bits)
-        require(torch.equal(got, want), f"step leg: K1+K2 {label}: "
+        require(torch.equal(got, want), f"{where}: K1+K2 {part}: "
                 f"{(got != want).sum().item()} bytes differ from the plain decoder")
         return tuple(outs[0].shape)
 
@@ -1447,7 +1478,7 @@ def check_step_leg(dev, iq, acq, card) -> None:
             (SoftRows.cif_slices(dab.nb_fic_bits, dab.nb_cifs, cfg.start_cu * CU_BITS,
                                  slice_bits), carry[f"deint_{cfg.subch_id}"], i * c)
             for i, cfg in enumerate(cfgs)]))
-    print(f"decode path step leg (E=1, F={nf}) [{card}]: ReceiveStep built in {build_s:.3f} s; "
+    print(f"{label} path step leg (E=1, F={nf}) [{card}]: ReceiveStep built in {build_s:.3f} s; "
           f"K5 on f32 frames {tuple(re.shape)} with xs bit-equal to the tables twin, max "
           f"{ulps:.0f} bf16 ulp from carve_rotate_ref; K4 mode (b) and K1+K2 on the Viterbi "
           f"inputs {shapes} (FIC, then each MSC group): inputs, carries and bytes equal")
@@ -1553,7 +1584,290 @@ def run_decode_path(dev, card, n_frames: int = DECODE_FRAMES):
               f"subchannel's AUs, concatenated, equal the one-shot run's")
     numbers["decode_launches"] = {"step": step_l, "host": host_l}
     print(f"phase 9: {time.perf_counter() - t_phase:.1f} s in all")
-    return numbers
+    return numbers, iq, aus, acq
+
+def stream_run(path: str, traced: bool = False, **kw):
+    """Phase 10: one StreamingRadio on the card over a capture file, read by
+    the port's native IQReader (its ring, as `stream` reads it), with the
+    decode path's launch counts set to 0 just before and read just after.
+    traced: under torch.profiler (CUDA activity), for the device busy time.
+    Returns (radio, {subch id: (raw frames, AUs)}, wall s, launches, busy s
+    or None)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpudab_torch.host.native_lib import IQReader
+    from tpudab_torch.host.streaming import StreamingRadio
+
+    torch.cuda.synchronize()
+    for name in DECODE_KERNELS:
+        KERNELS[name][2].launches = 0
+    outs = collections.defaultdict(lambda: ([], []))
+
+    def collect(outputs):
+        for sid, o in outputs.items():
+            if o.raw_frames is not None and len(o.raw_frames):
+                outs[sid][0].append(np.asarray(o.raw_frames))
+            outs[sid][1].extend(bytes(au) for sf in o.superframes for au in sf.access_units)
+
+    prof = profile(activities=[ProfilerActivity.CUDA]) if traced else contextlib.nullcontext()
+    with prof:
+        t0 = time.perf_counter()
+        reader = IQReader(path)
+        radio = StreamingRadio(reader.ring.read_complex64, batch_frames=STREAM_BATCH,
+                               device="cuda", **kw)
+        radio.run(on_outputs=collect)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        reader.close()
+    launches = {name: KERNELS[name][2].launches for name in DECODE_KERNELS}
+    busy = sum(k.self_device_time_total for k in prof.key_averages()
+               if k.device_type == DeviceType.CUDA) / 1e6 if traced else None
+    got = {sid: (np.concatenate(f) if f else np.zeros((0, 0), np.uint8), a)
+           for sid, (f, a) in outs.items()}
+    return radio, got, wall, launches, busy
+
+
+def tap_ms(dev, iq, freq_hz: float, reps: int = 20) -> dict:
+    """Host ms of one call of each tracking tap of ofdm/sync_device.py (its
+    launches and its one read back) on the segments of one frame of the
+    capture that the live loop hands it, at the acquired frequency. Run
+    before the stream runs, it also builds the taps' cuFFT plans."""
+    from tpudab_torch.ofdm.sync_device import (coarse_freq_device, fine_freq_device,
+                                               fine_time_sync_device)
+
+    p = get_ofdm_params(1)
+    pos = DECODE_IMP["delay_samples"] + 10 * p.nb_frame_length
+    x = torch.from_numpy(np.ascontiguousarray(iq[pos: pos + p.nb_frame_length])).to(dev)
+    re, im = x.real.contiguous()[None], x.imag.contiguous()[None]
+    prs = p.nb_null_period + p.nb_cyclic_prefix
+    body, seg = slice(prs, prs + p.nb_fft), slice(prs - 64, prs + 64 + p.nb_fft)
+    taps = {
+        "fine_freq": lambda: (fine_freq_device(re, im, freq_hz),),
+        "coarse": lambda: coarse_freq_device(re[:, body], im[:, body], freq_hz),
+        "timing": lambda: fine_time_sync_device(re[:, seg], im[:, seg], freq_hz),
+    }
+    out = {}
+    for name, tap in taps.items():
+        for k in range(reps + 1):
+            if k == 1:
+                t0 = time.perf_counter()
+            torch.cat([t.reshape(-1).double() for t in tap()]).tolist()
+        out[name] = (time.perf_counter() - t0) * 1e3 / reps
+    return out
+
+
+@contextlib.contextmanager
+def first_inputs(module, name: str, store: dict):
+    """While open, module.name (a dispatcher as a caller's module sees it,
+    never a wrapper: a wrapper counts its launches on its own name) keeps a
+    copy of its arguments at the first call with each input shape, then
+    runs as it did: the inputs the path gave that kernel, held against its
+    twin afterwards."""
+    fn = getattr(module, name)
+
+    def recorded(x, *args):
+        key = (tuple(x.shape), x.dtype, *(a for a in args if not torch.is_tensor(a)))
+        if key not in store:
+            store[key] = (x.clone(), *args)
+        return fn(x, *args)
+    setattr(module, name, recorded)
+    try:
+        yield
+    finally:
+        setattr(module, name, fn)
+
+
+def check_host_leg_inputs(k3: dict, k4: dict, card: str) -> None:
+    """Phase 10, the host path's kernels at the live loop's shapes: K1+K3
+    and K4 mode (a) on the inputs the stream's host run gave them (the first
+    of each shape), bit-equal to viterbi_decode_ref and deinterleave_ref."""
+    require(k3 and k4 and all(v[0].is_cuda for v in (*k3.values(), *k4.values())),
+            f"stream host run: no K1+K3 ({len(k3)}) or K4 (a) ({len(k4)}) input on the card kept")
+    for x, n in k3.values():
+        x, signs = x.contiguous(), signs_on(x.device)
+        got, want = viterbi_decode_bits_cuda(x, signs, n), viterbi_decode_ref(x, signs, n)
+        require(torch.equal(got, want), f"stream host leg: K1+K3 {tuple(x.shape)}: "
+                f"{(got != want).sum().item()} bits differ from viterbi_decode_ref")
+    for buf, c in k4.values():
+        require(torch.equal(deinterleave_cuda(buf, c), deinterleave_ref(buf, c)),
+                f"stream host leg: K4 mode (a) {tuple(buf.shape)} differs from deinterleave_ref")
+    print(f"stream path host leg [{card}]: K1+K3 on its inputs "
+          + ", ".join(f"{tuple(x.shape)} {str(x.dtype)[6:]}" for x, *_ in k3.values())
+          + " bits equal to viterbi_decode_ref; K4 mode (a) on "
+          + ", ".join(f"{tuple(b.shape)} {str(b.dtype)[6:]}" for b, _ in k4.values())
+          + " equal to deinterleave_ref (the first input of each shape in the host run)")
+
+
+def read_wav(path: str):
+    import wave
+    with wave.open(path) as w:
+        return w.getnchannels(), w.getframerate(), np.frombuffer(
+            w.readframes(w.getnframes()), np.int16)
+
+
+def codec_capture(n_frames: int):
+    """A one-service multiplex whose DAB+ subchannel (96 kbps EEP 3-A, 72
+    CU) carries AAC of a 550 Hz tone from the port's encoder
+    (synth/payload.py::dabplus_aac_stream); CFO 1,500 Hz, 2,000 samples of
+    delay, 20 dB."""
+    from tpudab_torch.synth.payload import dabplus_aac_stream
+    spec = EnsembleSpec(0xA0AC, "AAC Mux", [ServiceSpec(0xC2A1, "Tone+", [(0, ASCTY_DAB_PLUS, 1)])],
+                        [SubchannelSpec(1, start_cu=0, size_cu=72, protection=("eep", 3, 0))])
+    synth = EnsembleSynthesizer(spec, seed=4)
+    stream, _ = dabplus_aac_stream(96, 4 * n_frames + 20)
+    synth.payload_fn[1] = lambda m: stream[m].tobytes()
+    iq = np.concatenate([modulate_frame_bits(synth.frame_bits(i)) for i in range(n_frames)])
+    return apply_impairments(iq, Impairments(freq_offset_hz=1500.0, delay_samples=2000,
+                                             snr_db=20, seed=5))
+
+
+def run_stream_path(dev, card, iq, aus, acq):
+    """Phase 10: the live loop (tpudab_torch.host.streaming.StreamingRadio)
+    on phase 9's capture, read from an f32 file by the native IQReader, on
+    the card: on the device step (the default) and on the host path
+    (use_device_step=False). First each tracking tap alone (which also
+    builds its cuFFT plans) and the step's kernels against their twins at
+    F = STREAM_BATCH; then untraced runs in the order step, host, host, step
+    for the walls (so neither path alone pays the first run's costs), and
+    one traced run of each for the device busy time; the first host run
+    keeps the first input of each shape that K1+K3 and K4 (a) get, held
+    against their twins afterwards. Gates, on every run: every FIB CRC
+    passes and no reacquisition; each subchannel's AUs are the payload's,
+    in order, from the first that decodes on; the step built on the step
+    path only; each path launched its kernels, the same in each of its
+    runs; all runs' frames and AUs byte-equal. Then `python -m
+    tpudab_torch.host.cli stream CAP --no-dashboard --wav` must exit 0 with
+    a WAV of one mix block a batch; and the codec line: where the codec
+    probe finds FFmpeg, `stream` of a capture whose DAB+ service carries AAC
+    of a tone, on each path, must write equal WAVs with an RMS above
+    CODEC_RMS_FLOOR; where it does not, the WAV above must be silent."""
+    from tpudab_torch.fic import fib
+    from tpudab_torch.host.native_lib import ffmpeg_probe
+    from tpudab_torch.msc import subchannel
+
+    t_phase = time.perf_counter()
+    fl = get_ofdm_params(1).nb_frame_length
+    n_frames = DECODE_FRAMES
+    signal_s = n_frames * fl / SAMPLING_RATE
+    n_aus = 6 * ((4 * n_frames - 15) // 5)
+    taps = tap_ms(dev, iq, acq["net_freq_hz"])
+    print(f"stream tracking taps [{card}]: alone, " + ", ".join(
+        f"{k} {v:.3f} ms" for k, v in taps.items()) + " a call (host clock, its launches and "
+        "its one read back, on one frame's segments)")
+    check_step_leg(dev, iq, acq, card, STREAM_BATCH, "stream")
+    runs = {"step": [], "host": []}
+    k3, k4 = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        cap = os.path.join(tmp, "capture.f32")
+        write_iq(iq, cap)
+        for label, traced in (("step", False), ("host", False), ("host", False),
+                              ("step", False), ("step", True), ("host", True)):
+            with contextlib.ExitStack() as keep:
+                if label == "host" and not runs["host"]:
+                    keep.enter_context(first_inputs(fib, "viterbi_decode_best", k3))
+                    keep.enter_context(first_inputs(subchannel, "viterbi_decode_best", k3))
+                    keep.enter_context(first_inputs(subchannel, "deinterleave_batch", k4))
+                runs[label].append(stream_run(cap, traced, **STREAM_PATHS[label][0]))
+        check_host_leg_inputs(k3, k4, card)
+        first = runs["step"][0][1]
+        for label, rs in runs.items():
+            for radio, got, wall, launches, _ in rs:
+                rx = radio.receiver.stats
+                require(rx["fibs"] == 12 * n_frames and rx["fib_crc_errors"] == 0
+                        and radio.stats.total_frames == n_frames
+                        and radio.stats.reacquisitions == 0,
+                        f"stream {label}: FIB CRC not 1.0 or a lost lock: {rx}, {radio.stats}")
+                for sid, want in aus.items():
+                    a = got[sid][1]
+                    k0 = want.index(a[0]) if a and a[0] in want else -1
+                    require(k0 >= 0 and a == want[k0: k0 + len(a)] and len(a) >= n_aus,
+                            f"stream {label}: subchannel {sid}: {len(a)} AUs from payload AU "
+                            f"{k0}, want at least {n_aus} in order")
+                require((radio._driver.step is not None) == (label == "step"),
+                        f"stream {label}: the receive step was {'not ' * (label == 'step')}built")
+                require(launches == rs[0][3], f"stream {label}: launches differ between runs: "
+                        f"{launches}, {rs[0][3]}")
+                require(got.keys() == first.keys() and all(
+                    np.array_equal(got[k][0], first[k][0]) and got[k][1] == first[k][1]
+                    for k in got), f"stream {label}: a run decoded other bytes than the first")
+            launches = rs[0][3]
+            require(all(launches[k] for k in STREAM_KERNELS[label])
+                    and (label == "step" or not any(launches[k] for k in STREAM_KERNELS["step"]
+                                                    if k != "carve_rotate")),
+                    f"stream {label}: launches {launches}")
+            walls = [r[2] for r in rs if r[4] is None]
+            tr = next(r for r in rs if r[4] is not None)
+            summs = [r[0].timers.summary() for r in rs if r[4] is None]
+            track = [v["track"]["seconds"] / v["track"]["calls"] * 1e3 for v in summs]
+            print(f"stream {label} path [{card}]: wall " + ", ".join(f"{w:.3f}" for w in walls)
+                  + f" s untraced for {signal_s:.3f} s of signal, real-time factor "
+                  + ", ".join(f"{signal_s / w:.2f}" for w in walls) + f"; traced rerun: wall "
+                  f"{tr[2]:.3f} s, device busy {tr[4]:.3f} s (share {tr[4] / tr[2]:.4f}); "
+                  f"launches {launches}; FIB CRC 1.0 over {12 * n_frames} FIBs; "
+                  f"{min(len(g[1]) for g in rs[0][1].values())} AUs or more a subchannel, "
+                  f"in order")
+            for summ in summs:
+                print(f"  stages [{card}]: " + "; ".join(
+                    f"{k} {v['seconds']:.3f} s x{v['calls']} ({1e3 * v['seconds'] / v['calls']:.2f} "
+                    f"ms a call)" for k, v in sorted(summ.items(), key=lambda kv: -kv[1]["seconds"])))
+            print(f"  track stage [{card}]: " + ", ".join(f"{t:.2f}" for t in track)
+                  + " ms a batch (StageTimer, each untraced run in order)")
+            runs[label] = {"wall": walls, "rtf": [signal_s / w for w in walls],
+                           "traced_wall": tr[2], "busy": tr[4], "launches": launches,
+                           "stages": summs, "track_ms": track}
+        print(f"stream: all {len(runs) * 3} runs byte-equal over {len(first)} subchannels "
+              f"({sum(len(g[0]) for g in first.values())} frames, "
+              f"{sum(len(g[1]) for g in first.values())} AUs)")
+        runs["taps_ms"] = taps
+
+        # the command line, as a user runs it
+        mix = os.path.join(tmp, "mix.wav")
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "tpudab_torch.host.cli", "stream", cap,
+                               "--no-dashboard", "--wav", mix], capture_output=True, text=True,
+                              timeout=600, env=dict(os.environ, PYTHONPATH=str(ROOT)))
+        cli_s = time.perf_counter() - t0
+        require(proc.returncode == 0, f"stream CLI: exit {proc.returncode}\n{proc.stderr[-2000:]}")
+        block = int(48_000 * 0.096 * STREAM_BATCH)
+        batches = -(-n_frames // STREAM_BATCH)
+        ch, rate, pcm = read_wav(mix)
+        require((ch, rate, pcm.size) == (2, 48_000, 2 * batches * block),
+                f"stream CLI: WAV of {ch} channels at {rate} Hz, {pcm.size // 2} frames "
+                f"(want {batches * block})")
+        print(f"stream CLI [{card}]: `python -m tpudab_torch.host.cli stream CAP --no-dashboard "
+              f"--wav mix.wav` exit 0 in {cli_s:.1f} s (process start, imports and the build "
+              f"check included); WAV {batches} x {block} stereo frames; "
+              f"{proc.stdout.strip().splitlines()[-1]}")
+
+        found, what = ffmpeg_probe()
+        if found:
+            n = CODEC_FRAMES
+            codec_cap = os.path.join(tmp, "aac.f32")
+            write_iq(codec_capture(n), codec_cap)
+            wavs = {}
+            for label, (_, flags) in STREAM_PATHS.items():
+                wavs[label] = os.path.join(tmp, f"aac_{label}.wav")
+                lines, wall, _, _ = cli_run(["stream", codec_cap, "--no-dashboard", "--wav",
+                                             wavs[label], *flags])
+                require(f"stopped: {n} frames, 0 reacquisitions" in lines,
+                        f"codec stream {label}: {lines[-1:]}")
+            pcm = {label: read_wav(w)[2] for label, w in wavs.items()}
+            rms = float(np.sqrt(np.mean(pcm["step"].astype(np.float64) ** 2)))
+            require(np.array_equal(pcm["step"], pcm["host"]) and rms > CODEC_RMS_FLOOR
+                    and pcm["step"].size == 2 * -(-n // STREAM_BATCH) * block,
+                    f"codec stream: WAVs equal {np.array_equal(pcm['step'], pcm['host'])}, "
+                    f"RMS {rms:.1f} (floor {CODEC_RMS_FLOOR}), {pcm['step'].size // 2} frames")
+            print(f"codec probe: FFmpeg found ({what}); `stream` of a {n}-frame capture whose "
+                  f"DAB+ service carries AAC of a 550 Hz tone: WAVs of the step and host paths "
+                  f"equal, {pcm['step'].size // 2} stereo frames, RMS {rms:.1f} "
+                  f"(floor {CODEC_RMS_FLOOR}), peak {int(np.abs(pcm['step']).max())}")
+        else:
+            require(not pcm.any(), "stream CLI: no FFmpeg, yet the WAV is not silent")
+            print(f"codec probe: no FFmpeg ({what}): no PCM is decoded; the CLI's WAV is "
+                  f"{pcm.size // 2} stereo frames of silence, as it must be")
+    print(f"phase 10: {time.perf_counter() - t_phase:.1f} s in all")
+    return {"stream_launches": {k: runs[k]["launches"] for k in STREAM_PATHS}, "stream": runs}
 
 
 def main() -> None:
@@ -1589,7 +1903,10 @@ def main() -> None:
     launches.update(tool_launches)
 
     # phase 9: the decode path, through the command line
-    decode = run_decode_path(dev, card)
+    decode, iq, aus, acq = run_decode_path(dev, card)
+
+    # phase 10: the live loop, in process and through the command line
+    stream = run_stream_path(dev, card, iq, aus, acq)
 
     def old(key, bound_key, library=None):
         err, ms, plain = res[key]
@@ -1658,6 +1975,7 @@ def main() -> None:
                               for k, v in resources.items() if k.startswith(PTXAS_OF[name])}
         if name in DECODE_KERNELS:
             entry["decode_launches"] = {k: v[name] for k, v in decode["decode_launches"].items()}
+            entry["stream_launches"] = {k: v[name] for k, v in stream["stream_launches"].items()}
         kernels.append(entry)
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all, the build included")
     print(json.dumps({"kernels": kernels}))

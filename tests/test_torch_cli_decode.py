@@ -4,8 +4,8 @@ seeded random AUs led by PAD with a dynamic label and a slide) on a 36-CU
 EEP 3-A subchannel, 10 frames, CFO 3,400 Hz, 777 samples of delay, 18 dB
 SNR.
 
-Tolerances: the payload files (tpudab's .wav aside: PCM is not ported) and
-the printed listing are equal, except the printed net frequency (held
+Tolerances: the payload files (the PCM of subch<N>.wav among them) and the
+printed listing are equal, except the printed net frequency (held
 within 1 Hz: the acquisitions sum in other orders); `info`'s frame_start
 and coarse_bins equal, its Hz within 1 Hz and its qualities within a
 relative 1e-3 (as tests/test_torch_sync.py).
@@ -60,9 +60,9 @@ def run_cli(fn, argv, out_dir, capsys):
     lines = capsys.readouterr().out
     if out_dir:
         lines = lines.replace(str(out_dir), "OUT")
-    files = {f: (out_dir / f).read_bytes() for f in sorted(os.listdir(out_dir))
-             if not f.endswith(".wav")} if out_dir else {}
-    return [ln for ln in lines.splitlines() if "PCM" not in ln], files
+    files = {f: (out_dir / f).read_bytes() for f in sorted(os.listdir(out_dir))} \
+        if out_dir else {}
+    return lines.splitlines(), files
 
 
 def net_freq(lines):

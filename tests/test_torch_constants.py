@@ -3,7 +3,8 @@ the delay helpers of tpudab_torch/msc/interleave.py) against the originals,
 over each function's whole domain: the modules' docstrings and every
 module-level table, the EEP and UEP rows and both FIC profiles, all four
 modes' OFDM/DAB parameters, carrier maps and PRS, the tables' strings, the
-provenance caveats and interleave_delays / interleave_np.
+provenance caveats, the Band III channel table and interleave_delays /
+interleave_np.
 Tolerance: none, every value equal."""
 
 import dataclasses
@@ -25,7 +26,7 @@ import tpudab_torch.constants.tables as p_tables
 import tpudab_torch.msc.interleave as p_il
 
 MODULES = ("ofdm_params", "dab_params", "interleaver", "prs", "puncture", "tables",
-           "provenance")
+           "provenance", "channels")
 
 
 def plain(v):
@@ -179,3 +180,12 @@ def test_interleave_helpers_equal():
         bits = rng.integers(0, 2, shape).astype(np.uint8)
         got, want = p_il.interleave_np(bits), j_il.interleave_np(bits)
         assert got.dtype == want.dtype and np.array_equal(got, want)
+
+
+def test_band_iii_channels_equal():
+    import tpudab.constants.channels as j_ch
+    import tpudab_torch.constants.channels as p_ch
+    assert p_ch.channel_labels() == j_ch.channel_labels()
+    assert len(p_ch.BAND_III) == 38
+    for label in j_ch.channel_labels() + ["12c", " 5a ", "14A", "13G", ""]:
+        same(j_ch.channel_freq_hz, p_ch.channel_freq_hz, label)

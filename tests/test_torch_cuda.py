@@ -536,3 +536,44 @@ def test_decode_iq_cuda_equals_cpu(dev, device_step):
     np.testing.assert_array_equal(gpu[0], cpu[0])
     assert gpu[1:] == cpu[1:] and cpu[1]["fib_crc_errors"] == 0
     np.testing.assert_array_equal(gpu[0][1:], data[1: gpu[0].shape[0]])
+
+
+def test_streaming_radio_cuda_equals_cpu(dev):
+    """The live loop on the card: the device step by default (K5, K4 mode
+    (b), K1+K2 once the FIC has the layout, after a first batch on the host
+    path), the host path on request (K5, K4 mode (a), K1+K3), each decoding
+    the bytes and counting the stats of the CPU radio."""
+    from tpudab_torch.host.streaming import StreamingRadio
+    iq, data = impaired_capture(8, dict(freq_offset_hz=1234.0, delay_samples=777, snr_db=18,
+                                        seed=3))
+
+    def stream(device, **kw):
+        pos = [0]
+
+        def source(n):
+            lo = pos[0]
+            pos[0] = min(lo + n, iq.shape[0])
+            return iq[lo: pos[0]]
+        radio, got = StreamingRadio(source, batch_frames=4, device=device, **kw), []
+        radio.run(on_outputs=lambda outs: got.extend(
+            o.raw_frames for o in outs.values() if o.raw_frames is not None and len(o.raw_frames)))
+        counts = (radio.stats.total_frames, radio.stats.reacquisitions,
+                  radio.stats.timing_adjustments, radio.stats.coarse_adjustments)
+        return radio, np.concatenate(got), counts
+
+    wrappers = (viterbi_decode_bytes_t_cuda, deinterleave_depuncture_t_cuda, carve_rotate_cuda,
+                viterbi_decode_bits_cuda, deinterleave_cuda)
+    _, want, counts = stream("cpu")
+    for device_step in (True, False):
+        for w in wrappers:
+            w.launches = 0
+        radio, got, got_counts = stream(dev, **({} if device_step else
+                                                {"use_device_step": False}))
+        assert radio.use_device_step is device_step
+        assert (radio._driver.step is not None) is device_step
+        np.testing.assert_array_equal(got, want)
+        assert got_counts == counts and radio.receiver.stats["fib_crc_errors"] == 0
+        launched = [w.launches > 0 for w in wrappers]
+        assert launched == ([True] * 5 if device_step else
+                            [False, False, True, True, True]), launched
+    np.testing.assert_array_equal(want[1:], data[1: want.shape[0]])

@@ -3,8 +3,9 @@ GPU machine), and imports nothing of tpudab. A subprocess refuses jax,
 jaxlib, ml_dtypes and tpudab (by the first name component, so tpudab_torch
 passes), imports every module of the port, its tools and the smoke script,
 synthesises a 5-frame capture and runs one CPU ReceiveStep, the CPU
-Receiver (the host per-stage path) and the offline pipeline (with and
-without the step) on it, and finds no tpudab module loaded at the end."""
+Receiver (the host per-stage path), the offline pipeline (with and
+without the step) and the live loop (StreamingRadio over an array source)
+on it, and finds no tpudab module loaded at the end."""
 
 import os
 import subprocess
@@ -70,6 +71,20 @@ SCRIPT = textwrap.dedent("""
                                    use_device_step=device_step)
         assert stats.frame_start == 0 and rx.stats["fib_crc_errors"] == 0
         assert (np.concatenate([o.raw_frames for o in acc[1]]) == data[:5]).all()
+
+    from tpudab_torch.host.streaming import StreamingRadio
+    iq, pos, got = frames.reshape(-1), [0], []
+
+    def source(n):
+        lo = pos[0]
+        pos[0] = min(lo + n, iq.shape[0])
+        return iq[lo: pos[0]]
+    radio = StreamingRadio(source, batch_frames=2, device="cpu")
+    radio.run(on_outputs=lambda outs: got.extend(
+        o.raw_frames for o in outs.values() if o.raw_frames is not None and len(o.raw_frames)))
+    got = np.concatenate(got)
+    assert radio.stats.state == "STOPPED" and radio.stats.total_frames == 5
+    assert radio.receiver.stats["fib_crc_errors"] == 0 and (got == data[: len(got)]).all()
     bad = [m for m in sys.modules if m.split(".")[0] in REFUSED]
     assert not bad, bad
     print("OK", len(mods))

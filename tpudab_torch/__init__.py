@@ -2,15 +2,19 @@
 (models/step.py), the host per-stage path behind decode-bits
 (models/receiver.py), the offline decode of an IQ capture behind decode
 (ofdm/sync_device.py, models/pipeline.py, models/step_driver.py,
-models/checkpoint.py; host/cli.py) and the kernel-experiment tools
-(tools/, run as python -m tpudab_torch.tools.<name>).
+models/checkpoint.py; host/cli.py), the live radio behind stream
+(host/streaming.py, the native ring and IQ reader of host/native_lib.py,
+the codecs and the audio mix of audio/, the dashboard and keys of host/)
+and the kernel-experiment tools (tools/, run as python -m
+tpudab_torch.tools.<name>).
 
 The package mirrors tpudab's layout (audio/, constants/, data/, database/,
 fec/, fic/, host/, models/, mot/, msc/, ofdm/, ops/, pad/, synth/, tools/,
 utils/), so each module's counterpart sits at the same path. It imports
 torch and numpy and nothing of jax or of tpudab: what it needs from tpudab
-is copied (constants/) or written again here without jax, and held equal
-to its tpudab counterpart by the tests/test_torch_*.py parity tests.
+is copied (constants/, the host numpy and C of the live radio) or written
+again here without jax, and held equal to its tpudab counterpart by the
+tests/test_torch_*.py parity tests.
 
 Every Pallas kernel in tpudab has a hand-written CUDA C++ counterpart
 for sm_90a under csrc/, built on first use (ops/_build.py).

@@ -1,4 +1,4 @@
-"""Command line of the port: `decode`, `decode-bits` and `info`.
+"""Command line of the port: `decode`, `decode-bits`, `info` and `stream`.
 
 Counterpart of tpudab.host.cli's subcommands of the same names, with the
 same flags plus --device:
@@ -9,15 +9,25 @@ same flags plus --device:
   the remainder of the capture; --config reads a RadioConfig JSON;
 - decode-bits: a raw post-OFDM soft-bit file (one transmission frame =
   nb_frame_bits values) goes through the Receiver;
-- info: the acquisition of a capture's first four frames.
+- info: the acquisition of a capture's first four frames;
+- stream: the live loop. The native reader thread (host/native_lib.py)
+  reads an IQ file, or stdin for `-`, into a ring; the StreamingRadio
+  acquires, tracks and decodes it batch by batch (through the fused
+  ReceiveStep by default on a CUDA device: --device-step or
+  --no-device-step force a path); the audio mix goes to --wav and, with
+  --play, to the sound card, under the ANSI dashboard and its keys unless
+  --no-dashboard. (tpudab's --tcp rtl_tcp source is not ported yet.)
 decode and decode-bits print the FIC database listing and write the DAB+
 access units (subch<N>.aac.raw, each AU behind its 4-byte little-endian
-length), the MP2 frames (subch<N>.mp2) and the slideshow images to
---out-dir. PCM/WAV output (tpudab's native codec shim) is not ported yet.
+length), the MP2 frames (subch<N>.mp2), their PCM (subch<N>.wav, where the
+codec probe of host/native_lib.py finds FFmpeg) and the slideshow images to
+--out-dir.
 
     python -m tpudab_torch.host.cli decode CAPTURE --device-step --out-dir D
     python -m tpudab_torch.host.cli decode-bits FILE --bits-format f32 --out-dir D
     python -m tpudab_torch.host.cli info CAPTURE --device cpu   # plain twins
+    python -m tpudab_torch.host.cli stream CAPTURE --no-dashboard --wav mix.wav
+    cat CAPTURE | python -m tpudab_torch.host.cli stream - --device cpu
 
 --device defaults to cuda, and a missing GPU is an error, not a fallback.
 """
@@ -116,11 +126,18 @@ def _dump_slides_and_labels(receiver, out_dir: str) -> None:
 
 
 def _dump_audio(acc: Dict, out_dir: str) -> None:
-    """The raw-file half of tpudab's _dump_audio: AUs and MP2 frames."""
+    """tpudab's _dump_audio: the AUs and MP2 frames as files, and their PCM
+    as subch<N>.wav where the codecs are available."""
+    from tpudab_torch.audio.codecs import (AACDecoder, CodecUnavailable, MP2Decoder,
+                                           aac_decode_available, mp2_decode_available)
     for subch_id, outs in acc.items():
         is_plus = outs[0].is_dab_plus if outs else True
         if is_plus:
-            aus = [au for o in outs for sf in o.superframes for au in sf.access_units]
+            aus, header = [], None
+            for o in outs:
+                for sf in o.superframes:
+                    header = sf.header or header
+                    aus.extend(sf.access_units)
             if not aus:
                 continue
             raw_path = os.path.join(out_dir, f"subch{subch_id}.aac.raw")
@@ -128,6 +145,21 @@ def _dump_audio(acc: Dict, out_dir: str) -> None:
                 for au in aus:
                     f.write(len(au).to_bytes(4, "little") + au)
             print(f"subch {subch_id}: {len(aus)} AAC AUs -> {raw_path}")
+            if header is not None and aac_decode_available():
+                try:
+                    dec = AACDecoder(header)
+                except CodecUnavailable as e:
+                    print(f"subch {subch_id}: AAC PCM decode unavailable ({e})")
+                    continue
+                pcm = []
+                for au in aus:
+                    try:
+                        p = dec.decode(bytes(au))
+                    except ValueError:
+                        continue  # skip undecodable AUs, keep the stream
+                    if p.shape[0]:
+                        pcm.append(p)
+                _write_pcm(subch_id, pcm, out_dir, dec.sample_rate or header.sampling_rate)
         else:
             frames = [fr for o in outs for fr in o.mp2_frames]
             if not frames:
@@ -137,6 +169,43 @@ def _dump_audio(acc: Dict, out_dir: str) -> None:
                 for fr in frames:
                     f.write(fr)
             print(f"subch {subch_id}: {len(frames)} MP2 frames -> {mp2_path}")
+            if mp2_decode_available():
+                dec = MP2Decoder()
+                pcm = [dec.decode(fr) for fr in frames]
+                _write_pcm(subch_id, [p for p in pcm if p.shape[0]], out_dir,
+                           dec.sample_rate or 48000)
+
+
+def _write_pcm(subch_id: int, pcm, out_dir: str, rate: int) -> None:
+    if not pcm:
+        return
+    wav = WavFromPCM(os.path.join(out_dir, f"subch{subch_id}.wav"), rate)
+    for p in pcm:
+        wav.write(p)
+    wav.close()
+    print(f"subch {subch_id}: decoded PCM -> subch{subch_id}.wav")
+
+
+class WavFromPCM:
+    """A 16-bit WAV of decoded PCM, its channel count taken from the first
+    block."""
+
+    def __init__(self, path: str, rate: int):
+        import wave
+        self._w = wave.open(path, "wb")
+        self._rate = rate
+        self._opened = False
+
+    def write(self, pcm: np.ndarray) -> None:
+        if not self._opened:
+            self._w.setnchannels(pcm.shape[1] if pcm.ndim > 1 else 1)
+            self._w.setsampwidth(2)
+            self._w.setframerate(self._rate)
+            self._opened = True
+        self._w.writeframes(np.ascontiguousarray(pcm, dtype=np.int16).tobytes())
+
+    def close(self) -> None:
+        self._w.close()
 
 
 def _load_config(args):
@@ -245,6 +314,78 @@ def cmd_decode_bits(args) -> int:
     return 0
 
 
+def cmd_stream(args) -> int:
+    """Live pipeline: native reader thread (a file or stdin) -> ring ->
+    StreamingRadio -> audio mix (+ optional WAV, + optional playback) with
+    the ANSI dashboard and its keys."""
+    from tpudab_torch.audio.pipeline import AudioPipeline, WavSink
+    from tpudab_torch.host.controls import KeyController
+    from tpudab_torch.host.dashboard import Dashboard
+    from tpudab_torch.host.native_lib import IQReader
+    from tpudab_torch.host.streaming import StreamingRadio
+
+    device = _device(args)
+    mgr = _load_config(args)
+    mode, batch = args.mode, args.batch_frames
+    radio_kw = {"channel": args.channel}   # the label a tuner would be on
+    if mgr is not None:
+        c = mgr.config
+        mode = c.mode if args.mode == 1 else args.mode
+        batch = c.batch_frames if args.batch_frames == 4 else batch
+        radio_kw = {"channel": args.channel or c.channel, "sync_cfg": c.sync_config(),
+                    "desync_threshold": c.desync_threshold,
+                    "is_coarse_freq_correction": c.is_coarse_freq_correction,
+                    "coarse_check_interval": c.coarse_check_interval}
+    if args.device_step is not None:
+        radio_kw["use_device_step"] = args.device_step
+
+    reader = IQReader(args.path, fmt=args.format)
+    audio = AudioPipeline(48_000 if mgr is None else mgr.config.sink_sample_rate)
+    if mgr is not None:
+        audio.global_gain = mgr.config.global_gain
+    wav = WavSink(args.wav, audio.sink_rate) if args.wav else None
+    radio = StreamingRadio(reader.ring.read_complex64, mode=mode, batch_frames=batch,
+                           audio_pipeline=audio, device=device, **radio_kw)
+    controls = KeyController(radio.receiver, audio, radio=radio, config_manager=mgr)
+    dash = None if args.no_dashboard else Dashboard(
+        radio.receiver, radio.stats, audio, controls=controls, timers=radio.timers)
+    sink = None
+    if args.play:
+        from tpudab_torch.audio.sink import PlaybackSink
+        try:
+            sink = PlaybackSink(audio).start()
+        except RuntimeError as e:   # no aplay/pacat/play on this host
+            print(f"audio playback unavailable ({e}); continuing without", file=sys.stderr)
+
+    def on_outputs(outputs):
+        if sink is None:
+            # no live sink: drain the mix at signal rate into the WAV
+            mixed = audio.mix(int(48_000 * 0.096 * args.batch_frames))
+            if wav is not None:
+                wav.write(mixed)
+        if not controls.poll():
+            radio.request_stop()
+        if dash is not None:
+            dash.update()
+
+    try:
+        radio.run(on_outputs=on_outputs)
+    except KeyboardInterrupt:
+        pass
+    finally:
+        controls.close()
+        reader.close()
+        if sink is not None:
+            sink.stop()
+        if wav is not None:
+            wav.close()
+    if dash is not None:
+        dash.update(force=True)
+    print(f"\nstopped: {radio.stats.total_frames} frames, "
+          f"{radio.stats.reacquisitions} reacquisitions")
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="tpudab_torch", description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -285,6 +426,26 @@ def main(argv=None) -> int:
     i.add_argument("--format", choices=["u8", "s8", "s16", "f32"], default="f32")
     i.add_argument("--device", default="cuda", help=device_help)
     i.set_defaults(fn=cmd_info)
+    st = sub.add_parser("stream", help="streaming decode with live dashboard")
+    st.add_argument("path", help="IQ file or '-' for stdin")
+    st.add_argument("--format", choices=["u8", "s8", "s16", "f32"], default="f32")
+    st.add_argument("--channel", default=None, metavar="LABEL",
+                    help="Band III channel label (5A..13F), e.g. 12C")
+    st.add_argument("--mode", type=int, default=1)
+    st.add_argument("--batch-frames", type=int, default=4)
+    st.add_argument("--device-step", action="store_true", default=None, dest="device_step",
+                    help="force the fused receive step decode path "
+                         "(default: on for a CUDA device)")
+    st.add_argument("--no-device-step", action="store_false", dest="device_step",
+                    help="force the host per-stage decode path")
+    st.add_argument("--wav", default=None, help="write mixed audio to WAV")
+    st.add_argument("--play", action="store_true",
+                    help="real-time playback via aplay/pacat (PlaybackSink)")
+    st.add_argument("--no-dashboard", action="store_true")
+    st.add_argument("--config", default=None,
+                    help="JSON RadioConfig (ConfigManager, autosaved)")
+    st.add_argument("--device", default="cuda", help=device_help)
+    st.set_defaults(fn=cmd_stream)
     args = ap.parse_args(argv)
     return args.fn(args)
 

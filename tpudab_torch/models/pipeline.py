@@ -24,6 +24,16 @@ from tpudab_torch.ofdm.sync_device import acquire_host
 from tpudab_torch.utils.device import DEFAULT_DEVICE
 
 
+def frames_on_device(frames: np.ndarray, device):
+    """(nf, frame_len) complex host frames -> one host-to-device copy of the
+    complex64 samples, then lane-tiled (nf, len//128, 128) f32 re and im
+    there."""
+    nf, n = frames.shape
+    x = torch.from_numpy(np.ascontiguousarray(frames, dtype=np.complex64)).to(device)
+    tiled = (nf, n // 128, 128)
+    return x.real.reshape(tiled).contiguous(), x.imag.reshape(tiled).contiguous()
+
+
 @dataclasses.dataclass
 class PipelineStats:
     total_frames: int = 0
@@ -70,13 +80,9 @@ class OfflinePipeline:
                             self.sync_cfg.impulse_peak_distance_probability, self.device)
 
     def _frames_on_device(self, iq: np.ndarray, pos: int, nf: int):
-        """nf frames from pos: one host-to-device copy of the complex
-        samples, then lane-tiled (nf, len//128, 128) f32 re and im there."""
-        p = self.params
-        x = torch.from_numpy(np.ascontiguousarray(
-            iq[pos: pos + nf * p.nb_frame_length], dtype=np.complex64)).to(self.device)
-        tiled = (nf, p.nb_frame_length // 128, 128)
-        return x.real.reshape(tiled).contiguous(), x.imag.reshape(tiled).contiguous()
+        """nf frames from pos, tiled on the device (frames_on_device)."""
+        n = self.params.nb_frame_length
+        return frames_on_device(iq[pos: pos + nf * n].reshape(nf, n), self.device)
 
     def run(self, iq: np.ndarray, collect=None):
         """Decode the whole buffer; returns accumulated channel outputs.

@@ -6,7 +6,9 @@ build_superframe), optionally each AU led by a PAD DSE that carries a
 dynamic label and an MOT slideshow image, as tpudab's demo synthesiser
 puts them (tpudab/host/cli.py::_dabplus_stream) but with random bytes in
 place of AAC. The AUs come back too, so a receiver's output can be held
-against them.
+against them. dabplus_aac_stream fills the superframes with real AAC: a
+tone through the codec shim's encoder (audio/codecs.py, which needs
+FFmpeg), as tpudab's demo synthesiser makes its DAB+ service.
 """
 
 from __future__ import annotations
@@ -64,5 +66,45 @@ def dabplus_stream(bitrate: int, n_logical: int, seed: int,
                for d, s in zip(dses, sizes)]
         all_aus.extend(aus)
         frames.append(build_superframe(hdr, aus, bitrate))
+    stream = np.concatenate(frames).reshape(-1, 3 * bitrate)
+    return stream[:n_logical], all_aus
+
+
+def dabplus_aac_stream(bitrate: int, n_logical: int, tone_hz: float = 550.0,
+                       aac_kbps: int = 64) -> Tuple[np.ndarray, List[bytes]]:
+    """(n_logical, 3 * bitrate) uint8 logical frames of a DAB+ subchannel
+    whose AUs are AAC-LC packets of a stereo tone at 48 kHz (8,000 peak),
+    and those AUs in order. The encoder's empty packets (its priming) are
+    left out: an empty AU would flush the decoder. The last AU of each
+    superframe is padded with zeros to fill it; aac_kbps must leave room
+    below the subchannel's bitrate."""
+    from tpudab_torch.audio.codecs import _ShimEncoder
+
+    hdr = SuperFrameHeader(dac_rate=1, sbr_flag=0, aac_channel_mode=1, ps_flag=0,
+                           mpeg_surround=0)
+    enc = _ShimEncoder("aac", 48000, 2, aac_kbps * 1000)
+    avail = 110 * bitrate // 8 - header_size_bytes(hdr.num_aus) - 2 * hdr.num_aus
+    t = np.arange(enc.frame_size)
+    k = 0
+
+    def packet() -> bytes:
+        nonlocal k
+        while True:
+            x = (8000 * np.sin(2 * np.pi * tone_hz * (t + k * enc.frame_size) / 48000))
+            k += 1
+            pkt = enc.encode(np.repeat(x.astype(np.int16)[:, None], 2, axis=1))
+            if pkt:
+                return pkt
+
+    frames, all_aus = [], []
+    for _ in range(n_logical // FRAMES_PER_SUPERFRAME + 1):
+        aus = [packet() for _ in range(hdr.num_aus)]
+        slack = avail - sum(len(a) for a in aus)
+        if slack < 0:
+            raise ValueError(f"{aac_kbps} kbps AAC overflows a {bitrate} kbps superframe")
+        aus[-1] += b"\x00" * slack
+        all_aus.extend(aus)
+        frames.append(build_superframe(hdr, aus, bitrate))
+    enc.close()
     stream = np.concatenate(frames).reshape(-1, 3 * bitrate)
     return stream[:n_logical], all_aus
