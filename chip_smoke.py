@@ -97,7 +97,33 @@ Phases, each of which raises on failure (nothing is caught):
    a batch; and the codec probe's line: where it finds FFmpeg, `stream` of
    a capture whose DAB+ service carries AAC of a tone (the port's encoder)
    on each path must write equal WAVs with an RMS above CODEC_RMS_FLOOR;
-   where it does not, the WAV above must be silence.
+   where it does not, the WAV above must be silence;
+11. the sharded step (tpudab_torch.parallel.ShardedReceiveStep) at the
+   bench multiplex's full width: (a) in this process, a world of 1 on NCCL
+   (its version printed), mesh (1, 1), E = 32 x F = 16 f32 frames, gated
+   on FIB CRC 1.0, subchannel 1's payload and every byte equal to a
+   ReceiveStep on the same frames, both timed with CUDA events in turns
+   (ms a step, real-time factor, the extra K5 launch of the split demod);
+   (b) two spawned processes on cuda:0 joined by gloo, the halo staged
+   through host memory, mesh (1, 2), E = 32, 8 frames a rank, two chained
+   calls: the gathered outputs byte-equal to ReceiveStep over the same
+   frames in the same calls, the seam rows included; the halo's bytes and
+   each exchange's staging and wait ms; rank 1 holds K5, K4 mode (b) (its
+   carry the halo) and K1+K2 on the first inputs the step gave them
+   bit-equal to their twins. A check of the protocol, not of scaling;
+12. `python -m tpudab_torch.host.cli stream --tcp HOST:PORT --channel 12C
+   --no-dashboard` in this process on each path (the device step, then
+   --no-device-step) against the port's RtlTcpServer, which serves phase
+   9's capture on 12C and a second ensemble on 12D at a dongle's real-time
+   rate; after TCP_RETUNE_FRAMES frames the key controller presses '>'
+   (StreamingRadio.retune to 12D). Gate, on each path: FIB CRC 1.0 on each
+   channel and no reacquisition on 12C, each subchannel's AUs the
+   payload's in order on each channel, the database on the second
+   ensemble after the retune, the path's kernels launched; 12C's frames
+   and AUs byte-equal between the paths. Prints the stream's real-time
+   factor, the client ring's lag and the retune's wall. Then `synth` where
+   the codec probe finds FFmpeg (its verdict printed either way).
+Each phase from 9 on prints its seconds.
 Every line with a device time carries the card's name and power limit. A
 bound is the least time the card could take for the work: the larger of
 its bytes over the HBM rate and its operations over the ALU rate (see
@@ -124,6 +150,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from tpudab_torch.constants.channels import channel_freq_hz
 from tpudab_torch.constants.dab_params import CU_BITS, get_dab_params
 from tpudab_torch.constants.ofdm_params import SAMPLING_RATE, get_ofdm_params
 from tpudab_torch.constants.puncture import FIC_PROFILE, eep_profile, get_uep_profile
@@ -160,6 +187,7 @@ from tpudab_torch.synth.payload import dabplus_stream
 from tpudab_torch.tools import (exp_carve, exp_depunct_t, exp_i16_probe, exp_tb_tree,
                                 exp_viterbi, exp_viterbi_decompose, exp_viterbi_i16)
 from tpudab_torch.tools._common import card as card_name
+from tpudab_torch.tools.launch_multihost import free_port
 from tpudab_torch.tools._common import timer
 
 ROOT = Path(__file__).resolve().parent
@@ -215,6 +243,17 @@ STREAM_BATCH, CODEC_FRAMES, CODEC_RMS_FLOOR = 4, 16, 2000.0   # floor: int16 RMS
 STREAM_PATHS = {"step": ({}, []), "host": ({"use_device_step": False}, ["--no-device-step"])}
 STREAM_KERNELS = {"step": ("viterbi_fwd_traceback", "deinterleave_depuncture_t", "carve_rotate"),
                   "host": ("viterbi_bits", "deinterleave", "carve_rotate")}
+# phase 11: the sharded step. (b): SHARD_RANKS processes on cuda:0 joined by
+# gloo, mesh (1, SHARD_RANKS), SHARD_FRAMES frames a rank a call, two calls
+SHARD_RANKS, SHARD_FRAMES, SHARD_CALLS, SHARD_TIMEOUT_S = 2, 8, 2, 600
+# phase 12: `stream --tcp`: phase 9's capture on 12C, a second ensemble on
+# 12D (one 96 kbps DAB+ service, TCP_FRAMES_D frames), served at TCP_PACE
+# times real time (a dongle's rate); the retune after TCP_RETUNE_FRAMES
+# frames of 12C, the stop after TCP_D_BATCHES batches with the second
+# ensemble in the database (TCP_MAX_POLLS at most)
+TCP_FRAMES_D, TCP_RETUNE_FRAMES, TCP_D_BATCHES, TCP_MAX_POLLS = 64, 24, 3, 60
+TCP_PACE = 1.0
+TCP_EID_D = 0xD12D
 # wrapper -> the kernel whose ptxas resources its kernels line carries
 PTXAS_OF = {"viterbi_fwd_traceback": "viterbi_kernel<", "viterbi_bits": "viterbi_bits_kernel<",
             "viterbi_traceback": "viterbi_traceback_kernel<"}
@@ -823,7 +862,7 @@ def run_main_path(dev, card):
         f"{k} {v:.2f} ms ({100 * v / step_ms:.1f}%)" for k, v in parts.items()))
     state["carry"] = device_breakdown(step, state["carry"], chunks[0], freq, step_ms, card)
     fec_breakdown(step, state["carry"], soft, card)
-    return launches, step_ms
+    return launches, step_ms, frames, payload
 
 
 def device_breakdown(step, carry, chunk, freq, step_ms: float, card: str):
@@ -1658,19 +1697,22 @@ def tap_ms(dev, iq, freq_hz: float, reps: int = 20) -> dict:
 
 
 @contextlib.contextmanager
-def first_inputs(module, name: str, store: dict):
+def first_inputs(module, name: str, store: dict, key=None):
     """While open, module.name (a dispatcher as a caller's module sees it,
     never a wrapper: a wrapper counts its launches on its own name) keeps a
-    copy of its arguments at the first call with each input shape, then
-    runs as it did: the inputs the path gave that kernel, held against its
-    twin afterwards."""
+    copy of its positional arguments (tensors cloned) at the first call of
+    each key, by default the first argument's shape and dtype and the other
+    non-tensor arguments, then runs as it did: the inputs the path gave
+    that kernel, held against its twin afterwards."""
     fn = getattr(module, name)
+    key = key or (lambda x, *args: (tuple(x.shape), x.dtype,
+                                    *(a for a in args if not torch.is_tensor(a))))
 
-    def recorded(x, *args):
-        key = (tuple(x.shape), x.dtype, *(a for a in args if not torch.is_tensor(a)))
-        if key not in store:
-            store[key] = (x.clone(), *args)
-        return fn(x, *args)
+    def recorded(*args, **kw):
+        k = key(*args)
+        if k not in store:
+            store[k] = tuple(a.clone() if torch.is_tensor(a) else a for a in args)
+        return fn(*args, **kw)
     setattr(module, name, recorded)
     try:
         yield
@@ -1708,14 +1750,14 @@ def read_wav(path: str):
 
 def codec_capture(n_frames: int):
     """A one-service multiplex whose DAB+ subchannel (96 kbps EEP 3-A, 72
-    CU) carries AAC of a 550 Hz tone from the port's encoder
-    (synth/payload.py::dabplus_aac_stream); CFO 1,500 Hz, 2,000 samples of
-    delay, 20 dB."""
-    from tpudab_torch.synth.payload import dabplus_aac_stream
+    CU) carries AAC of a tone swept about 550 Hz from the port's encoder,
+    without PAD (synth/payload.py::demo_dabplus_stream); CFO 1,500 Hz,
+    2,000 samples of delay, 20 dB."""
+    from tpudab_torch.synth.payload import demo_dabplus_stream
     spec = EnsembleSpec(0xA0AC, "AAC Mux", [ServiceSpec(0xC2A1, "Tone+", [(0, ASCTY_DAB_PLUS, 1)])],
                         [SubchannelSpec(1, start_cu=0, size_cu=72, protection=("eep", 3, 0))])
     synth = EnsembleSynthesizer(spec, seed=4)
-    stream, _ = dabplus_aac_stream(96, 4 * n_frames + 20)
+    stream, _ = demo_dabplus_stream(96, 4 * n_frames + 20, with_pad=False)
     synth.payload_fn[1] = lambda m: stream[m].tobytes()
     iq = np.concatenate([modulate_frame_bits(synth.frame_bits(i)) for i in range(n_frames)])
     return apply_impairments(iq, Impairments(freq_offset_hz=1500.0, delay_samples=2000,
@@ -1870,16 +1912,473 @@ def run_stream_path(dev, card, iq, aus, acq):
     return {"stream_launches": {k: runs[k]["launches"] for k in STREAM_PATHS}, "stream": runs}
 
 
+def shard_kernel_checks(k5: dict, k4: dict, k12: dict) -> list:
+    """Phase 11 (b), on rank 1, the rank that takes a halo: K5, K4 mode (b)
+    and K1+K2 on the first inputs the sharded step gave them (K5: the edge
+    and the interior demod; K4: the FIC and the first subchannel, whose
+    carry is the halo; K1+K2: the FIC and the MSC group), each bit-equal to
+    its plain version. Returns what was checked."""
+    require(len(k5) == 2 and len(k4) == 2 and len(k12) == 2,
+            f"sharded rank 1 kept {len(k5)} K5, {len(k4)} K4 (b), {len(k12)} K1+K2 inputs")
+    done = []
+    for re, im, freq, mode, offset in k5.values():
+        got = carve_rotate_cuda(re, im, freq, mode, offset, with_sum=True)
+        want = carve_rotate_tables_ref(re, im, freq, mode, offset, with_sum=True)
+        require(all(same_bits(a, b) for a, b in zip(got, want)),
+                f"sharded rank 1: K5 {tuple(re.shape)} differs from carve_rotate_tables_ref")
+        done.append(f"K5 {tuple(re.shape)} {str(re.dtype)[6:]} with xs")
+    for soft, rows, carry, index, n_punct, out, *col0 in k4.values():
+        outs = [torch.zeros_like(out) for _ in range(2)]
+        got = deinterleave_depuncture_t_cuda(soft, rows, carry, index, n_punct, outs[0], *col0)
+        want = deinterleave_depuncture_t_ref(soft, rows, carry, index, n_punct, outs[1], *col0)
+        part = "FIC" if carry is None else f"MSC {tuple(carry.shape)} carry (the halo)"
+        require(same_bits(outs[0], outs[1]) and (carry is None or same_bits(got, want)),
+                f"sharded rank 1: K4 mode (b) {part} differs from its twin")
+        done.append(f"K4 (b) {part} -> {tuple(out.shape)}")
+    for soft_t, signs, n_bits in k12.values():
+        got = viterbi_decode_bytes_t_cuda(soft_t, signs, n_bits)
+        want = viterbi_decode_bytes_t_ref(soft_t, signs, n_bits)
+        require(torch.equal(got, want), f"sharded rank 1: K1+K2 {tuple(soft_t.shape)}: "
+                f"{(got != want).sum().item()} bytes differ from the plain decoder")
+        done.append(f"K1+K2 {tuple(soft_t.shape)} {str(soft_t.dtype)[6:]}")
+    return done
+
+
+def sharded_rank(rank: int, world: int, port: int, frames: np.ndarray, out_dir: str,
+                 device: str) -> None:
+    """Phase 11 (b), one rank (a spawned process) of a gloo world on
+    `device` (cuda:0 for every rank): mesh (1, world), E = N_ENS (each ensemble the same capture),
+    SHARD_FRAMES frames a rank, SHARD_CALLS chained calls, the halo staged
+    through host memory. The launch counts are set to 0 just before the
+    calls and read just after; rank 1 keeps the first inputs of K5, K4 (b)
+    and K1+K2 and holds each kernel against its twin on them afterwards.
+    Rank 0 saves the gathered outputs of each call, every rank its
+    launches, walls and exchanges."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from tpudab_torch.models import step as step_mod
+    from tpudab_torch.ofdm import demod as demod_mod
+    from tpudab_torch.parallel import ShardedReceiveStep, make_mesh
+
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False   # as identify()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+                            world_size=world, timeout=datetime.timedelta(seconds=60))
+    try:
+        step = ShardedReceiveStep(make_mesh((1, world)), 1, bench_subchannels(), device=device)
+        t_call = world * SHARD_FRAMES
+        inputs = [step.shard_inputs(np.broadcast_to(
+            frames[None, k * t_call:(k + 1) * t_call], (N_ENS, t_call, frames.shape[-1])),
+            np.zeros(N_ENS)) for k in range(SHARD_CALLS)]
+        carry = step.init_carry(N_ENS)
+        k5, k4, k12 = {}, {}, {}
+        walls, exchanges, outs = [], [], []
+        with contextlib.ExitStack() as keep:
+            if rank == 1:
+                keep.enter_context(first_inputs(demod_mod, "carve_rotate", k5,
+                                                key=lambda *a: min(len(k5), 1)))
+                keep.enter_context(first_inputs(step_mod, "deinterleave_depuncture_t", k4,
+                                                key=lambda soft, rows, c, *a: c is None))
+                keep.enter_context(first_inputs(step_mod, "viterbi_decode_bytes_t", k12))
+            torch.cuda.synchronize()
+            for w in KERNELS.values():
+                w[2].launches = 0
+            for k in range(SHARD_CALLS):
+                t0 = time.perf_counter()
+                carry, out = step(carry, *inputs[k])
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t0) * 1e3)
+                exchanges.append(dict(step.last_exchange))
+                outs.append(out)
+            launches = {name: KERNELS[name][2].launches for name in STEP_KERNELS}
+        for k, out in enumerate(outs):
+            got = step.gather_outputs(out)
+            if rank == 0:
+                np.savez(os.path.join(out_dir, f"call{k}.npz"),
+                         fic=got["fic_bytes"].cpu().numpy(),
+                         **{f"subch{sid}": v.cpu().numpy() for sid, v in got["subch"].items()})
+        checks = shard_kernel_checks(k5, k4, k12) if rank == 1 else []
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+            json.dump({"launches": launches, "walls_ms": walls, "exchange": exchanges,
+                       "checks": checks}, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def run_sharded_path(dev, card, frames: np.ndarray, payload: np.ndarray):
+    """Phase 11: the sharded step (tpudab_torch.parallel) on the card at the
+    bench multiplex's full width (bench_subchannels(), the bench's frames).
+    (a) In this process, a world of 1 on NCCL, mesh (1, 1), E = N_ENS x F =
+    N_FRAMES f32 frames: every FIB CRC, subchannel 1's payload from row 15,
+    and fic_bytes and every subchannel byte-equal to a ReceiveStep on the
+    same frames; both timed with CUDA events in turns (ReceiveStep,
+    sharded, sharded, ReceiveStep). (b) SHARD_RANKS spawned processes on
+    cuda:0 (sharded_rank): the gathered outputs of SHARD_CALLS chained
+    calls byte-equal to a ReceiveStep run over the same frames in the same
+    chained calls, the seam rows included; rank 1's kernels equal to their
+    twins on its own inputs. A check of the exchange protocol, not a
+    measure of scaling."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from tpudab_torch.parallel import ShardedReceiveStep, make_mesh
+
+    t_phase = time.perf_counter()
+    subch = bench_subchannels()
+    fl = get_ofdm_params(1).nb_frame_length
+    rows = fl // 128
+
+    def ref_inputs(part):
+        """(E, F, rows, 128) f32 re/im on the card: each ensemble the same frames."""
+        return tuple(torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(dev)
+                     .reshape(1, -1, rows, 128).expand(N_ENS, -1, -1, -1).contiguous()
+                     for x in (part.real, part.imag))
+
+    def same_outputs(got, want):
+        return (np.array_equal(got["fic"], want["fic_bytes"].cpu().numpy())
+                and all(np.array_equal(got[f"subch{c.subch_id}"],
+                                       want["subch"][c.subch_id].cpu().numpy()) for c in subch))
+
+    def as_out(got):
+        return {"fic_bytes": torch.from_numpy(got["fic"]),
+                "subch": {c.subch_id: torch.from_numpy(got[f"subch{c.subch_id}"]) for c in subch}}
+
+    # (a) a world of one on NCCL
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}", rank=0,
+                            world_size=1, timeout=datetime.timedelta(seconds=60))
+    try:
+        mesh = make_mesh((1, 1))
+        require(mesh.backend == "nccl", f"the mesh's backend is {mesh.backend}, not nccl")
+        sharded = ShardedReceiveStep(mesh, 1, subch, device=dev)
+        part = frames[:N_FRAMES]
+        re, im, fq = sharded.shard_inputs(np.broadcast_to(part[None], (N_ENS,) + part.shape),
+                                          np.zeros(N_ENS))
+        step = ReceiveStep(1, subch, n_ensembles=N_ENS).to(dev)
+        torch.cuda.synchronize()
+        for w in KERNELS.values():
+            w[2].launches = 0
+        _, out = sharded(sharded.init_carry(N_ENS), re, im, fq)
+        torch.cuda.synchronize()
+        launches = {name: KERNELS[name][2].launches for name in STEP_KERNELS}
+        got = sharded.gather_outputs(out)
+        got = {"fic": got["fic_bytes"].cpu().numpy(),
+               **{f"subch{k}": v.cpu().numpy() for k, v in got["subch"].items()}}
+        for w in KERNELS.values():
+            w[2].launches = 0
+        _, want = step(step.init_carry(dev), re, im, fq)
+        torch.cuda.synchronize()
+        step_launches = {name: KERNELS[name][2].launches for name in STEP_KERNELS}
+        check_outputs(as_out(got), payload, 0, subch[0].subch_id)
+        require(same_outputs(got, want), "sharded (1, 1): outputs differ from ReceiveStep's")
+        require(all(launches.values()), f"sharded (1, 1): launches {launches}")
+        carries = {"sharded": sharded.init_carry(N_ENS), "step": step.init_carry(dev)}
+
+        def run_step():
+            carries["step"], _ = step(carries["step"], re, im, fq)
+
+        def run_sharded():
+            carries["sharded"], _ = sharded(carries["sharded"], re, im, fq)
+        ms = {"step": [], "sharded": []}
+        for label, fn in (("step", run_step), ("sharded", run_sharded), ("sharded", run_sharded),
+                          ("step", run_step)):
+            ms[label].append(cuda_ms(fn, 5))
+        signal_s = N_ENS * N_FRAMES * fl / SAMPLING_RATE
+        print(f"sharded (a) [{card}]: NCCL {torch.cuda.nccl.version()}, a world of 1, mesh "
+              f"(1, 1), E={N_ENS} x F={N_FRAMES} f32 frames: FIB CRC 1.0, subchannel 1 payload "
+              f"byte-equal from row 15, fic_bytes and all {len(subch)} subchannels byte-equal "
+              f"to ReceiveStep on the same frames; launches {launches} against ReceiveStep's "
+              f"{step_launches} (the extra: "
+              f"{ {k: launches[k] - step_launches[k] for k in launches} }, the demod split in "
+              f"two); ms a step (CUDA events, in turns): sharded "
+              + ", ".join(f"{v:.3f}" for v in ms["sharded"]) + ", ReceiveStep "
+              + ", ".join(f"{v:.3f}" for v in ms["step"]) + "; real-time factor sharded "
+              + ", ".join(f"{signal_s / (v / 1e3):.1f}" for v in ms["sharded"]) + ", ReceiveStep "
+              + ", ".join(f"{signal_s / (v / 1e3):.1f}" for v in ms["step"]))
+    finally:
+        dist.destroy_process_group()
+    del re, im, out, want, step, sharded, carries
+    torch.cuda.empty_cache()
+
+    # (b) SHARD_RANKS processes on cuda:0, gloo, the halo through host memory
+    n_used = SHARD_RANKS * SHARD_FRAMES * SHARD_CALLS
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        ctx = torch.multiprocessing.start_processes(
+            sharded_rank, args=(SHARD_RANKS, free_port(), np.ascontiguousarray(frames[:n_used]),
+                                tmp, str(dev)), nprocs=SHARD_RANKS, join=False,
+            start_method="spawn")
+        deadline = time.monotonic() + SHARD_TIMEOUT_S
+        try:
+            while not ctx.join(timeout=5):
+                require(time.monotonic() < deadline,
+                        f"sharded (b): the {SHARD_RANKS}-rank world outlived {SHARD_TIMEOUT_S} s")
+        finally:
+            for proc in ctx.processes:
+                if proc.is_alive():
+                    proc.kill()
+        world_s = time.perf_counter() - t0
+        ranks = []
+        for r in range(SHARD_RANKS):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+        calls = []
+        for k in range(SHARD_CALLS):
+            with np.load(os.path.join(tmp, f"call{k}.npz")) as f:
+                calls.append(dict(f))
+    step = ReceiveStep(1, subch, n_ensembles=N_ENS).to(dev)
+    carry = step.init_carry(dev)
+    t_call = SHARD_RANKS * SHARD_FRAMES
+    c_rank = SHARD_FRAMES * get_dab_params(1).nb_cifs
+    for k, got in enumerate(calls):
+        carry, want = step(carry, *ref_inputs(frames[k * t_call:(k + 1) * t_call]),
+                           torch.zeros(N_ENS, device=dev))
+        check_outputs(as_out(got), payload, k, subch[0].subch_id)
+        require(same_outputs(got, want), f"sharded (b): call {k}'s gathered outputs differ "
+                f"from ReceiveStep's over the same frames")
+    for r, rk in enumerate(ranks):
+        require(all(rk["launches"].values()), f"sharded (b) rank {r}: launches {rk['launches']}")
+    halo = ranks[1]["exchange"][0]["halo_bytes"]
+    print(f"sharded (b) [{card}]: {SHARD_RANKS} processes on cuda:0, gloo, mesh (1, "
+          f"{SHARD_RANKS}), E={N_ENS}, {SHARD_FRAMES} frames a rank, {SHARD_CALLS} chained "
+          f"calls: the gathered fic_bytes and subchannels byte-equal to ReceiveStep over the "
+          f"same {t_call} frames a call, chained, every row (the seam rows "
+          f"{c_rank}-{c_rank + 14} of each call and call 1's rows 0-14, from the ring's carry, "
+          f"among them); FIB CRC 1.0 and the payload from row 15; halo {halo} bytes a call "
+          f"({halo / N_ENS / 1e6:.3f} MB an ensemble, bf16); world {world_s:.1f} s with "
+          f"process start")
+    for r, rk in enumerate(ranks):
+        print(f"  rank {r}: launches {rk['launches']}; call walls "
+              + ", ".join(f"{v:.1f}" for v in rk["walls_ms"]) + " ms (host clock, synchronised); "
+              "exchange " + "; ".join(f"staging {e['stage_ms']:.2f} ms, wait {e['wait_ms']:.2f} ms"
+                                      for e in rk["exchange"]))
+    print(f"  rank 1 kernels on its own inputs, bit-equal to their twins: "
+          + "; ".join(ranks[1]["checks"]))
+    print(f"phase 11: {time.perf_counter() - t_phase:.1f} s in all")
+    return {"sharded_launches": {"world1_nccl": launches,
+                                 **{f"rank{r}": rk["launches"] for r, rk in enumerate(ranks)}},
+            "sharded_ms": ms, "halo_bytes": halo}
+
+
+def second_ensemble(n_frames: int):
+    """Phase 12's 12D: a second ensemble (its own ID and label), one 96 kbps
+    EEP 3-A DAB+ service (72 CU) of seeded random AUs, n_frames whole
+    frames, unimpaired, so it loops seamlessly frame by frame. Returns
+    (complex64 IQ, its AUs in order)."""
+    spec = EnsembleSpec(TCP_EID_D, "Delta Mux", [ServiceSpec(0xC2D1, "Delta+",
+                                                             [(0, ASCTY_DAB_PLUS, 1)])],
+                        [SubchannelSpec(1, start_cu=0, size_cu=72, protection=("eep", 3, 0))])
+    synth = EnsembleSynthesizer(spec, seed=12)
+    stream, aus = dabplus_stream(96, 4 * n_frames, seed=41)
+    synth.payload_fn[1] = lambda m: stream[m].tobytes()
+    iq = np.concatenate([modulate_frame_bits(synth.frame_bits(i)) for i in range(n_frames)])
+    return iq.astype(np.complex64), aus
+
+
+class RealTime:
+    """A server's source callback paced as a dongle streams: no sample is
+    handed over before its air time (at TCP_PACE times the sample rate)
+    from the first call. (RtlTcpServer alone streams as fast as TCP's
+    backpressure lets it, and the client's socket buffers then hold more
+    of the old channel than a retune's drain reads: ROADMAP Queue 3.)"""
+
+    def __init__(self, source):
+        self.source, self.sent, self.t0 = source, 0, None
+
+    def __call__(self, freq_hz, n):
+        now = time.perf_counter()
+        self.t0 = now if self.t0 is None else self.t0
+        wait = self.t0 + self.sent / (SAMPLING_RATE * TCP_PACE) - now
+        if wait > 0:
+            time.sleep(wait)
+        self.sent += n
+        return self.source(freq_hz, n)
+
+
+def tcp_stream_run(caps: dict, flags):
+    """Phase 12, one `python -m tpudab_torch.host.cli stream --tcp HOST:PORT
+    --channel 12C --no-dashboard` (cli_run: in this process, the launch
+    counts set to 0 before and read after) against a fresh RtlTcpServer of
+    the port serving caps {channel: IQ} in real time (RealTime; 12C also on
+    the server's power-on frequency, so the stream a client reads does not
+    depend on when its SET_FREQ lands). Its key controller is scripted: after
+    TCP_RETUNE_FRAMES frames of 12C it presses '>' (StreamingRadio.retune to
+    12D, the key's own call), and it quits after TCP_D_BATCHES batches with
+    the second ensemble in the database. Returns (per-poll records, {channel:
+    {subch id: (frames, AUs)}}, {channel: (FIBs, CRC errors, frames,
+    reacquisitions)} at the last poll on it, wall s, launches, the printed
+    lines)."""
+    from tpudab_torch.host import controls, streaming
+    from tpudab_torch.host.rtl_tcp import LoopingCaptureSource, RtlTcpServer
+
+    f12c = channel_freq_hz("12C")
+    src = LoopingCaptureSource({channel_freq_hz(ch): iq for ch, iq in caps.items()})
+    server = RtlTcpServer(RealTime(lambda f, n: src(f12c if f == 0.0 else f, n))).start()
+    polls, decoded, stats = [], {}, {}
+    t_start = time.perf_counter()
+
+    class Scripted(controls.KeyController):
+        def __init__(self, *a, **kw):
+            kw["read_key"] = lambda: None
+            super().__init__(*a, **kw)
+
+        def poll(self):
+            radio, rx = self.radio, self.receiver
+            polls.append((time.perf_counter() - t_start, radio.channel,
+                          rx.db.ensemble.ensemble_id, rx.stats["fibs"],
+                          rx.stats["fib_crc_errors"], radio.stats.total_frames,
+                          radio.tuner.ring.fill / 8 / SAMPLING_RATE))
+            stats[radio.channel] = (rx.stats["fibs"], rx.stats["fib_crc_errors"],
+                                    radio.stats.total_frames, radio.stats.reacquisitions)
+            if radio.channel == "12C" and radio.stats.total_frames >= TCP_RETUNE_FRAMES:
+                self.handle(">")
+            on_d = sum(p[1] == "12D" and p[2] == TCP_EID_D for p in polls)
+            return on_d < TCP_D_BATCHES and len(polls) < TCP_MAX_POLLS
+
+    class Recorded(streaming.StreamingRadio):
+        def run(self, max_batches=None, on_outputs=None):
+            def both(outputs):
+                got = decoded.setdefault(self.channel, collections.defaultdict(lambda: ([], [])))
+                for sid, o in outputs.items():
+                    if o.raw_frames is not None and len(o.raw_frames):
+                        got[sid][0].append(np.asarray(o.raw_frames))
+                    got[sid][1].extend(bytes(au) for sf in o.superframes
+                                       for au in sf.access_units)
+                on_outputs(outputs)
+            return super().run(max_batches, both)
+
+    orig = (controls.KeyController, streaming.StreamingRadio)
+    controls.KeyController, streaming.StreamingRadio = Scripted, Recorded
+    try:
+        lines, wall, launches, _ = cli_run(["stream", "--tcp", f"{server.host}:{server.port}",
+                                            "--channel", "12C", "--no-dashboard", *flags])
+    finally:
+        controls.KeyController, streaming.StreamingRadio = orig
+        server.stop()
+    decoded = {ch: {sid: (np.concatenate(f) if f else np.zeros((0, 0), np.uint8), a)
+                    for sid, (f, a) in got.items()} for ch, got in decoded.items()}
+    return polls, decoded, stats, wall, launches, lines
+
+
+def in_order(got: list, want: list) -> int:
+    """How many AUs of got run in order through want from where got's first
+    one is; -1 if its first is not there."""
+    if not got or got[0] not in want:
+        return -1
+    k0 = want.index(got[0])
+    return len(got) if got == want[k0: k0 + len(got)] else -1
+
+
+def run_tcp_path(dev, card, iq, aus):
+    """Phase 12: `stream --tcp` on the card (tcp_stream_run) on each path,
+    step (the default) and host (--no-device-step): phase 9's full-width
+    capture served on 12C, second_ensemble on 12D, the retune by the
+    dashboard's '>' call. Gates, on each path: FIB CRC 1.0 on each channel
+    and no reacquisition on 12C; every subchannel's AUs the payload's, in
+    order, on each channel; the database on the second ensemble after the
+    retune, 12C's before; the path's kernels launched; 12C's frames and AUs
+    byte-equal between the paths (the same stream, the same batches), and
+    12D's AUs each path's run of the same payload. Then `synth` where the
+    codec probe finds FFmpeg."""
+    from tpudab_torch.host.native_lib import ffmpeg_probe
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    iq_d, aus_d = second_ensemble(TCP_FRAMES_D)
+    print(f"tcp path synth: {TCP_FRAMES_D} frames of the second ensemble in "
+          f"{time.perf_counter() - t0:.1f} s")
+    caps = {"12C": iq.astype(np.complex64), "12D": iq_d}
+    runs = {}
+    for label, (_, flags) in STREAM_PATHS.items():
+        polls, decoded, stats, wall, launches, lines = tcp_stream_run(caps, flags)
+        require(set(decoded) == {"12C", "12D"}, f"tcp {label}: decoded on {sorted(decoded)}")
+        c_fibs, c_err, c_frames, c_reacq = stats["12C"]
+        d_fibs, d_err, d_frames, _ = stats["12D"]
+        require(c_err == 0 and d_err == 0 and c_fibs == 12 * c_frames and d_fibs > 0
+                and c_reacq == 0 and c_frames >= TCP_RETUNE_FRAMES,
+                f"tcp {label}: FIB CRC not 1.0 or a lost lock: 12C {stats['12C']}, "
+                f"12D {stats['12D']}")
+        eids = [(p[1], p[2]) for p in polls if p[2]]
+        require(all(e == (0xBE9C if ch == "12C" else TCP_EID_D) for ch, e in eids)
+                and eids[-1] == ("12D", TCP_EID_D),
+                f"tcp {label}: the database did not switch ensembles with the retune: {eids}")
+        for ch, want_aus in (("12C", aus), ("12D", {1: aus_d})):
+            for sid, want in want_aus.items():
+                n = in_order(decoded[ch].get(sid, ([], []))[1], want)
+                require(n > 0, f"tcp {label}: {ch} subchannel {sid}: AUs not the payload's "
+                        f"in order")
+        require(all(launches[k] for k in STREAM_KERNELS[label]),
+                f"tcp {label}: launches {launches}")
+        t_retune = next(p[0] for p in polls if p[1] == "12D")
+        t_prev = max(p[0] for p in polls if p[1] == "12C")
+        t_locked = next(p[0] for p in polls if p[1] == "12D" and p[2] == TCP_EID_D)
+        signal_c = c_frames * get_ofdm_params(1).nb_frame_length / SAMPLING_RATE
+        lag = max(p[6] for p in polls if p[1] == "12C")
+        runs[label] = {"decoded": decoded, "wall": wall, "launches": launches,
+                       "rtf_12c": signal_c / t_prev, "max_lag_s_12c": lag,
+                       "retune_s": t_locked - t_prev, "first_batch_after_s": t_retune - t_prev,
+                       "stats": stats}
+        print(f"stream --tcp {label} path [{card}]: 12C {c_frames} frames, FIB CRC 1.0 over "
+              f"{c_fibs} FIBs, real-time factor {signal_c / t_prev:.2f} ({signal_c:.3f} s of "
+              f"signal in {t_prev:.3f} s from the command's start, the connection and "
+              f"acquisition included; served at {TCP_PACE} x real time, so at most that), "
+              f"the client's ring at most {lag:.3f} s behind at a poll; '>' to 12D: first "
+              f"batch after {t_retune - t_prev:.3f} s, "
+              f"the second ensemble in the database after {t_locked - t_prev:.3f} s (the drain, "
+              f"reacquisition and FIC); 12D {d_frames} frames, FIB CRC 1.0 over {d_fibs} FIBs; "
+              f"AUs in order on every subchannel of both; launches {launches}; command "
+              f"{wall:.3f} s; {lines[-1]}")
+    step_c, host_c = runs["step"]["decoded"]["12C"], runs["host"]["decoded"]["12C"]
+    require(step_c.keys() == host_c.keys() and all(
+        np.array_equal(step_c[k][0], host_c[k][0]) and step_c[k][1] == host_c[k][1]
+        for k in step_c), "tcp: the step and host paths decoded other bytes on 12C")
+    print(f"stream --tcp: 12C's frames and AUs byte-equal on both paths "
+          f"({sum(len(g[0]) for g in step_c.values())} frames, "
+          f"{sum(len(g[1]) for g in step_c.values())} AUs over {len(step_c)} subchannels); "
+          f"12D's AUs on each path a run of the second ensemble's payload, in order")
+
+    found, what = ffmpeg_probe()
+    if found:
+        with tempfile.TemporaryDirectory() as tmp:
+            cap = os.path.join(tmp, "synth.f32")
+            t0 = time.perf_counter()
+            proc = subprocess.run([sys.executable, "-m", "tpudab_torch.host.cli", "synth", cap,
+                                   "--seconds", "0.5"], capture_output=True, text=True,
+                                  timeout=600, env=dict(os.environ, PYTHONPATH=str(ROOT)))
+            require(proc.returncode == 0 and os.path.getsize(cap) == 5 * 196608 * 8,
+                    f"synth: exit {proc.returncode}\n{proc.stderr[-2000:]}")
+            print(f"synth: FFmpeg found ({what}); `python -m tpudab_torch.host.cli synth CAP "
+                  f"--seconds 0.5` exit 0 in {time.perf_counter() - t0:.1f} s, "
+                  f"{os.path.getsize(cap)} bytes")
+    else:
+        print(f"synth: not run; the codec probe found no FFmpeg ({what}), and synth needs "
+              f"its encoders")
+    print(f"phase 12: {time.perf_counter() - t_phase:.1f} s in all")
+    return {"tcp_launches": {k: v["launches"] for k, v in runs.items()},
+            "tcp": {k: {kk: vv for kk, vv in v.items() if kk != "decoded"}
+                    for k, v in runs.items()}}
+
+
 def main() -> None:
     t_start = time.perf_counter()
+    marks = [("start", t_start)]
+
+    def mark(phases: str) -> None:
+        marks.append((phases, time.perf_counter()))
     card = identify()
     dev = torch.device("cuda", 0)
     resources = build()
+    mark("1-2")
     rng = np.random.default_rng(SEED)
     res = check_kernels(dev, rng, card)
     chain = check_chain(dev, card)
-    launches, step_ms = run_main_path(dev, card)
+    mark("3")
+    launches, step_ms, bench_frames, bench_payload = run_main_path(dev, card)
+    mark("4-6")
     host_launches, _ = run_host_path(dev, card)
+    mark("7")
     launches["viterbi_bits"] = host_launches["viterbi_bits"]   # K3 runs on the host path only
     launches["deinterleave"] = host_launches["deinterleave"]   # mode (a): the host path only
     host_k4 = [(cu, *res[f"deinterleave_host_{cu}cu"][1:]) for cu in (108, 96)]
@@ -1901,12 +2400,25 @@ def main() -> None:
     probe, carve, probe_launch = check_tool_probe_carve(dev, rng8, card)
     tool_launches, _ = run_tools(card)
     launches.update(tool_launches)
+    mark("8")
 
     # phase 9: the decode path, through the command line
     decode, iq, aus, acq = run_decode_path(dev, card)
+    mark("9")
 
     # phase 10: the live loop, in process and through the command line
     stream = run_stream_path(dev, card, iq, aus, acq)
+    mark("10")
+
+    # phase 11: the sharded step, a world of one on NCCL and two processes on gloo
+    sharded = run_sharded_path(dev, card, bench_frames, bench_payload)
+    mark("11")
+
+    # phase 12: `stream --tcp` with a live retune, and `synth`
+    tcp = run_tcp_path(dev, card, iq, aus)
+    mark("12")
+    print("phase seconds: " + ", ".join(f"{name} {t - t0:.1f}" for (_, t0), (name, t)
+                                         in zip(marks, marks[1:])))
 
     def old(key, bound_key, library=None):
         err, ms, plain = res[key]
@@ -1976,6 +2488,10 @@ def main() -> None:
         if name in DECODE_KERNELS:
             entry["decode_launches"] = {k: v[name] for k, v in decode["decode_launches"].items()}
             entry["stream_launches"] = {k: v[name] for k, v in stream["stream_launches"].items()}
+            entry["tcp_stream_launches"] = {k: v[name] for k, v in tcp["tcp_launches"].items()}
+        if name in STEP_KERNELS:
+            entry["sharded_launches"] = {k: v[name]
+                                         for k, v in sharded["sharded_launches"].items()}
         kernels.append(entry)
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all, the build included")
     print(json.dumps({"kernels": kernels}))

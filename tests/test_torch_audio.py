@@ -224,12 +224,13 @@ def test_aac960_round_trip_equals_tpudab(ffmpeg):
 
 
 def test_dabplus_aac_stream_carries_the_tone(ffmpeg):
-    """synth/payload.py::dabplus_aac_stream (chip_smoke.py's codec capture):
-    full superframes whose AUs are the encoder's non-empty packets, each
-    decoding under the DAB+ decoder to 960 samples of the tone."""
+    """synth/payload.py::demo_dabplus_stream without PAD (chip_smoke.py's
+    codec capture): full superframes whose AUs are the encoder's non-empty
+    packets, each decoding under the DAB+ decoder to 960 samples of the
+    tone; and a subchannel too small for 64 kbps AAC is refused."""
     from tpudab_torch.audio.superframe import build_superframe
-    from tpudab_torch.synth.payload import dabplus_aac_stream
-    stream, aus = dabplus_aac_stream(96, 12)
+    from tpudab_torch.synth.payload import demo_dabplus_stream
+    stream, aus = demo_dabplus_stream(96, 12, with_pad=False)
     assert stream.shape == (12, 288) and stream.dtype == np.uint8
     assert len(aus) == 18 and all(aus)
     hdr = dict(dac_rate=1, sbr_flag=0, aac_channel_mode=1, ps_flag=0, mpeg_surround=0)
@@ -239,7 +240,7 @@ def test_dabplus_aac_stream_carries_the_tone(ffmpeg):
     pcm = [dec.decode(au) for au in aus]
     assert {len(x) for x in pcm} == {960} and rms(pcm[2:]) > 2000
     with pytest.raises(ValueError, match="overflows"):
-        dabplus_aac_stream(32, 5, aac_kbps=64)
+        demo_dabplus_stream(32, 5, with_pad=False)
 
 
 def test_decoder_refuses_a_bad_codec(ffmpeg):

@@ -163,3 +163,30 @@ def test_codec_probe_finds_no_library(fake_cc, tmp_path):
 def test_failed_build_raises(fake_cc):
     with pytest.raises(RuntimeError, match="cannot build"):
         native_lib._build(*native_lib.RING)
+
+
+def _code(path) -> list:
+    """A C source's code lines: comments out, blank lines dropped."""
+    import re
+    text = re.sub(r"/\*.*?\*/", "", open(path).read(), flags=re.S)
+    text = re.sub(r"//[^\n]*", "", text)
+    return [ln.rstrip() for ln in text.splitlines() if ln.strip()]
+
+
+@pytest.mark.parametrize("name", ["ringbuf.c", "codec_shim.c", "tcpsource.c"])
+def test_native_sources_are_copies_of_tpudab(name):
+    """Each of the port's C sources is tpudab's, line for line: only the
+    comments were reworded."""
+    port = os.path.join(ROOT, "tpudab_torch", "host", "native", name)
+    jax = os.path.join(ROOT, "tpudab", "host", "native", name)
+    assert _code(port) == _code(jax)
+    assert len(_code(port)) > 50
+
+
+def test_ring_library_links_the_rtl_tcp_client():
+    """tcpsource.c is built into the ring library (no FFmpeg): its five
+    entry points are there, with their ctypes signatures."""
+    lib = native_lib.ring_lib()
+    for fn in ("dab_tcp_source_start", "dab_tcp_set_freq", "dab_tcp_source_done",
+               "dab_tcp_tuner_type", "dab_tcp_source_stop"):
+        assert getattr(lib, fn).argtypes, fn

@@ -5,7 +5,8 @@ passes), imports every module of the port, its tools and the smoke script,
 synthesises a 5-frame capture and runs one CPU ReceiveStep, the CPU
 Receiver (the host per-stage path), the offline pipeline (with and
 without the step) and the live loop (StreamingRadio over an array source)
-on it, and finds no tpudab module loaded at the end."""
+on it, and the sharded step in a world of one (gloo), and finds no tpudab
+module loaded at the end."""
 
 import os
 import subprocess
@@ -32,6 +33,8 @@ SCRIPT = textwrap.dedent("""
     import tpudab_torch
     mods = [m.name for m in pkgutil.walk_packages(tpudab_torch.__path__, "tpudab_torch.")]
     assert any(m.startswith("tpudab_torch.tools.") for m in mods), mods
+    assert {"tpudab_torch.parallel", "tpudab_torch.parallel.sharded_step",
+            "tpudab_torch.host.rtl_tcp", "tpudab_torch.tools.launch_multihost"} <= set(mods)
     for m in mods:
         importlib.import_module(m)
     import chip_smoke  # the smoke script imports only the port and torch
@@ -85,6 +88,22 @@ SCRIPT = textwrap.dedent("""
     got = np.concatenate(got)
     assert radio.stats.state == "STOPPED" and radio.stats.total_frames == 5
     assert radio.receiver.stats["fib_crc_errors"] == 0 and (got == data[: len(got)]).all()
+    # the sharded step in a world of one (gloo, mesh (1, 1)): the step's bytes
+    import socket, datetime
+    import torch.distributed as dist
+    from tpudab_torch.parallel import ShardedReceiveStep, make_mesh
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=0,
+                            world_size=1, timeout=datetime.timedelta(seconds=60))
+    sharded = ShardedReceiveStep(make_mesh(), 1, sub, device="cpu")
+    _, sout = sharded(sharded.init_carry(1), *sharded.shard_inputs(frames[None], [0.0]))
+    sout = sharded.gather_outputs(sout)
+    dist.destroy_process_group()
+    assert (sout["fic_bytes"][0] == out["fic_bytes"]).all()
+    assert (sout["subch"][1][0] == out["subch"][1]).all()
+
     bad = [m for m in sys.modules if m.split(".")[0] in REFUSED]
     assert not bad, bad
     print("OK", len(mods))

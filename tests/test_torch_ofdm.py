@@ -70,3 +70,34 @@ def test_demod_bf16_path_matches(out_dtype):
     assert rel_rms < {"float32": 2e-3, "bfloat16": 3.2e-3}[out_dtype], rel_rms
     np.testing.assert_array_equal(got < 0, want < 0)
     assert ((got[0] < 0).astype(np.uint8) != bits).sum() == 0
+
+
+@pytest.mark.parametrize("mode", [1, 2, 3, 4])
+def test_demod_frames_oracle_matches(mode):
+    """The complex f32 oracle (demod_frames, complex torch.fft) against
+    tpudab's demod_frames on two frames with a CFO and noise, a per-frame
+    frequency: atol 1e-4 on unit-mean soft bits (FFTs summed in another
+    order), the hard decisions equal, and no bit errors against the
+    transmitted bits of frame 0."""
+    from tpudab.constants.ofdm_params import get_ofdm_params
+    from tpudab.ofdm.demod import demod_frames as jax_frames
+    from tpudab_torch.ofdm.demod import demod_frames
+
+    spec = EnsembleSpec(ensemble_id=0x1100 + mode, label="Oracle",
+                        services=[ServiceSpec(0xC000, "S", [(0, 63, 1)])],
+                        subchannels=[SubchannelSpec(1, 0, 24, ("eep", 3, 0))])
+    synth = EnsembleSynthesizer(spec, mode=mode, seed=mode)
+    bits = [synth.frame_bits(i) for i in range(2)]
+    n = get_ofdm_params(mode).nb_frame_length
+    iq = apply_impairments(np.concatenate([modulate_frame_bits(b, mode) for b in bits]),
+                           Impairments(freq_offset_hz=700.0, snr_db=20, seed=mode))
+    frames = iq[: 2 * n].reshape(2, n).astype(np.complex64)
+    freq = np.array([700.0, 700.0], np.float32)
+    want, wstats = jax_frames(frames, freq, mode)
+    got, stats = demod_frames(torch.from_numpy(frames), torch.from_numpy(freq), mode)
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4)
+    np.testing.assert_array_equal(got.numpy() < 0, np.asarray(want) < 0)
+    np.testing.assert_allclose(stats["mean_power"].numpy(), np.asarray(wstats["mean_power"]),
+                               rtol=1e-5)
+    assert ((got[0].numpy() < 0).astype(np.uint8) != bits[0]).sum() == 0

@@ -1,4 +1,5 @@
-"""Command line of the port: `decode`, `decode-bits`, `info` and `stream`.
+"""Command line of the port: `decode`, `decode-bits`, `synth`, `info` and
+`stream`.
 
 Counterpart of tpudab.host.cli's subcommands of the same names, with the
 same flags plus --device:
@@ -9,6 +10,9 @@ same flags plus --device:
   the remainder of the capture; --config reads a RadioConfig JSON;
 - decode-bits: a raw post-OFDM soft-bit file (one transmission frame =
   nb_frame_bits values) goes through the Receiver;
+- synth: tpudab's demo capture (an MP2 and a DAB+ service of tones, with
+  a dynamic label and a slideshow, impaired), byte-equal to tpudab's; it
+  needs FFmpeg's encoders and writes nothing without them;
 - info: the acquisition of a capture's first four frames;
 - stream: the live loop. The native reader thread (host/native_lib.py)
   reads an IQ file, or stdin for `-`, into a ring; the StreamingRadio
@@ -16,7 +20,9 @@ same flags plus --device:
   ReceiveStep by default on a CUDA device: --device-step or
   --no-device-step force a path); the audio mix goes to --wav and, with
   --play, to the sound card, under the ANSI dashboard and its keys unless
-  --no-dashboard. (tpudab's --tcp rtl_tcp source is not ported yet.)
+  --no-dashboard. With --tcp HOST:PORT the source is an rtl_tcp server
+  (host/rtl_tcp.py): the dongle is tuned to --channel before the first
+  read and the dashboard's </> keys retune it live.
 decode and decode-bits print the FIC database listing and write the DAB+
 access units (subch<N>.aac.raw, each AU behind its 4-byte little-endian
 length), the MP2 frames (subch<N>.mp2), their PCM (subch<N>.wav, where the
@@ -26,7 +32,9 @@ codec probe of host/native_lib.py finds FFmpeg) and the slideshow images to
     python -m tpudab_torch.host.cli decode CAPTURE --device-step --out-dir D
     python -m tpudab_torch.host.cli decode-bits FILE --bits-format f32 --out-dir D
     python -m tpudab_torch.host.cli info CAPTURE --device cpu   # plain twins
+    python -m tpudab_torch.host.cli synth CAPTURE --seconds 2
     python -m tpudab_torch.host.cli stream CAPTURE --no-dashboard --wav mix.wav
+    python -m tpudab_torch.host.cli stream --tcp HOST:PORT --channel 12C
     cat CAPTURE | python -m tpudab_torch.host.cli stream - --device cpu
 
 --device defaults to cuda, and a missing GPU is an error, not a fallback.
@@ -314,10 +322,61 @@ def cmd_decode_bits(args) -> int:
     return 0
 
 
+def cmd_synth(args) -> int:
+    """tpudab's demo capture: one ensemble with an MP2 service (128 kbps,
+    UEP PL3) and a DAB+ service (96 kbps EEP 3-A) carrying a dynamic label
+    and a slideshow, both of tones from the codec shim's encoders, through
+    the impairments (CFO --cfo, AWGN --snr), written as f32 interleaved IQ
+    at 2.048 MS/s. Byte-equal to tpudab's synth with the same flags. The
+    encoders need FFmpeg: without it this writes nothing and fails."""
+    from tpudab_torch.host.native_lib import ffmpeg_probe
+    from tpudab_torch.synth import (ASCTY_DAB, ASCTY_DAB_PLUS, EnsembleSpec,
+                                    EnsembleSynthesizer, Impairments, ServiceSpec,
+                                    SubchannelSpec, apply_impairments, modulate_frame_bits)
+    from tpudab_torch.synth.payload import demo_dabplus_stream, mp2_tone_stream
+
+    found, what = ffmpeg_probe()
+    if not found:
+        print(f"error: encoder mp2 unavailable (no FFmpeg: {what}); no capture written",
+              file=sys.stderr)
+        return 1
+    n_frames = max(2, int(args.seconds / 0.096))
+    n_logical = n_frames * 4 + 20
+    mp2_rate = 128
+    plus_rate = 96  # EEP 3-A, 72 CU
+    spec = EnsembleSpec(
+        ensemble_id=0xCE15, label="TPU DAB Demo",
+        services=[
+            ServiceSpec(0xC221, "Tone Radio", [(0, ASCTY_DAB, 1)], programme_type=10),
+            ServiceSpec(0xC222, "Chirp DAB+", [(0, ASCTY_DAB_PLUS, 2)], programme_type=12),
+        ],
+        subchannels=[
+            SubchannelSpec(1, start_cu=0, size_cu=96, protection=("uep", mp2_rate, 3)),
+            SubchannelSpec(2, start_cu=96, size_cu=72, protection=("eep", 3, 0)),
+        ])
+    synth = EnsembleSynthesizer(spec, seed=1)
+    mp2 = mp2_tone_stream(mp2_rate, n_logical)
+    plus, _ = demo_dabplus_stream(plus_rate, n_logical)
+    synth.payload_fn[1] = lambda m: mp2[m].tobytes()
+    synth.payload_fn[2] = lambda m: plus[m].tobytes()
+
+    iq = np.concatenate([modulate_frame_bits(synth.frame_bits(i)) for i in range(n_frames)])
+    iq = apply_impairments(iq, Impairments(freq_offset_hz=args.cfo, snr_db=args.snr, seed=2))
+    inter = np.empty(iq.shape[0] * 2, dtype=np.float32)
+    inter[0::2] = iq.real
+    inter[1::2] = iq.imag
+    inter.tofile(args.path)
+    print(f"Wrote {n_frames} frames ({n_frames * 0.096:.2f} s) to {args.path} "
+          f"(f32 interleaved, 2.048 MS/s)")
+    return 0
+
+
 def cmd_stream(args) -> int:
-    """Live pipeline: native reader thread (a file or stdin) -> ring ->
-    StreamingRadio -> audio mix (+ optional WAV, + optional playback) with
-    the ANSI dashboard and its keys."""
+    """Live pipeline: native reader thread (a file, stdin or an rtl_tcp
+    socket) -> ring -> StreamingRadio -> audio mix (+ optional WAV, +
+    optional playback) with the ANSI dashboard and its keys. With --tcp the
+    native rtl_tcp client tunes the remote dongle to --channel (5A by
+    default) before the first read, and the </> keys retune live."""
     from tpudab_torch.audio.pipeline import AudioPipeline, WavSink
     from tpudab_torch.host.controls import KeyController
     from tpudab_torch.host.dashboard import Dashboard
@@ -327,25 +386,41 @@ def cmd_stream(args) -> int:
     device = _device(args)
     mgr = _load_config(args)
     mode, batch = args.mode, args.batch_frames
-    radio_kw = {"channel": args.channel}   # the label a tuner would be on
+    channel = args.channel   # the label a tuner is, or would be, on
+    radio_kw = {}
     if mgr is not None:
         c = mgr.config
         mode = c.mode if args.mode == 1 else args.mode
         batch = c.batch_frames if args.batch_frames == 4 else batch
-        radio_kw = {"channel": args.channel or c.channel, "sync_cfg": c.sync_config(),
+        channel = channel or c.channel
+        radio_kw = {"sync_cfg": c.sync_config(),
                     "desync_threshold": c.desync_threshold,
                     "is_coarse_freq_correction": c.is_coarse_freq_correction,
                     "coarse_check_interval": c.coarse_check_interval}
     if args.device_step is not None:
         radio_kw["use_device_step"] = args.device_step
 
-    reader = IQReader(args.path, fmt=args.format)
+    reader = tuner = None
+    if args.tcp:
+        from tpudab_torch.constants.channels import channel_freq_hz
+        from tpudab_torch.host.rtl_tcp import TcpSource
+        host, _, port = args.tcp.rpartition(":")
+        channel = channel or "5A"
+        tuner = TcpSource(host or "127.0.0.1", int(port), freq_hz=channel_freq_hz(channel))
+        ring = tuner.ring
+        radio_kw["tuner"] = tuner
+    elif args.path:
+        reader = IQReader(args.path, fmt=args.format)
+        ring = reader.ring
+    else:
+        print("error: an IQ path (or --tcp host:port) is required", file=sys.stderr)
+        return 2
     audio = AudioPipeline(48_000 if mgr is None else mgr.config.sink_sample_rate)
     if mgr is not None:
         audio.global_gain = mgr.config.global_gain
     wav = WavSink(args.wav, audio.sink_rate) if args.wav else None
-    radio = StreamingRadio(reader.ring.read_complex64, mode=mode, batch_frames=batch,
-                           audio_pipeline=audio, device=device, **radio_kw)
+    radio = StreamingRadio(ring.read_complex64, mode=mode, batch_frames=batch,
+                           audio_pipeline=audio, channel=channel, device=device, **radio_kw)
     controls = KeyController(radio.receiver, audio, radio=radio, config_manager=mgr)
     dash = None if args.no_dashboard else Dashboard(
         radio.receiver, radio.stats, audio, controls=controls, timers=radio.timers)
@@ -374,7 +449,10 @@ def cmd_stream(args) -> int:
         pass
     finally:
         controls.close()
-        reader.close()
+        if reader is not None:
+            reader.close()
+        if tuner is not None:
+            tuner.close()
         if sink is not None:
             sink.stop()
         if wav is not None:
@@ -421,14 +499,25 @@ def main(argv=None) -> int:
     db.add_argument("--device", default="cuda", help=device_help)
     db.set_defaults(fn=cmd_decode_bits)
 
+    sy = sub.add_parser("synth", help="synthesize a demo ensemble capture")
+    sy.add_argument("path")
+    sy.add_argument("--seconds", type=float, default=3.0)
+    sy.add_argument("--snr", type=float, default=25.0)
+    sy.add_argument("--cfo", type=float, default=1500.0)
+    sy.add_argument("--audio", choices=["mp2"], default="mp2")
+    sy.set_defaults(fn=cmd_synth)
+
     i = sub.add_parser("info", help="acquisition info for a capture")
     i.add_argument("path")
     i.add_argument("--format", choices=["u8", "s8", "s16", "f32"], default="f32")
     i.add_argument("--device", default="cuda", help=device_help)
     i.set_defaults(fn=cmd_info)
     st = sub.add_parser("stream", help="streaming decode with live dashboard")
-    st.add_argument("path", help="IQ file or '-' for stdin")
+    st.add_argument("path", nargs="?", default=None,
+                    help="IQ file or '-' for stdin (omit with --tcp)")
     st.add_argument("--format", choices=["u8", "s8", "s16", "f32"], default="f32")
+    st.add_argument("--tcp", default=None, metavar="HOST:PORT",
+                    help="live rtl_tcp source (tunes to --channel)")
     st.add_argument("--channel", default=None, metavar="LABEL",
                     help="Band III channel label (5A..13F), e.g. 12C")
     st.add_argument("--mode", type=int, default=1)

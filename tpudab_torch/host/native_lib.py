@@ -2,13 +2,14 @@
 use: counterpart of tpudab.host.native_lib.
 
 Two libraries, each built into tpudab_torch/_build/ under a file name that
-holds a hash of its source, the compiler and the flags (a changed source
+holds a hash of its sources, the compiler and the flags (a changed source
 builds anew; a failed build raises):
-- the ring (host/native/ringbuf.c, linked with -lpthread alone):
-  RingBuffer, a blocking SPSC byte ring, and IQReader, a C thread that
+- the ring (host/native/ringbuf.c and tcpsource.c, linked with -lpthread
+  alone): RingBuffer, a blocking SPSC byte ring; IQReader, a C thread that
   reads a file or stdin, converts u8/s8/s16/f32 IQ to complex64 and writes
-  it into a ring. It links no FFmpeg, so the live loop streams on a machine
-  that has none;
+  it into a ring; and the rtl_tcp client's reader thread, which writes a
+  socket's u8 IQ into a ring as complex64 (host/rtl_tcp.py drives it). It
+  links no FFmpeg, so the live loop streams on a machine that has none;
 - the codec shim (host/native/codec_shim.c, -lavcodec -lavutil), which
   audio/codecs.py drives. Whether it can be built is decided before any
   build by ffmpeg_probe(): libavcodec's and libavutil's headers on the
@@ -17,8 +18,8 @@ builds anew; a failed build raises):
   codec_lib() raises without building and the codecs report themselves
   unavailable (audio/codecs.py).
 
-tpudab builds the three native sources (with its rtl_tcp client) into one
-library that links libavcodec. The ring and the reader are host code: they
+tpudab builds the three native sources into one library that links
+libavcodec. The ring and the reader are host code: they
 touch no device and take none. Nothing here runs at import time.
 """
 
@@ -41,8 +42,8 @@ PKG = Path(__file__).resolve().parent.parent
 NATIVE = Path(__file__).resolve().parent / "native"
 BUILD_DIR = PKG / "_build"
 CFLAGS = ("-O2", "-fPIC", "-shared", "-Wall", "-Wextra", "-Wno-unused-parameter")
-RING = ("ring", "ringbuf.c", ("-lpthread",))
-CODEC = ("codec", "codec_shim.c", ("-lavcodec", "-lavutil"))
+RING = ("ring", ("ringbuf.c", "tcpsource.c"), ("-lpthread",))
+CODEC = ("codec", ("codec_shim.c",), ("-lavcodec", "-lavutil"))
 # what the codec shim includes and links, as the probe looks for them
 FFMPEG_HEADERS = ("libavcodec/avcodec.h", "libavutil/opt.h", "libavutil/channel_layout.h")
 FFMPEG_LIBS = ("libavcodec.so", "libavutil.so")
@@ -57,18 +58,19 @@ def _cc() -> str:
     return cc
 
 
-def _build(name: str, source: str, libs: Tuple[str, ...]) -> Path:
-    """Compile host/native/<source> into a shared library in _build/ unless
-    this hash is built already; returns its path."""
+def _build(name: str, sources: Tuple[str, ...], libs: Tuple[str, ...]) -> Path:
+    """Compile host/native/<sources> into one shared library in _build/
+    unless this hash is built already; returns its path."""
     cc = _cc()
-    src = NATIVE / source
+    srcs = [NATIVE / s for s in sources]
     h = hashlib.sha256(" ".join((os.path.basename(cc), *CFLAGS, *libs)).encode())
-    h.update(src.read_bytes())
+    for src in srcs:
+        h.update(src.read_bytes())
     so = BUILD_DIR / f"libtpudab_torch_{name}_{h.hexdigest()[:16]}.so"
     if not so.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
-            cmd = [cc, *CFLAGS, str(src), "-o", f"{tmp}/lib.so", *libs]
+            cmd = [cc, *CFLAGS, *map(str, srcs), "-o", f"{tmp}/lib.so", *libs]
             proc = subprocess.run(cmd, capture_output=True, text=True)
             if proc.returncode != 0:
                 raise RuntimeError(f"{cc} failed ({proc.returncode}):\n{' '.join(cmd)}\n"
@@ -114,7 +116,8 @@ def ffmpeg_probe() -> Tuple[bool, str]:
 
 @functools.lru_cache(maxsize=1)
 def ring_lib() -> ctypes.CDLL:
-    """The ring and IQ reader library (no FFmpeg), with its argtypes."""
+    """The ring, IQ reader and rtl_tcp client library (no FFmpeg), with its
+    argtypes."""
     lib = ctypes.CDLL(str(_build(*RING)))
     c = ctypes.c_void_p
     lib.dab_ring_create.restype = c
@@ -135,6 +138,17 @@ def ring_lib() -> ctypes.CDLL:
     lib.dab_iq_reader_done.argtypes = [c]
     lib.dab_iq_reader_join.restype = None
     lib.dab_iq_reader_join.argtypes = [c]
+    lib.dab_tcp_source_start.restype = c
+    lib.dab_tcp_source_start.argtypes = [ctypes.c_char_p, ctypes.c_int, c, ctypes.c_uint32,
+                                         ctypes.c_uint32]
+    lib.dab_tcp_set_freq.restype = ctypes.c_int
+    lib.dab_tcp_set_freq.argtypes = [c, ctypes.c_uint32]
+    lib.dab_tcp_source_done.restype = ctypes.c_int
+    lib.dab_tcp_source_done.argtypes = [c]
+    lib.dab_tcp_tuner_type.restype = ctypes.c_uint32
+    lib.dab_tcp_tuner_type.argtypes = [c]
+    lib.dab_tcp_source_stop.restype = None
+    lib.dab_tcp_source_stop.argtypes = [c]
     return lib
 
 

@@ -1,6 +1,7 @@
 """Complex-free OFDM demod: split re/im IQ frames -> soft bits.
 
-Counterpart of tpudab.ofdm.demod.demod_frames_split. The FFT, active-bin
+Counterpart of tpudab.ofdm.demod.demod_frames_split, and of its complex f32
+oracle demod_frames (torch.fft, for tests only). The FFT, active-bin
 select and frequency deinterleave are one dense DFT matmul per split part
 (dense_demod_matrix), left to torch.matmul as tpudab leaves it to XLA.
 
@@ -25,7 +26,7 @@ import numpy as np
 import torch
 
 from tpudab_torch.constants.interleaver import get_carrier_map_positions
-from tpudab_torch.constants.ofdm_params import get_ofdm_params
+from tpudab_torch.constants.ofdm_params import SAMPLING_RATE, get_ofdm_params
 from tpudab_torch.ops.carve import carve_rotate, carve_windows
 
 N_CONST_POINTS = 480  # constellation tap size
@@ -60,6 +61,37 @@ def dft_operands(mode: int, dft_dtype: str = "bfloat16"):
     if dft_dtype == "float32":
         return (torch.from_numpy(np.concatenate([wre, wim], axis=1)),)
     raise ValueError(f"dft_dtype {dft_dtype!r} not in (bfloat16, float32)")
+
+
+def demod_frames(frames, freq_offset_hz, mode: int = 1, window_offset: int = 12):
+    """The complex f32 oracle of the demod (tpudab.ofdm.demod.demod_frames),
+    on complex torch.fft: a test reference, never on the card's path.
+
+    frames (F, nb_frame_length) complex64, each starting at the first
+    sample of the null symbol; freq_offset_hz scalar or (F,), the net CFO
+    rotated out; the FFT window advanced window_offset samples into the
+    cyclic prefix. Returns (soft (F, nb_frame_bits) f32, unit mean
+    magnitude, + => 0; stats {"mean_power": (F,)})."""
+    p = get_ofdm_params(mode)
+    frames = torch.as_tensor(frames)
+    f, dev = frames.shape[0], frames.device
+    n_sym, n_fft, n_cp = p.nb_symbols, p.nb_fft, p.nb_cyclic_prefix
+
+    freq = torch.as_tensor(freq_offset_hz, dtype=torch.float32, device=dev).broadcast_to((f,))
+    t_idx = torch.arange(p.nb_frame_length, dtype=torch.float32, device=dev) / SAMPLING_RATE
+    x = frames * torch.exp(-2j * np.pi * freq[:, None] * t_idx[None, :]).to(torch.complex64)
+
+    sym = x[:, p.nb_null_period:].reshape(f, n_sym, n_fft + n_cp)
+    start = n_cp - window_offset
+    spec = torch.fft.fft(sym[:, :, start:start + n_fft], dim=-1)
+    carriers = spec[..., torch.from_numpy(active_bin_indices(mode).astype(np.int64)).to(dev)]
+    diff = carriers[:, 1:] * carriers[:, :-1].conj()
+    pos = torch.from_numpy(get_carrier_map_positions(mode).astype(np.int64)).to(dev)
+    logical = diff[..., pos]
+
+    soft = torch.cat([logical.real, logical.imag], dim=-1).reshape(f, p.nb_frame_bits)
+    soft = soft / soft.abs().mean(dim=-1, keepdim=True).clamp_min(1e-20)
+    return soft.float(), {"mean_power": (frames.abs() ** 2).mean(dim=-1)}
 
 
 def demod_frames_split(frames_re, frames_im, freq_hz, operands, mode: int = 1,

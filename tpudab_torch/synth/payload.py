@@ -6,9 +6,12 @@ build_superframe), optionally each AU led by a PAD DSE that carries a
 dynamic label and an MOT slideshow image, as tpudab's demo synthesiser
 puts them (tpudab/host/cli.py::_dabplus_stream) but with random bytes in
 place of AAC. The AUs come back too, so a receiver's output can be held
-against them. dabplus_aac_stream fills the superframes with real AAC: a
+against them. demo_dabplus_stream fills the superframes with real AAC, a
 tone through the codec shim's encoder (audio/codecs.py, which needs
-FFmpeg), as tpudab's demo synthesiser makes its DAB+ service.
+FFmpeg), with or without that PAD: with it, it is tpudab's demo
+synthesiser's DAB+ service; mp2_tone_stream is that synthesiser's MP2
+service. The `synth` subcommand (host/cli.py) puts the two in one
+ensemble.
 """
 
 from __future__ import annotations
@@ -70,39 +73,80 @@ def dabplus_stream(bitrate: int, n_logical: int, seed: int,
     return stream[:n_logical], all_aus
 
 
-def dabplus_aac_stream(bitrate: int, n_logical: int, tone_hz: float = 550.0,
-                       aac_kbps: int = 64) -> Tuple[np.ndarray, List[bytes]]:
+def mp2_tone_stream(bitrate: int, n_logical: int) -> np.ndarray:
+    """(n_logical, 3 * bitrate) uint8 logical frames of an MP2 subchannel:
+    MP2 of a stereo tone swept about 440 Hz (the codec shim's encoder,
+    audio/codecs.py, which needs FFmpeg); tpudab's synth's MP2 service
+    (tpudab/host/cli.py::_mp2_tone_stream)."""
+    from tpudab_torch.audio.codecs import MP2Encoder
+
+    enc = MP2Encoder(48000, 2, bitrate)
+    need = n_logical * bitrate * 3
+    pcm_t = np.arange(enc.frame_size)
+    packets = b""
+    phase = 0.0
+    while len(packets) < need:
+        f_hz = 440.0 * (1 + 0.5 * np.sin(phase / 40))
+        tone = (9000 * np.sin(2 * np.pi * f_hz * pcm_t / 48000)).astype(np.int16)
+        packets += enc.encode(np.stack([tone, tone], axis=1))
+        phase += 1
+    enc.close()
+    return np.frombuffer(packets[:need], dtype=np.uint8).reshape(n_logical, bitrate * 3)
+
+
+def demo_dabplus_stream(bitrate: int, n_logical: int,
+                        with_pad: bool = True) -> Tuple[np.ndarray, List[bytes]]:
     """(n_logical, 3 * bitrate) uint8 logical frames of a DAB+ subchannel
-    whose AUs are AAC-LC packets of a stereo tone at 48 kHz (8,000 peak),
-    and those AUs in order. The encoder's empty packets (its priming) are
-    left out: an empty AU would flush the decoder. The last AU of each
-    superframe is padded with zeros to fill it; aac_kbps must leave room
-    below the subchannel's bitrate."""
+    whose AUs are AAC-LC packets (64 kbps, the codec shim's encoder, which
+    needs FFmpeg) of a stereo tone swept about 550 Hz, 8,000 peak, and the
+    AUs of its superframes in order. The last AU of each superframe is
+    padded with zeros to fill it.
+
+    with_pad: each AU is led by a PAD DSE carrying the demo's dynamic label
+    and slideshow (pad_events), dropped from a superframe they would
+    overflow: tpudab's synth's DAB+ service (tpudab/host/cli.py::
+    _dabplus_stream), byte for byte. Without PAD the AUs are the packets
+    alone, the encoder's empty ones (its priming) left out: an empty AU
+    would flush the decoder."""
     from tpudab_torch.audio.codecs import _ShimEncoder
+    from tpudab_torch.pad.xpad import build_xpad_into_au
 
     hdr = SuperFrameHeader(dac_rate=1, sbr_flag=0, aac_channel_mode=1, ps_flag=0,
                            mpeg_surround=0)
-    enc = _ShimEncoder("aac", 48000, 2, aac_kbps * 1000)
-    avail = 110 * bitrate // 8 - header_size_bytes(hdr.num_aus) - 2 * hdr.num_aus
-    t = np.arange(enc.frame_size)
-    k = 0
+    enc = _ShimEncoder("aac", 48000, 2, 64_000)
+    pcm_t = np.arange(enc.frame_size)
+    events = pad_events() if with_pad else []
+    avail = 110 * bitrate // 8 - header_size_bytes(hdr.num_aus)
+    phase, ev = 0.0, 0
 
     def packet() -> bytes:
-        nonlocal k
-        while True:
-            x = (8000 * np.sin(2 * np.pi * tone_hz * (t + k * enc.frame_size) / 48000))
-            k += 1
-            pkt = enc.encode(np.repeat(x.astype(np.int16)[:, None], 2, axis=1))
-            if pkt:
-                return pkt
+        nonlocal phase
+        f_hz = 550.0 * (1 + 0.4 * np.sin(phase / 25))
+        tone = (8000 * np.sin(2 * np.pi * f_hz * pcm_t / 48000)).astype(np.int16)
+        phase += 1
+        return enc.encode(np.stack([tone, tone], axis=1))
 
     frames, all_aus = [], []
     for _ in range(n_logical // FRAMES_PER_SUPERFRAME + 1):
-        aus = [packet() for _ in range(hdr.num_aus)]
-        slack = avail - sum(len(a) for a in aus)
+        if with_pad:
+            aus = []
+            for _ in range(hdr.num_aus):
+                aus.append((build_xpad_into_au(b"", events[ev % len(events)]), packet()))
+                ev += 1
+            bare = [p for _, p in aus]
+            aus = [d + p for d, p in aus]
+            if sum(len(a) + 2 for a in aus) > avail:
+                aus = bare          # never truncate the AAC: drop the PAD DSEs
+        else:
+            aus = []
+            while len(aus) < hdr.num_aus:
+                pkt = packet()
+                if pkt:
+                    aus.append(pkt)
+        slack = avail - sum(len(a) + 2 for a in aus)
         if slack < 0:
-            raise ValueError(f"{aac_kbps} kbps AAC overflows a {bitrate} kbps superframe")
-        aus[-1] += b"\x00" * slack
+            raise ValueError(f"64 kbps AAC overflows a {bitrate} kbps superframe")
+        aus[-1] = aus[-1] + b"\x00" * slack
         all_aus.extend(aus)
         frames.append(build_superframe(hdr, aus, bitrate))
     enc.close()

@@ -15,4 +15,9 @@ prints its times, taken with CUDA events, beside the card's name and power
 limit. --device cpu runs the plain torch twins, with host times. Each
 module's run(device, iters, ...) does main's work at a size it is given,
 which is how a run is rehearsed small on the CPU.
+
+launch_multihost runs the sharded receive step (tpudab_torch.parallel) in
+N processes, as tpudab's tools/launch_multihost.py does:
+
+    python -m tpudab_torch.tools.launch_multihost local --num-processes 2 [--device cpu]
 """
