@@ -68,7 +68,9 @@ Phases, each of which raises on failure (nothing is caught):
 9. the decode path (`python -m tpudab_torch.host.cli decode`) on the
    bench multiplex with DAB+ streams, 48 frames, impaired (CFO 3,400 Hz,
    7,777 samples of delay, 15 dB, one echo): acquisition on the card
-   (frame start and coarse bins as made; B = 1 and B = 32 timed); the step
+   (frame start and coarse bins as made, and equal to the port's numpy
+   oracle acquire_np's on the same four frames, the net frequency within
+   ORACLE_HZ of the oracle's; B = 1 and B = 32 timed); the step
    leg's kernels at its shapes (E = 1, F = 16, f32 frames) beside their
    twins on a batch of the capture; `info`; the decode with and without
    --device-step, untraced in the order step, host, host, step for the
@@ -122,7 +124,20 @@ Phases, each of which raises on failure (nothing is caught):
    ensemble after the retune, the path's kernels launched; 12C's frames
    and AUs byte-equal between the paths. Prints the stream's real-time
    factor, the client ring's lag and the retune's wall. Then `synth` where
-   the codec probe finds FFmpeg (its verdict printed either way).
+   the codec probe finds FFmpeg (its verdict printed either way);
+13. `python -m tpudab_torch.host.cli decode` on a packet-mode multiplex
+   synthesised by the port alone (packet_mux_spec: phase 9's layout and
+   DAB+ streams on subchannels 1-5, a packet-mode MOT slideshow on
+   subchannel 6 carrying an 8 KB image round and round, an FM link on
+   service 1 and a DRM link on service 2), 48 frames through phase 9's
+   impairments, once with and once without --device-step. Gate, on each
+   leg: acquisition held to acquire_np as in phase 9, FIB CRC 1.0, the
+   slide file byte-equal to the MOT body, subchannel 1's AUs the
+   payload's, the legs' files identical, the legs' launches as in phase
+   9; then an in-process OfflinePipeline on the card: the packet
+   component's SCId on subchannel 6 with DSCTy 60 and packet address 2,
+   the FM and DRM services with their frequencies in the database, and
+   their lines in host.dashboard.render_text.
 Each phase from 9 on prints its seconds.
 Every line with a device time carries the card's name and power limit. A
 bound is the least time the card could take for the work: the larger of
@@ -168,6 +183,7 @@ from tpudab_torch.msc.interleave import (SoftRows, deinterleave_cuda,
 from tpudab_torch.msc.subchannel import subch_cif_slices
 from tpudab_torch.ofdm.demod import demod_frames_split
 from tpudab_torch.ofdm.sync_device import acquire_device, acquire_host
+from tpudab_torch.ofdm.sync_np import acquire_np
 from tpudab_torch.ops import _build
 from tpudab_torch.ops.carve import (_windows, carve_rotate_cuda, carve_rotate_ref,
                                    carve_rotate_tables_ref, rotator_tables)
@@ -180,9 +196,10 @@ from tpudab_torch.ops.viterbi_cuda import (signs_on, viterbi_decode_bits_cuda,
                                            viterbi_decode_bytes_t_ref, viterbi_decode_ref)
 from tpudab_torch.ops.viterbi_exp import (fwd_variant_cuda, fwd_variant_ref, traceback_bytes_cuda,
                                           traceback_bytes_ref, traceback_maps_ref)
-from tpudab_torch.synth import (ASCTY_DAB, ASCTY_DAB_PLUS, EnsembleSpec,
+from tpudab_torch.synth import (ASCTY_DAB, ASCTY_DAB_PLUS, TMID_PACKET_DATA, EnsembleSpec,
                                 EnsembleSynthesizer, Impairments, ServiceSpec, SubchannelSpec,
                                 apply_impairments, modulate_frame_bits)
+from tpudab_torch.synth.ensemble import DRMLinkSpec, FMLinkSpec
 from tpudab_torch.synth.payload import dabplus_stream
 from tpudab_torch.tools import (exp_carve, exp_depunct_t, exp_i16_probe, exp_tb_tree,
                                 exp_viterbi, exp_viterbi_decompose, exp_viterbi_i16)
@@ -237,6 +254,16 @@ HOST_UEP = (7, 648, 96, 128, 3)   # subch id, start CU, size CU, kbps, protectio
 DECODE_FRAMES, DECODE_BATCH, DECODE_SPLIT, ACQ_BATCH, ACQ_STRIDE = 48, 16, 20, 32, 6000
 DECODE_IMP = {"freq_offset_hz": 3400.0, "delay_samples": 7777, "snr_db": 15.0,
               "multipath": ((300, 0.4, 1.1),), "seed": 9}   # echo inside the 504-sample guard
+ORACLE_HZ = 1.0   # acquire_host's net frequency against acquire_np's (tests/test_torch_sync.py)
+# phase 13: phase 9's multiplex with subchannel 6 a packet-mode MOT slideshow
+# (DSCTy 60, PACKET_LEN-byte packets at PACKET_ADDR, PACKETS_PER_FRAME a
+# logical frame and 24-byte padding packets after them) carrying one
+# SLIDE_BYTES image in a carousel, an FM link on service 1 and a DRM link
+# on service 2 (tests/test_host_wiring.py:216-224's PI, id and frequencies)
+PACKET_SUBCH, PACKET_DSCTY, PACKET_LEN, PACKET_ADDR, PACKETS_PER_FRAME = 6, 60, 96, 2, 4
+SLIDE_BYTES, SLIDE_SEGMENT, SLIDE_NAME = 8192, 512, "slide.png"
+FM_LINK = (0xC201, 0xC479, [95_800_000])    # service id, RDS PI, frequencies (Hz)
+DRM_LINK = (0xC202, 0x00A7, [6_095_000])    # service id, DRM id, frequencies (Hz)
 # phase 10: the live loop (StreamingRadio) on phase 9's capture, and a short
 # capture whose DAB+ service carries AAC of a tone (96 kbps EEP 3-A, 72 CU)
 STREAM_BATCH, CODEC_FRAMES, CODEC_RMS_FLOOR = 4, 16, 2000.0   # floor: int16 RMS of the WAV
@@ -1415,21 +1442,43 @@ def decode_files(lines, out_dir: str, n_frames: int, label: str):
     return {f.name: f.read_bytes() for f in sorted(Path(out_dir).iterdir())}
 
 
-def check_acquisition(dev, iq, card):
-    """Phase 9, acquisition: acquire_host on the capture's first four
-    frames (one copy to the card, one read back), then acquire_device on
-    ACQ_BATCH buffers cut from the capture ACQ_STRIDE samples apart (the
-    32-ensemble layout of the step), each with its own frame start."""
-    fl = get_ofdm_params(1).nb_frame_length
-    n, delay = 4 * fl, DECODE_IMP["delay_samples"]
-    acquire_host(iq[:n], device=dev)                          # warm-up: cuFFT plans
+def card_acquisition(dev, iq, label: str):
+    """acquire_host on the capture's first four frames (one copy to the
+    card, one read back; a warm-up call first builds the cuFFT plans),
+    held to the port's numpy oracle acquire_np on the same samples: frame
+    start and coarse bins equal, net frequency within ORACLE_HZ; and to
+    the capture as made (DECODE_IMP's delay and carrier bins). Returns
+    (acquire_host's dict, its host ms, acquire_np's dict, its host ms)."""
+    n = 4 * get_ofdm_params(1).nb_frame_length
+    delay = DECODE_IMP["delay_samples"]
+    acquire_host(iq[:n], device=dev)
     t0 = time.perf_counter()
     res = acquire_host(iq[:n], device=dev)
     host_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    ref = acquire_np(iq[:n])
+    np_ms = (time.perf_counter() - t0) * 1e3
+    require(res["frame_start"] == ref["frame_start"] and res["coarse_bins"] == ref["coarse_bins"]
+            and abs(res["net_freq_hz"] - ref["net_freq_hz"]) < ORACLE_HZ,
+            f"{label} acquisition: the card's frame_start {res['frame_start']}, coarse_bins "
+            f"{res['coarse_bins']}, net {res['net_freq_hz']} Hz against acquire_np's "
+            f"{ref['frame_start']}, {ref['coarse_bins']}, {ref['net_freq_hz']} Hz")
     bins = int(DECODE_IMP["freq_offset_hz"] // (SAMPLING_RATE / get_ofdm_params(1).nb_fft))
     require(res["frame_start"] == delay and res["coarse_bins"] == bins,
-            f"acquisition: frame_start {res['frame_start']} (want {delay}), coarse_bins "
+            f"{label} acquisition: frame_start {res['frame_start']} (want {delay}), coarse_bins "
             f"{res['coarse_bins']} (want {bins})")
+    return res, host_ms, ref, np_ms
+
+
+def check_acquisition(dev, iq, card):
+    """Phase 9, acquisition: card_acquisition on the capture's first four
+    frames, then acquire_device on ACQ_BATCH buffers cut from the capture
+    ACQ_STRIDE samples apart (the 32-ensemble layout of the step), each
+    with its own frame start."""
+    fl = get_ofdm_params(1).nb_frame_length
+    n, delay = 4 * fl, DECODE_IMP["delay_samples"]
+    res, host_ms, ref, np_ms = card_acquisition(dev, iq, "decode path")
+    bins = res["coarse_bins"]
     x = torch.from_numpy(np.stack([iq[k * ACQ_STRIDE: k * ACQ_STRIDE + n]
                                    for k in range(ACQ_BATCH)])).to(dev)
     re, im = x.real.contiguous(), x.imag.contiguous()
@@ -1443,11 +1492,15 @@ def check_acquisition(dev, iq, card):
     print(f"decode path acquisition [{card}]: frame_start {res['frame_start']}, coarse_bins "
           f"{res['coarse_bins']}, net {res['net_freq_hz']:.3f} Hz (CFO "
           f"{DECODE_IMP['freq_offset_hz']} Hz), time quality {res['time_quality']:.1f}; "
-          f"acquire_host {host_ms:.2f} ms host wall (copy and read-back included); "
+          f"acquire_host {host_ms:.2f} ms host wall (copy and read-back included); the "
+          f"numpy oracle acquire_np: net {ref['net_freq_hz']:.3f} Hz ("
+          f"{res['net_freq_hz'] - ref['net_freq_hz']:+.4f} Hz from the card's, bound "
+          f"{ORACLE_HZ} Hz), same frame start and coarse bins, {np_ms:.1f} ms host; "
           f"acquire_device B=1 {ms1:.3f} ms, B={ACQ_BATCH} {ms32:.3f} ms "
           f"({ms32 / ACQ_BATCH:.3f} ms a buffer; {n} samples each; CUDA events); the "
           f"{ACQ_BATCH} frame starts and coarse bins as cut")
-    return {"acquire_host_ms": host_ms, "acquire_device_ms_b1": ms1,
+    return {"acquire_host_ms": host_ms, "acquire_np_ms": np_ms,
+            "acquire_np_net_freq_hz": ref["net_freq_hz"], "acquire_device_ms_b1": ms1,
             f"acquire_device_ms_b{ACQ_BATCH}": ms32}, res
 
 
@@ -2361,6 +2414,168 @@ def run_tcp_path(dev, card, iq, aus):
                     for k, v in runs.items()}}
 
 
+def packet_mux_spec() -> EnsembleSpec:
+    """Phase 13's multiplex: the bench layout (bench_subchannels: six
+    108-CU EEP 3-A subchannels, 648 CU), DAB+ services on subchannels 1-5,
+    a packet-mode data service (TMId 3, DSCTy PACKET_DSCTY; SCId 6) on
+    subchannel 6, FM_LINK and DRM_LINK (FIG 0/6 + FIG 0/21)."""
+    subchannels = bench_subchannels()
+    services = [ServiceSpec(0xC200 + c.subch_id, f"Bench {c.subch_id}",
+                            [(0, ASCTY_DAB_PLUS, c.subch_id)]) for c in subchannels[:-1]]
+    services.append(ServiceSpec(0xC200 + PACKET_SUBCH, "Bench Slides",
+                                [(TMID_PACKET_DATA, PACKET_DSCTY, PACKET_SUBCH)]))
+    return EnsembleSpec(
+        ensemble_id=0xBE9D, label="Packet Ensemble", services=services,
+        subchannels=[SubchannelSpec(c.subch_id, start_cu=c.start_cu, size_cu=c.size_cu,
+                                    protection=("eep", 3, 0)) for c in subchannels],
+        fm_links=[FMLinkSpec(*FM_LINK)], drm_links=[DRMLinkSpec(*DRM_LINK)])
+
+
+def slide_carousel(n_logical: int):
+    """Phase 13's packet stream: one MOT slideshow object (SLIDE_BYTES: a
+    PNG head, TINY_PNG, then seeded random bytes) as MOT data groups of
+    SLIDE_SEGMENT-byte segments in PACKET_LEN-byte packets at PACKET_ADDR,
+    sent round and round, PACKETS_PER_FRAME packets a logical frame and
+    24-byte padding packets (address 0) after them. Returns (the body,
+    (n_logical, frame bytes) uint8, data groups a turn)."""
+    from tpudab_torch.data.packet import build_packets
+    from tpudab_torch.mot.imagemeta import TINY_PNG
+    from tpudab_torch.mot.mot import ContentType, MOTObject, build_mot_object_groups
+
+    rng = np.random.default_rng(13)
+    body = TINY_PNG + rng.integers(0, 256, SLIDE_BYTES - len(TINY_PNG)).astype(np.uint8).tobytes()
+    obj = MOTObject(transport_id=613, content_type=ContentType.IMAGE, content_subtype=3,
+                    body=body, content_name=SLIDE_NAME)
+    groups = build_mot_object_groups(obj, segment_size=SLIDE_SEGMENT)
+    packets = [pk for g in groups for pk in build_packets(PACKET_ADDR, g, PACKET_LEN)]
+    frame_bytes = bench_subchannels()[PACKET_SUBCH - 1].data_bits // 8
+    pad = build_packets(0, b"", 24)[0] * ((frame_bytes - PACKETS_PER_FRAME * PACKET_LEN) // 24)
+    frames = b"".join(b"".join(packets[(m * PACKETS_PER_FRAME + k) % len(packets)]
+                               for k in range(PACKETS_PER_FRAME)) + pad
+                      for m in range(n_logical))
+    return body, np.frombuffer(frames, np.uint8).reshape(n_logical, frame_bytes), len(groups)
+
+
+def packet_capture(n_frames: int):
+    """Phase 13's input, synthesised by the port alone: packet_mux_spec()
+    with phase 9's DAB+ streams on subchannels 1-5 (decode_capture's seeds)
+    and slide_carousel on subchannel 6, through DECODE_IMP. Returns
+    (complex64 IQ, {subch id: the AUs in order}, slide body, data groups a
+    turn)."""
+    synth = EnsembleSynthesizer(packet_mux_spec(), seed=1)
+    aus = {}
+    for c in bench_subchannels()[:-1]:
+        stream, aus[c.subch_id] = dabplus_stream(
+            c.data_bits // 24, 4 * n_frames, seed=20 + c.subch_id, with_pad=c.subch_id == 1)
+        synth.payload_fn[c.subch_id] = lambda m, st=stream: st[m].tobytes()
+    body, carousel, groups = slide_carousel(4 * n_frames)
+    synth.payload_fn[PACKET_SUBCH] = lambda m: carousel[m].tobytes()
+    frames = np.stack([modulate_frame_bits(synth.frame_bits(i)) for i in range(n_frames)])
+    return apply_impairments(frames.reshape(-1), Impairments(**DECODE_IMP)), aus, body, groups
+
+
+def check_packet_database(dev, iq, groups: int, card: str) -> dict:
+    """Phase 13, database and dashboard: an in-process OfflinePipeline
+    (the --device-step leg) on the capture. The packet component's SCId
+    on subchannel 6 with its DSCTy and packet address, the FM and DRM
+    links with their frequencies, the dashboard's link lines, and the
+    carousel's data groups (the turns that came through)."""
+    from tpudab_torch.host.dashboard import render_text
+    from tpudab_torch.models.pipeline import OfflinePipeline
+
+    pipe = OfflinePipeline(batch_frames=DECODE_BATCH, use_device_step=True, device=dev)
+    t0 = time.perf_counter()
+    pipe.run(iq)
+    wall = time.perf_counter() - t0
+    rx = pipe.receiver
+    db = rx.db
+    sid = 0xC200 + PACKET_SUBCH
+    comps = [(c.scid, c.subch_id, c.data_type, c.packet_address)
+             for c in db.service_components.values() if c.service_id == sid]
+    require(comps == [(PACKET_SUBCH, PACKET_SUBCH, PACKET_DSCTY, PACKET_ADDR)],
+            f"packet path: service 0x{sid:04X}'s components (SCId, subchannel, DSCTy, "
+            f"packet address) are {comps}")
+    fm, drm = db.fm_services.get(FM_LINK[1]), db.drm_services.get(DRM_LINK[1])
+    require(fm is not None and fm.frequencies == FM_LINK[2],
+            f"packet path: FM service {FM_LINK[1]:#06x}: {fm}")
+    require(drm is not None and drm.frequencies == DRM_LINK[2],
+            f"packet path: DRM service {DRM_LINK[1]:#06x}: {drm}")
+    text = render_text(rx)
+    lines = [ln.strip() for ln in text.splitlines()
+             if ln.strip().startswith(("FM  RDS PI", "DRM id"))]
+    require(len(lines) == 2 and lines[0].startswith(f"FM  RDS PI 0x{FM_LINK[1]:04X}")
+            and lines[1].startswith(f"DRM id 0x{DRM_LINK[1]:04X}"),
+            f"packet path: the dashboard's link lines: {lines}")
+    data_groups = rx.channels[PACKET_SUBCH].stats["data_groups"]
+    require(data_groups >= 2 * groups and rx.stats["fib_crc_errors"] == 0,
+            f"packet path: {data_groups} data groups ({groups} a turn), "
+            f"{rx.stats['fib_crc_errors']} FIB CRC errors")
+    print(f"packet path database [{card}]: OfflinePipeline --device-step leg in {wall:.3f} s; "
+          f"SCId {PACKET_SUBCH} -> subchannel {PACKET_SUBCH}, DSCTy {PACKET_DSCTY}, packet "
+          f"address {PACKET_ADDR}; FM {fm.rds_pi:#06x} {fm.frequencies}, DRM "
+          f"{drm.drm_id:#06x} {drm.frequencies}; dashboard: {lines}; {data_groups} MOT data "
+          f"groups ({data_groups / groups:.1f} turns of {groups})")
+    return {"pipeline_wall_s": wall, "data_groups": data_groups}
+
+
+def run_packet_path(dev, card, n_frames: int = DECODE_FRAMES):
+    """Phase 13: `python -m tpudab_torch.host.cli decode` on packet_capture
+    (a packet-mode slideshow and FM/DRM links, synthesised by the port),
+    with and without --device-step, one untraced run each. Gate, on each
+    leg: the acquisition held to acquire_np and to the capture as made,
+    FIB CRC 1.0, the slide file byte-equal to the MOT body, subchannel 1's
+    AUs the payload's, the legs' payload files identical, the legs'
+    launches as in phase 9; then check_packet_database."""
+    t_phase = time.perf_counter()
+    signal_s = n_frames * get_ofdm_params(1).nb_frame_length / SAMPLING_RATE
+    t0 = time.perf_counter()
+    iq, aus, body, groups = packet_capture(n_frames)
+    print(f"packet path synth: {n_frames} frames, impaired, in {time.perf_counter() - t0:.1f} s")
+    res, host_ms, ref, np_ms = card_acquisition(dev, iq, "packet path")
+    print(f"packet path acquisition [{card}]: frame_start {res['frame_start']}, coarse_bins "
+          f"{res['coarse_bins']}, net {res['net_freq_hz']:.3f} Hz, acquire_host "
+          f"{host_ms:.2f} ms host wall; acquire_np net {ref['net_freq_hz']:.3f} Hz "
+          f"({res['net_freq_hz'] - ref['net_freq_hz']:+.4f} Hz, bound {ORACLE_HZ} Hz), same "
+          f"frame start and coarse bins, {np_ms:.1f} ms host")
+    n_aus = 6 * ((4 * n_frames - 15) // 5)
+    slide = f"subch{PACKET_SUBCH}_{SLIDE_NAME}"
+    legs = {"step": ["--device-step"], "host": []}
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        cap = os.path.join(tmp, "packet.f32")
+        write_iq(iq, cap)
+        for label, flags in legs.items():
+            out = os.path.join(tmp, label)
+            lines, wall, launches, _ = cli_run(["decode", cap, *flags, "--batch-frames",
+                                                str(DECODE_BATCH), "--out-dir", out])
+            files = decode_files(lines, out, n_frames, f"packet {label} leg")
+            require(files.get(slide) == body,
+                    f"packet {label} leg: {slide} is not the MOT body ({sorted(files)})")
+            got = read_aus(files["subch1.aac.raw"])
+            require(got == aus[1][:n_aus], f"packet {label} leg: {len(got)} AUs of subchannel "
+                    f"1, want the first {n_aus} of the payload")
+            runs[label] = {"files": files, "wall": wall, "launches": launches}
+            print(f"packet decode {' '.join(flags) or '(host leg only)'} [{card}]: wall "
+                  f"{wall:.3f} s for {signal_s:.3f} s of signal, real-time factor "
+                  f"{signal_s / wall:.2f}; launches {launches}; FIB CRC 1.0; {slide} byte-equal "
+                  f"to the {len(body)}-byte MOT body; subchannel 1's {n_aus} AUs byte-equal")
+    require(runs["step"]["files"] == runs["host"]["files"],
+            "packet decode: the legs with and without --device-step wrote different files")
+    step_l, host_l = runs["step"]["launches"], runs["host"]["launches"]
+    require(all(step_l.values()), f"packet decode --device-step left a kernel unlaunched: {step_l}")
+    require(host_l["deinterleave_depuncture_t"] == host_l["viterbi_fwd_traceback"] == 0
+            and host_l["viterbi_bits"] and host_l["deinterleave"] and host_l["carve_rotate"],
+            f"packet decode: the host leg's launches: {host_l}")
+    print(f"packet decode: {len(runs['step']['files'])} payload files identical on both legs: "
+          f"{sorted(runs['step']['files'])}")
+    numbers = check_packet_database(dev, iq, groups, card)
+    numbers.update({"packet_launches": {"step": step_l, "host": host_l},
+                    "decode_wall_s": {k: r["wall"] for k, r in runs.items()},
+                    "acquire_np_net_freq_hz": ref["net_freq_hz"], "acquire_np_ms": np_ms})
+    print(f"phase 13: {time.perf_counter() - t_phase:.1f} s in all [{card}]")
+    return numbers
+
+
 def main() -> None:
     t_start = time.perf_counter()
     marks = [("start", t_start)]
@@ -2417,6 +2632,10 @@ def main() -> None:
     # phase 12: `stream --tcp` with a live retune, and `synth`
     tcp = run_tcp_path(dev, card, iq, aus)
     mark("12")
+
+    # phase 13: a packet-mode slideshow multiplex with FM/DRM links, through `decode`
+    packet = run_packet_path(dev, card)
+    mark("13")
     print("phase seconds: " + ", ".join(f"{name} {t - t0:.1f}" for (_, t0), (name, t)
                                          in zip(marks, marks[1:])))
 
@@ -2489,6 +2708,8 @@ def main() -> None:
             entry["decode_launches"] = {k: v[name] for k, v in decode["decode_launches"].items()}
             entry["stream_launches"] = {k: v[name] for k, v in stream["stream_launches"].items()}
             entry["tcp_stream_launches"] = {k: v[name] for k, v in tcp["tcp_launches"].items()}
+            entry["packet_decode_launches"] = {k: v[name]
+                                               for k, v in packet["packet_launches"].items()}
         if name in STEP_KERNELS:
             entry["sharded_launches"] = {k: v[name]
                                          for k, v in sharded["sharded_launches"].items()}

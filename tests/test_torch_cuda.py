@@ -504,6 +504,28 @@ def test_acquire_device_cuda_equals_cpu(dev):
     assert one["frame_start"] == 7777 and one["coarse_bins"] == 3
 
 
+def test_acquire_device_cuda_equals_acquire_np(dev):
+    """acquire_device on the card, one batch of three buffers (CFO and delay;
+    a large negative CFO; 1.5 carrier spacings), against the port's numpy
+    oracle acquire_np on each: frame_start and coarse_bins equal, the net
+    frequency within 1 Hz (chip_smoke.py's ORACLE_HZ)."""
+    from tpudab_torch.ofdm.sync_device import acquire_device
+    from tpudab_torch.ofdm.sync_np import acquire_np
+    imps = [dict(freq_offset_hz=3400.0, delay_samples=7777, snr_db=15, seed=1),
+            dict(freq_offset_hz=-47350.0, delay_samples=123, snr_db=10, seed=2),
+            dict(freq_offset_hz=1500.0, delay_samples=40_000, snr_db=12, seed=3)]
+    iqs = [impaired_capture(3, imp, seed=i)[0] for i, imp in enumerate(imps)]
+    n = min(x.shape[0] for x in iqs)
+    re = torch.from_numpy(np.stack([x.real[:n] for x in iqs]).astype(np.float32)).to(dev)
+    im = torch.from_numpy(np.stack([x.imag[:n] for x in iqs]).astype(np.float32)).to(dev)
+    gpu = {k: v.cpu() for k, v in acquire_device(re, im).items()}
+    for i, (x, imp) in enumerate(zip(iqs, imps)):
+        ref = acquire_np(x[:n])
+        assert gpu["frame_start"][i].item() == ref["frame_start"] == imp["delay_samples"]
+        assert gpu["coarse_bins"][i].item() == ref["coarse_bins"]
+        assert abs(gpu["net_freq_hz"][i].item() - ref["net_freq_hz"]) < 1.0, i
+
+
 def test_checkpoint_bf16_carry_round_trip_on_cuda(dev, tmp_path):
     from tpudab_torch.models.checkpoint import load_carry, save_carry
     bits = torch.randint(-32768, 32767, (15, 1536), dtype=torch.int16,

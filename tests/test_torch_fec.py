@@ -55,6 +55,33 @@ def test_prbs_and_crc():
     np.testing.assert_array_equal(tprbs.descramble_bits(bits), jprbs.descramble_bits(bits))
 
 
+def test_descramble_bytes():
+    """descramble_bytes on seeded bytes, 1-D and batched: equal to tpudab's."""
+    data = np.random.default_rng(3).integers(0, 256, (4, 432)).astype(np.uint8)
+    for x in (data[0], data, data[:, :31]):
+        got = tprbs.descramble_bytes(x)
+        assert got.dtype == np.uint8
+        np.testing.assert_array_equal(got, jprbs.descramble_bytes(x))
+    np.testing.assert_array_equal(tprbs.descramble_bytes(tprbs.descramble_bytes(data)), data)
+
+
+def test_hard_decision_and_bits_to_soft():
+    """numpy in and out, equal to tpudab's: signs (zero counts as bit 0)
+    and ideal soft values at amplitudes 1 and 2.5."""
+    rng = np.random.default_rng(4)
+    soft = rng.standard_normal((3, 100)).astype(np.float32)
+    soft[0, :4] = [0.0, -0.0, 1e-30, -1e-30]
+    got = tbits.hard_decision(soft)
+    assert got.dtype == np.uint8
+    np.testing.assert_array_equal(got, jbits.hard_decision(soft))
+    bits = rng.integers(0, 2, (2, 64)).astype(np.uint8)
+    for amp in (1.0, 2.5):
+        got = tbits.bits_to_soft(bits, amp)
+        assert got.dtype == np.float32
+        np.testing.assert_array_equal(got, jbits.bits_to_soft(bits, amp))
+    np.testing.assert_array_equal(tbits.hard_decision(tbits.bits_to_soft(bits)), bits)
+
+
 def test_bit_packing():
     rng = np.random.default_rng(2)
     bits = rng.integers(0, 2, (4, 96)).astype(np.uint8)

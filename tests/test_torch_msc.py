@@ -35,6 +35,23 @@ def test_deinterleave_matches_pallas_and_numpy(lead, dtype):
                                       deinterleave_np(vals[e])[:c])
 
 
+@pytest.mark.parametrize("shape", [(20, 48), (40, 256), (7, 16)])
+def test_deinterleave_np_equals_tpudab(shape):
+    """The port's numpy oracle: equal to tpudab's on seeded soft and hard
+    bits, and the inverse of interleave_np from row 15 on. Tolerance: none."""
+    from tpudab_torch.msc.interleave import deinterleave_np as port_deinterleave_np
+    from tpudab_torch.msc.interleave import interleave_np
+    rng = np.random.default_rng(shape[0])
+    soft = rng.standard_normal(shape).astype(np.float32)
+    hard = rng.integers(0, 2, shape).astype(np.uint8)
+    for x in (soft, hard):
+        got = port_deinterleave_np(x)
+        assert got.dtype == x.dtype
+        np.testing.assert_array_equal(got, deinterleave_np(x))
+    np.testing.assert_array_equal(port_deinterleave_np(interleave_np(hard))[: shape[0] - 15],
+                                  hard[: shape[0] - 15])
+
+
 def test_delay_table():
     from tpudab_torch.msc import interleave as port
     np.testing.assert_array_equal(port.interleave_delays(48), interleave_delays(48))

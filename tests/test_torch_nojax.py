@@ -5,8 +5,9 @@ passes), imports every module of the port, its tools and the smoke script,
 synthesises a 5-frame capture and runs one CPU ReceiveStep, the CPU
 Receiver (the host per-stage path), the offline pipeline (with and
 without the step) and the live loop (StreamingRadio over an array source)
-on it, and the sharded step in a world of one (gloo), and finds no tpudab
-module loaded at the end."""
+on it, the sharded step in a world of one (gloo), the numpy acquisition
+oracle and a packet-mode FIC with FM/DRM links, and finds no tpudab module
+loaded at the end."""
 
 import os
 import subprocess
@@ -34,7 +35,8 @@ SCRIPT = textwrap.dedent("""
     mods = [m.name for m in pkgutil.walk_packages(tpudab_torch.__path__, "tpudab_torch.")]
     assert any(m.startswith("tpudab_torch.tools.") for m in mods), mods
     assert {"tpudab_torch.parallel", "tpudab_torch.parallel.sharded_step",
-            "tpudab_torch.host.rtl_tcp", "tpudab_torch.tools.launch_multihost"} <= set(mods)
+            "tpudab_torch.host.rtl_tcp", "tpudab_torch.tools.launch_multihost",
+            "tpudab_torch.ofdm.sync_np"} <= set(mods)
     for m in mods:
         importlib.import_module(m)
     import chip_smoke  # the smoke script imports only the port and torch
@@ -103,6 +105,13 @@ SCRIPT = textwrap.dedent("""
     dist.destroy_process_group()
     assert (sout["fic_bytes"][0] == out["fic_bytes"]).all()
     assert (sout["subch"][1][0] == out["subch"][1]).all()
+
+    # the numpy acquisition oracle, and a packet-mode FIC with FM/DRM links
+    from tpudab_torch.ofdm.sync_np import acquire_np
+    acq = acquire_np(frames.reshape(-1))
+    assert acq["frame_start"] == 0 and acq["coarse_bins"] == 0
+    pk = chip_smoke.packet_mux_spec()
+    assert EnsembleSynthesizer(pk, seed=1).build_fic_bits(0).shape == (9216,)
 
     bad = [m for m in sys.modules if m.split(".")[0] in REFUSED]
     assert not bad, bad

@@ -5,6 +5,7 @@ SubchannelDecoder. Frame soft bits come from tpudab's synthesiser
 stats, raw frames, AUs, MP2 frames, slides, dynamic labels, calibration
 results, payload files and database listing must all be equal."""
 
+import importlib
 import os
 
 import numpy as np
@@ -13,7 +14,7 @@ import torch
 
 from test_torch_parsers import db_state, one_torch_thread, plain  # noqa: F401
 from tpudab.constants.dab_params import CIF_BITS, CU_BITS, get_dab_params
-from tpudab.synth import (ASCTY_DAB, ASCTY_DAB_PLUS, TMID_PACKET_DATA, EnsembleSpec,
+from tpudab.synth import (ASCTY_DAB, ASCTY_DAB_PLUS, EnsembleSpec,
                           EnsembleSynthesizer, ServiceSpec, SubchannelSpec)
 
 SIGMA = 0.5
@@ -49,12 +50,18 @@ def dabplus_capture():
     return noisy(np.stack([synth.frame_bits(i) for i in range(14)]), 1)
 
 
-def slideshow_capture():
+def slideshow_capture(pkg="tpudab"):
     """tests/test_receiver.py:81-124: an MOT slideshow in a packet-mode
-    data subchannel, 10 frames."""
-    from tpudab.data.packet import build_packets
-    from tpudab.mot.imagemeta import TINY_PNG
-    from tpudab.mot.mot import ContentType, MOTObject, build_mot_object_groups
+    data subchannel, 10 frames, built with pkg's packet, MOT and synth
+    modules (tpudab's or the port's)."""
+    build_packets = importlib.import_module(f"{pkg}.data.packet").build_packets
+    TINY_PNG = importlib.import_module(f"{pkg}.mot.imagemeta").TINY_PNG
+    mot = importlib.import_module(f"{pkg}.mot.mot")
+    ContentType, MOTObject = mot.ContentType, mot.MOTObject
+    build_mot_object_groups = mot.build_mot_object_groups
+    synth_pkg = importlib.import_module(f"{pkg}.synth")
+    EnsembleSpec, ServiceSpec = synth_pkg.EnsembleSpec, synth_pkg.ServiceSpec
+    SubchannelSpec, EnsembleSynthesizer = synth_pkg.SubchannelSpec, synth_pkg.EnsembleSynthesizer
     rng = np.random.default_rng(9)
     img = TINY_PNG + rng.integers(0, 256, 1200 - len(TINY_PNG)).astype(np.uint8).tobytes()
     obj = MOTObject(transport_id=42, content_type=ContentType.IMAGE, content_subtype=1,
@@ -62,7 +69,7 @@ def slideshow_capture():
     pkt_stream = b"".join(b"".join(build_packets(2, g, 96))
                           for g in build_mot_object_groups(obj, segment_size=256))
     spec = EnsembleSpec(0x7777, "Data Mux",
-                        [ServiceSpec(0xE100, "Slides", [(TMID_PACKET_DATA, 60, 9)])],
+                        [ServiceSpec(0xE100, "Slides", [(synth_pkg.TMID_PACKET_DATA, 60, 9)])],
                         [SubchannelSpec(9, start_cu=0, size_cu=24, protection=("eep", 3, 0))])
     synth = EnsembleSynthesizer(spec, seed=11)
     need = (10 * 4 + 16) * 96
@@ -141,6 +148,52 @@ def test_receiver_matches_tpudab(name):
         assert prx.uep_calibrations[1].locked
         assert prx.channels[2].dynamic_label == "tpudab demo - Now Playing: Chirp"
         assert len(prx.channels[2].slideshow.slides) == 1
+
+
+def test_port_synth_slideshow_decodes_to_tpudabs_slide():
+    """The slideshow capture built by the port alone (its synth, packet and
+    MOT builders) equals tpudab's, and the port's Receiver decodes it to
+    the slide tpudab's Receiver gets from tpudab's capture."""
+    from tpudab.models.receiver import Receiver as JaxReceiver
+    from tpudab_torch.models.receiver import Receiver
+
+    soft, want_soft = slideshow_capture("tpudab_torch"), slideshow_capture("tpudab")
+    np.testing.assert_array_equal(soft, want_soft)
+    jrx, prx = JaxReceiver(1), Receiver(1, "cpu")
+    for lo in range(0, soft.shape[0], 5):
+        jrx.process_frame_bits(want_soft[lo: lo + 5])
+        prx.process_frame_bits(soft[lo: lo + 5])
+    got = [(s.transport_id, s.name, s.data) for s in prx.channels[9].slideshow.slides]
+    want = [(s.transport_id, s.name, s.data) for s in jrx.channels[9].slideshow.slides]
+    assert got == want and len(got) == 1 and prx.stats["fib_crc_errors"] == 0
+
+
+def test_link_tables_and_screen_equal_tpudab():
+    """tests/test_host_wiring.py:216-224's FM and DRM links, each package's
+    synth into its own Receiver: equal fm_services, drm_services and
+    link_services, and equal render_text screens."""
+    from test_torch_synth import _link_spec
+    import tpudab.synth as jsynth
+    from tpudab.host.dashboard import render_text as jax_render
+    from tpudab.models.receiver import Receiver as JaxReceiver
+    import tpudab_torch.synth as tsynth
+    from tpudab_torch.host.dashboard import render_text
+    from tpudab_torch.models.receiver import Receiver
+
+    rxs = []
+    for pkg, rx in ((tsynth, Receiver(1, "cpu")), (jsynth, JaxReceiver(1))):
+        synth = pkg.EnsembleSynthesizer(_link_spec(pkg), seed=13)
+        for i in range(2):
+            rx.process_frame_bits((1.0 - 2.0 * synth.frame_bits(i).astype(np.float32))[None])
+        rxs.append(rx)
+    prx, jrx = rxs
+    for name in ("fm_services", "drm_services", "link_services"):
+        assert plain(getattr(prx.db, name)) == plain(getattr(jrx.db, name)), name
+    assert prx.db.fm_services[0xC479].frequencies == [95_800_000]
+    assert prx.db.drm_services[0x00A7].frequencies == [6_095_000]
+    text = render_text(prx)
+    assert text == jax_render(jrx)
+    assert "FM  RDS PI 0xC479" in text and "DRM id 0x00A7" in text
 
 
 def test_decode_bits_cli_matches(tmp_path, capsys):

@@ -149,3 +149,45 @@ def test_step_other_modes_match_tpudab(mode):
     got = tout["subch"][1].numpy()
     assert got.shape[0] == n_frames * dab.nb_cifs
     np.testing.assert_array_equal(got[15:], payload[: got.shape[0] - 15])
+
+
+@pytest.mark.parametrize("n_ens", [1, 2])
+def test_example_args_equal_tpudab(n_ens):
+    """example_args draws tpudab's arrays (same seed, order and shapes) and
+    returns them on the device asked for, with the step's zero carry."""
+    jc, tc = configs()
+    jstep = JaxStep(mode=1, subchannels=jc, n_ensembles=n_ens)
+    tstep = ReceiveStep(1, tc, n_ensembles=n_ens)
+    want = jstep.example_args(n_frames=2, seed=3)
+    got = tstep.example_args(n_frames=2, seed=3, device="cpu")
+    assert all(t.device.type == "cpu" for t in got[1:])
+    for g, w in zip(got[1:3], want[1:3]):
+        assert g.dtype == torch.float32
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    assert got[3].item() == float(np.asarray(want[3])) == 0.0
+    assert set(got[0]) == set(want[0])
+    for k, v in want[0].items():
+        np.testing.assert_array_equal(got[0][k].float().numpy(), as_f32(v))
+
+
+def test_call_complex_matches_forward_and_tpudab():
+    """call_complex on complex64 host frames: the same outputs as forward
+    on the split f32 frames, tpudab's call_complex's decoded bytes, and its
+    carry within test_step_matches_tpudab's bounds."""
+    frames, data = capture(N_FRAMES, 7)
+    jc, tc = configs()
+    jstep = JaxStep(mode=1, subchannels=jc)
+    tstep = ReceiveStep(1, tc)
+    carry, out = tstep.call_complex(tstep.init_carry("cpu"), frames, 0.0)
+    re, im = split_iq(frames)
+    carry2, out2 = tstep(tstep.init_carry("cpu"), torch.from_numpy(re), torch.from_numpy(im),
+                         0.0)
+    np.testing.assert_array_equal(out["fic_bytes"].numpy(), out2["fic_bytes"].numpy())
+    for sid, v in out2["subch"].items():
+        np.testing.assert_array_equal(out["subch"][sid].numpy(), v.numpy())
+    for k, v in carry2.items():
+        assert torch.equal(carry[k], v), k
+    jcarry, jout = jstep.call_complex(jstep.init_carry(), frames, np.float32(0.0))
+    assert_same_outputs(jout, out)
+    assert_carry_close(carry, jcarry, "bfloat16")
+    np.testing.assert_array_equal(out["subch"][1].numpy()[15:], data[: 4 * N_FRAMES - 15])

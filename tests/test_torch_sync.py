@@ -200,6 +200,31 @@ def test_tracking_taps_match_tpudab():
         assert abs(resid.item() - (500.0 - freq)) < 10.0
 
 
+@pytest.mark.parametrize("spacings", [1.5, -2.25])
+@pytest.mark.parametrize("mode", [1, 2])
+def test_acquire_np_equals_tpudab(mode, spacings):
+    """The port's numpy oracle (ofdm/sync_np.py) against tpudab's: the whole
+    dict exactly equal, float64 and ints alike, at a CFO of 1.5 and -2.25
+    carrier spacings (the half-carrier case that step 2 of acquire_np is
+    ordered for), with delay and noise."""
+    from tpudab_torch.ofdm import sync_np as port_np
+    from tpudab.ofdm import sync_np as jax_np
+
+    cfo = spacings * carrier_spacing_hz(mode)
+    iq = apply_impairments(random_frames(20 + mode, mode),
+                           Impairments(freq_offset_hz=cfo, delay_samples=321, snr_db=12,
+                                       phase=0.3, seed=mode))
+    got = port_np.acquire_np(iq, mode)
+    want = jax_np.acquire_np(iq, mode)
+    assert got == want
+    assert all(type(got[k]) is type(want[k]) for k in want)
+    assert got["frame_start"] == 321 and abs(got["net_freq_hz"] - cfo) < 50.0
+    p = get_ofdm_params(mode)
+    seg = iq[: p.nb_frame_length]
+    assert port_np.fine_time_sync_np(seg, mode) == jax_np.fine_time_sync_np(seg, mode)
+    assert port_np.prs_search_full_np(seg, mode, 1000) == jax_np.prs_search_full_np(seg, mode, 1000)
+
+
 def test_sync_config_and_spacing_equal_tpudab():
     assert SyncConfig() == SyncConfig(**vars(JaxSyncConfig()))
     for mode in (1, 2, 3, 4):

@@ -38,6 +38,12 @@ def descramble_bits(bits: np.ndarray) -> np.ndarray:
     return bits ^ prbs_bits(bits.shape[-1])
 
 
+def descramble_bytes(data: np.ndarray) -> np.ndarray:
+    """XOR uint8 bytes (last axis = stream) with the PRBS bytes."""
+    data = np.asarray(data, dtype=np.uint8)
+    return data ^ prbs_bytes(data.shape[-1])
+
+
 @functools.lru_cache(maxsize=None)
 def prbs_bytes_on(n: int, device: torch.device) -> torch.Tensor:
     """prbs_bytes(n) as a uint8 tensor on device, made once per device."""

@@ -203,3 +203,27 @@ class ReceiveStep(nn.Module):
         frames_flat = np.asarray(frames_flat)
         return frames_flat.reshape(frames_flat.shape[:-1]
                                    + (self.params.nb_frame_length // 128, 128))
+
+    def call_complex(self, carry, frames, freq_hz):
+        """forward on complex64 host frames (..., frame_len): tiled, split
+        to f32 and moved to the step's device."""
+        frames = self.tile_frames(np.asarray(frames))
+        device = self.dft_re.device
+        return self(carry,
+                    torch.from_numpy(frames.real.astype(np.float32)).to(device),
+                    torch.from_numpy(frames.imag.astype(np.float32)).to(device),
+                    freq_hz)
+
+    def example_args(self, n_frames: int = 4, seed: int = 0, device="cuda"):
+        """(carry, frames_re, frames_im, freq_hz) of seeded Gaussian noise
+        on device: the same arrays as tpudab's ReceiveStep.example_args."""
+        rng = np.random.default_rng(seed)
+        shape = (n_frames, self.params.nb_frame_length // 128, 128)
+        if self.n_ensembles > 1:
+            shape = (self.n_ensembles,) + shape
+        re = rng.standard_normal(shape).astype(np.float32)
+        im = rng.standard_normal(shape).astype(np.float32)
+        device = torch.device(device)
+        return (self.init_carry(device), torch.from_numpy(re).to(device),
+                torch.from_numpy(im).to(device),
+                torch.tensor(0.0, dtype=torch.float32, device=device))

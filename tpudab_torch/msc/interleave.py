@@ -1,8 +1,9 @@
 """MSC time deinterleave (EN 300 401 sec 12): the ring gather, kernel K4.
 
 Counterpart of tpudab.msc.interleave.deinterleave_batch, with the port's
-own copy of that module's numpy parts (the delay table and the
-synthesizer-side interleave_np).
+own copy of that module's numpy parts (the delay table, the
+synthesizer-side interleave_np and the receiver-side oracle
+deinterleave_np).
 
     out[..., i, col] = buf[..., i + d(col mod 16), col]
 
@@ -32,7 +33,7 @@ from tpudab_torch.constants.dab_params import CIF_BITS
 from tpudab_torch.fec.depuncture import depuncture_t
 from tpudab_torch.ops import _build
 
-__all__ = ["TIME_INTERLEAVE_DEPTH", "interleave_delays", "interleave_np",
+__all__ = ["TIME_INTERLEAVE_DEPTH", "interleave_delays", "interleave_np", "deinterleave_np",
            "deinterleave_batch", "deinterleave_ref", "deinterleave_cuda",
            "SoftRows", "deinterleave_depuncture_t", "deinterleave_depuncture_t_ref",
            "deinterleave_depuncture_t_cuda"]
@@ -64,6 +65,20 @@ def interleave_np(logical_frames: np.ndarray) -> np.ndarray:
     cols = np.broadcast_to(np.arange(n_bits)[None, :], rows.shape)
     valid = rows >= 0
     return np.where(valid, logical_frames[np.maximum(rows, 0), cols], 0)
+
+
+def deinterleave_np(cif_slices: np.ndarray) -> np.ndarray:
+    """Receiver-side numpy oracle: C_n -> u_m (valid for m <= n_frames-1-15).
+
+    Returns (n_frames, n_bits); rows m > n_frames-16 are partially zero
+    (future CIFs unavailable).
+    """
+    n_frames, n_bits = cif_slices.shape
+    d = interleave_delays(n_bits)
+    rows = np.arange(n_frames)[:, None] + d[None, :]
+    cols = np.broadcast_to(np.arange(n_bits)[None, :], rows.shape)
+    valid = rows < n_frames
+    return np.where(valid, cif_slices[np.minimum(rows, n_frames - 1), cols], 0)
 
 
 def _check(buf: torch.Tensor, c: int):

@@ -2,9 +2,10 @@
 
 Counterpart of tpudab.synth.ensemble without jax, so that the smoke run can
 synthesise the bench's signal on a machine that has no jax. Gives the same
-bits and IQ as tpudab.synth for the same spec and seed. Covers stream
-services, EEP and UEP subchannels; tpudab's packet-mode (FIG 0/3) and
-FM/DRM link FIGs are left out.
+bits and IQ as tpudab.synth for the same spec and seed. Covers stream and
+packet-mode components (FIG 0/2 in its SCId form, with FIG 0/3 for packet
+address 2), EEP and UEP subchannels, and FM and DRM service links
+(FIG 0/6 + FIG 0/21).
 """
 
 from __future__ import annotations
@@ -29,6 +30,9 @@ from tpudab_torch.utils.bits import unpack_bits
 
 ASCTY_DAB = 0        # MPEG-1/2 layer II audio
 ASCTY_DAB_PLUS = 63  # AAC superframes
+TMID_STREAM_AUDIO = 0
+TMID_STREAM_DATA = 1
+TMID_PACKET_DATA = 3
 
 
 @dataclasses.dataclass
@@ -68,10 +72,30 @@ class SubchannelSpec:
 class ServiceSpec:
     service_id: int
     label: str
-    components: list  # [(tmid, ascty, subch_id)], stream components
+    components: list  # [(tmid, ascty_or_dscty, subch_id)]
     programme_type: int = 0
     language: int = 0x09
-    country_id: int = 0xC
+    country_id: int = 0xC  # UK by default (with ECC 0xE1)
+
+
+@dataclasses.dataclass
+class FMLinkSpec:
+    """Linked FM service (RDS PI + frequency list) for FIG 0/6 + 0/21."""
+
+    service_id: int         # DAB service the FM service is linked to
+    rds_pi: int
+    frequencies_hz: list    # FM frequencies
+    link_session: int = 1
+
+
+@dataclasses.dataclass
+class DRMLinkSpec:
+    """Linked DRM service (DRM id + frequency list) for FIG 0/6 + 0/21."""
+
+    service_id: int
+    drm_id: int
+    frequencies_hz: list
+    link_session: int = 2
 
 
 @dataclasses.dataclass
@@ -83,11 +107,21 @@ class EnsembleSpec:
     ecc: int = 0xE1
     lto_half_hours: int = 0
     inter_table_id: int = 1
+    fm_links: list = dataclasses.field(default_factory=list)
+    drm_links: list = dataclasses.field(default_factory=list)
 
 
 def _label16(s: str) -> bytes:
     b = s.encode("latin-1", "replace")[:16]
     return b + b" " * (16 - len(b))
+
+
+def _fig0_6(link_session: int, idlq: int, ident: int) -> bytes:
+    """FIG 0/6 body: one linkage set (Id list flag 1, LA 1 = active, S/H 0,
+    ILS 0) with its LSN and one 16-bit id of list qualifier idlq."""
+    b0 = (1 << 7) | (1 << 6) | ((link_session >> 8) & 0x0F)
+    return bytes([0x06, b0, link_session & 0xFF, (idlq << 5) | 1,
+                  ident >> 8, ident & 0xFF])
 
 
 class _FIGWriter:
@@ -154,6 +188,11 @@ class EnsembleSynthesizer:
         self._coded_cache = {}   # (subch_id, logical_idx) -> slice bits
         used = np.zeros(CIF_CU, dtype=bool)
         for sub in spec.subchannels:
+            if sub.protection[0] == "uep":
+                expect = get_uep_profile(sub.protection[1], sub.protection[2]).size_cu
+                assert sub.size_cu == expect, (
+                    f"subchannel {sub.subch_id}: UEP {sub.protection[1]}kbps "
+                    f"PL{sub.protection[2]} requires size {expect} CU, got {sub.size_cu}")
             seg = used[sub.start_cu: sub.start_cu + sub.size_cu]
             assert not seg.any(), f"subchannel {sub.subch_id} overlaps"
             seg[:] = True
@@ -161,7 +200,7 @@ class EnsembleSynthesizer:
 
     # ---------------- FIC ----------------
 
-    def _build_figs(self) -> _FIGWriter:
+    def _build_figs(self, frame_idx: int) -> _FIGWriter:
         w = _FIGWriter()
         spec = self.spec
         cif = self.cif_counter % 5000
@@ -182,15 +221,30 @@ class EnsembleSynthesizer:
                 it += bytes([uep_index[(sub.protection[1], sub.protection[2])] & 0x3F])
             items.append(it)
         w.add_list(0, bytes([0x01]), items)
-        # FIG 0/2 service organisation (primary stream components)
+        # FIG 0/2 service organisation (primary components, no CA)
         items = []
+        packet_comps = []
         for svc in spec.services:
             it = bytes([svc.service_id >> 8, svc.service_id & 0xFF,
                         len(svc.components) & 0x0F])
             for (tmid, ty, subch_id) in svc.components:
-                it += bytes([(tmid << 6) | (ty & 0x3F), (subch_id << 2) | (1 << 1)])
+                if tmid == TMID_PACKET_DATA:
+                    # SCId == subch_id by synth convention; FIG 0/3 links it
+                    scid = subch_id
+                    it += bytes([(tmid << 6) | ((scid >> 6) & 0x3F),
+                                 ((scid & 0x3F) << 2) | (1 << 1)])
+                    packet_comps.append((scid, ty, subch_id))
+                else:
+                    it += bytes([(tmid << 6) | (ty & 0x3F), (subch_id << 2) | (1 << 1)])
             items.append(it)
         w.add_list(0, bytes([0x02]), items)
+        # FIG 0/3 packet-mode component: SCId -> subchannel, DSCTy, packet
+        # address 2 (no data groups flag)
+        if packet_comps:
+            w.add_list(0, bytes([0x03]), [
+                bytes([(scid >> 4) & 0xFF, (scid & 0x0F) << 4, dscty & 0x3F,
+                       subch_id << 2, 0x02])
+                for (scid, dscty, subch_id) in packet_comps])
         # FIG 0/9 country/LTO/ECC + international table
         w.add(0, bytes([0x09, abs(spec.lto_half_hours) & 0x3F, spec.ecc,
                         spec.inter_table_id]))
@@ -198,6 +252,24 @@ class EnsembleSynthesizer:
         for svc in spec.services:
             w.add(0, bytes([0x11, svc.service_id >> 8, svc.service_id & 0xFF,
                             0b00000000, svc.programme_type & 0x1F]))
+        # FIG 0/6 service linkage + FIG 0/21 frequency information per
+        # link: FM (IdLQ 1, RDS PI; R&M 8) and DRM (IdLQ 2; R&M 6)
+        for link in spec.fm_links:
+            w.add(0, _fig0_6(link.link_session, 1, link.rds_pi))
+            fi = bytes([link.rds_pi >> 8, link.rds_pi & 0xFF,
+                        (8 << 4) | len(link.frequencies_hz)])
+            fi += bytes(round((f_hz - 87_500_000) / 100_000)
+                        for f_hz in link.frequencies_hz)
+            w.add(0, bytes([0x15, 0x00, len(fi) & 0x1F]) + fi)
+        for link in spec.drm_links:
+            w.add(0, _fig0_6(link.link_session, 2, link.drm_id))
+            fi = bytearray([link.drm_id >> 8, link.drm_id & 0xFF,
+                            (6 << 4) | (1 + 2 * len(link.frequencies_hz)),
+                            link.drm_id & 0xFF])
+            for f_hz in link.frequencies_hz:
+                khz = f_hz // 1000
+                fi += bytes([(khz >> 8) & 0x7F, khz & 0xFF])
+            w.add(0, bytes([0x15, 0x00, len(fi) & 0x1F]) + bytes(fi))
         # FIG 1/0 ensemble label, FIG 1/1 programme service labels
         w.add(1, bytes([0x00, spec.ensemble_id >> 8, spec.ensemble_id & 0xFF])
               + _label16(spec.label) + b"\x00\x00")
@@ -206,9 +278,9 @@ class EnsembleSynthesizer:
                   + _label16(svc.label) + b"\x00\x00")
         return w
 
-    def build_fic_bits(self) -> np.ndarray:
+    def build_fic_bits(self, frame_idx: int) -> np.ndarray:
         """Punctured FIC bits (0/1) for one transmission frame."""
-        fibs = self._build_figs().pack_fibs(self.dab.nb_fibs)
+        fibs = self._build_figs(frame_idx).pack_fibs(self.dab.nb_fibs)
         groups = fibs.reshape(self.dab.nb_fib_groups,
                               self.dab.nb_fibs_per_group * FIB_BYTES)
         profile = FIC_PROFILE_MODE3 if self.mode == 3 else FIC_PROFILE
@@ -268,7 +340,7 @@ class EnsembleSynthesizer:
 
     def frame_bits(self, frame_idx: int) -> np.ndarray:
         """All bits (FIC + MSC CIFs) of one transmission frame."""
-        fic = self.build_fic_bits()
+        fic = self.build_fic_bits(frame_idx)
         cifs = [self.build_cif_bits(frame_idx * self.dab.nb_cifs + c)
                 for c in range(self.dab.nb_cifs)]
         self.cif_counter += self.dab.nb_cifs

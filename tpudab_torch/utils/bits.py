@@ -35,3 +35,13 @@ def torch_unpack_bits(data: torch.Tensor) -> torch.Tensor:
     w = torch.tensor(_SHIFTS, dtype=torch.int32, device=data.device)
     bits = (data.to(torch.int32)[..., None] >> w) & 1
     return bits.reshape(data.shape[:-1] + (data.shape[-1] * 8,)).to(torch.uint8)
+
+
+def hard_decision(soft) -> np.ndarray:
+    """Soft float bits -> 0/1 hard bits (sign < 0 => 1)."""
+    return (np.asarray(soft) < 0).astype(np.uint8)
+
+
+def bits_to_soft(bits, amplitude: float = 1.0) -> np.ndarray:
+    """0/1 bits -> ideal soft values (+A for 0, -A for 1)."""
+    return (amplitude * (1.0 - 2.0 * np.asarray(bits, dtype=np.float32))).astype(np.float32)
