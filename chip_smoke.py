@@ -137,7 +137,21 @@ Phases, each of which raises on failure (nothing is caught):
    9; then an in-process OfflinePipeline on the card: the packet
    component's SCId on subchannel 6 with DSCTy 60 and packet address 2,
    the FM and DRM services with their frequencies in the database, and
-   their lines in host.dashboard.render_text.
+   their lines in host.dashboard.render_text;
+14. the step's measurement tools (the port of tpudab's
+   tools/profile_step3.py, exp_step_shapes.py, exp_demod_output.py,
+   exp_conv_demod.py, exp_aligned_demod.py, exp_viterbi_params.py and
+   exp_viterbi_sweep.py), each through its main as `python -m
+   tpudab_torch.tools.<name>` runs it, at its own shapes: the in-step
+   breakdown at E x F = 16 x 16 and 32 x 16 (stage 3's MSC bytes equal
+   the step's), the six step shapes (every one must run), the demod's
+   output variants (norm parts within 1 bf16 ulp of the demod), the
+   products on a strided view of the rotated frame (and whether
+   torch.matmul copies the view), the row-aligned windows (sign match),
+   the Viterbi chain at the bench's batch (bytes equal to the plain twin
+   on the first codewords). Every check must hold, and K5, K4 mode (b)
+   and K1+K2 must be launched, with the launch counts set to 0 before and
+   read after.
 Each phase from 9 on prints its seconds.
 Every line with a device time carries the card's name and power limit. A
 bound is the least time the card could take for the work: the larger of
@@ -201,8 +215,10 @@ from tpudab_torch.synth import (ASCTY_DAB, ASCTY_DAB_PLUS, TMID_PACKET_DATA, Ens
                                 apply_impairments, modulate_frame_bits)
 from tpudab_torch.synth.ensemble import DRMLinkSpec, FMLinkSpec
 from tpudab_torch.synth.payload import dabplus_stream
-from tpudab_torch.tools import (exp_carve, exp_depunct_t, exp_i16_probe, exp_tb_tree,
-                                exp_viterbi, exp_viterbi_decompose, exp_viterbi_i16)
+from tpudab_torch.tools import (exp_aligned_demod, exp_carve, exp_conv_demod, exp_demod_output,
+                                exp_depunct_t, exp_i16_probe, exp_step_shapes, exp_tb_tree,
+                                exp_viterbi, exp_viterbi_decompose, exp_viterbi_i16,
+                                exp_viterbi_params, exp_viterbi_sweep, profile_step3)
 from tpudab_torch.tools._common import card as card_name
 from tpudab_torch.tools.launch_multihost import free_port
 from tpudab_torch.tools._common import timer
@@ -248,6 +264,9 @@ HOST_KERNELS = ("viterbi_bits", "deinterleave")
 TOOL_KERNELS = ("viterbi_fwd_variant", "viterbi_traceback", "i16_probe", "carve_variant")
 TOOLS = (exp_viterbi_decompose, exp_viterbi, exp_viterbi_i16, exp_tb_tree, exp_depunct_t,
          exp_i16_probe, exp_carve)
+# phase 14: the step's measurement tools and the kernels they launch
+STEP_TOOLS = (profile_step3, exp_step_shapes, exp_demod_output, exp_conv_demod,
+              exp_aligned_demod, exp_viterbi_params, exp_viterbi_sweep)
 HOST_FRAMES, HOST_BATCH, HOST_SIGMA = 64, 16, 0.5
 HOST_UEP = (7, 648, 96, 128, 3)   # subch id, start CU, size CU, kbps, protection level
 # phase 9: the decode path on an impaired capture of the bench multiplex
@@ -1351,28 +1370,45 @@ def launch_breakdown(x, y, card: str) -> dict:
     return res
 
 
-def run_tools(card):
-    """Phase 8, the slice's main path: each tool's entry point as
-    `python -m tpudab_torch.tools.<name>` runs it, at its own shapes, with
-    the launch counts set to 0 just before and read just after."""
+def run_tools(card, tools=TOOLS, kernels=TOOL_KERNELS):
+    """Phase 8, the slice's main path (and phase 14 with the step's tools
+    and kernels): each tool's entry point as `python -m
+    tpudab_torch.tools.<name>` runs it, at its own shapes, with the launch
+    counts set to 0 just before and read just after; every kernel must be
+    launched and every check hold."""
     torch.cuda.synchronize()
-    for name in TOOL_KERNELS:
+    for name in kernels:
         KERNELS[name][2].launches = 0
     checks = {}
     results = {}
-    for mod in TOOLS:
+    for mod in tools:
         name = mod.__name__.rsplit(".", 1)[1]
         print(f"--- python -m {mod.__name__}")
         out = mod.main([])
         results[name], checks[name] = out["ms"], out["checks"]
     torch.cuda.synchronize()
-    launches = {name: KERNELS[name][2].launches for name in TOOL_KERNELS}
+    launches = {name: KERNELS[name][2].launches for name in kernels}
     print(f"tools: launches {launches}")
     for name, n in launches.items():
         require(n > 0, f"kernel {name} was not launched by the tools")
     for name, c in checks.items():
         require(all(c.values()), f"tool {name}: a check failed: {c}")
     print(f"tools: every check held [{card}]")
+    return launches, results
+
+
+def run_step_tools(card):
+    """Phase 14: run_tools on the step's measurement tools and K5, K4 mode
+    (b) and K1+K2; every step shape must run."""
+    t_phase = time.perf_counter()
+    launches, results = run_tools(card, STEP_TOOLS, STEP_KERNELS)
+    shapes = [f"e{e}_f{f}" for e, f in exp_step_shapes.SHAPES]
+    require(sorted(results["exp_step_shapes"]) == sorted(shapes),
+            f"step shapes run: {sorted(results['exp_step_shapes'])}, want {shapes}")
+    best = max(shapes, key=lambda k: results["exp_step_shapes"][k]["rtf"])
+    print(f"step tools: every check held, all {len(shapes)} step shapes ran, the best RTF "
+          f"at {best} ({results['exp_step_shapes'][best]['rtf']:.0f}x) [{card}]")
+    print(f"phase 14: {time.perf_counter() - t_phase:.1f} s in all [{card}]")
     return launches, results
 
 
@@ -2636,6 +2672,10 @@ def main() -> None:
     # phase 13: a packet-mode slideshow multiplex with FM/DRM links, through `decode`
     packet = run_packet_path(dev, card)
     mark("13")
+
+    # phase 14: the step's measurement tools
+    step_tool_launches, _ = run_step_tools(card)
+    mark("14")
     print("phase seconds: " + ", ".join(f"{name} {t - t0:.1f}" for (_, t0), (name, t)
                                          in zip(marks, marks[1:])))
 
@@ -2713,6 +2753,7 @@ def main() -> None:
         if name in STEP_KERNELS:
             entry["sharded_launches"] = {k: v[name]
                                          for k, v in sharded["sharded_launches"].items()}
+            entry["step_tools_launches"] = step_tool_launches[name]
         kernels.append(entry)
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all, the build included")
     print(json.dumps({"kernels": kernels}))

@@ -26,3 +26,6 @@ takes the plain torch version beside it, a CUDA tensor launches the kernel.
 """
 
 __version__ = "0.1.0"
+
+from tpudab_torch.constants.ofdm_params import OFDMParams, get_ofdm_params
+from tpudab_torch.constants.dab_params import DABParams, get_dab_params

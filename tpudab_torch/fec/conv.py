@@ -35,6 +35,11 @@ OUTPUT_BITS = _parity(_reg7[:, None] & TAP_MASKS[None, :]).astype(np.uint8)
 # OUTPUT_SIGNS[reg7, j] = 1 - 2*bit, for correlation branch metrics.
 OUTPUT_SIGNS = (1.0 - 2.0 * OUTPUT_BITS).astype(np.float32)
 
+# Predecessor index tables for the ACS butterfly.
+_sprime = np.arange(N_STATES, dtype=np.int64)
+PRED0 = _sprime >> 1            # transition id = s'
+PRED1 = (_sprime >> 1) | 32     # transition id = s' | 64
+
 
 def conv_encode(bits: np.ndarray) -> np.ndarray:
     """Data bits -> mother code output of length 4*(len+6), with TAIL_BITS

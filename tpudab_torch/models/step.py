@@ -143,6 +143,26 @@ class ReceiveStep(nn.Module):
         by = viterbi_decode_bytes_t(soft_t, signs_on(soft_t.device), profile.data_bits)
         return by ^ getattr(self, f"prbs_{self._profile_ids[profile]}")
 
+    def msc_viterbi_inputs(self, carry, soft: torch.Tensor):
+        """The MSC half of decode_soft up to the Viterbi: flat soft
+        (E*F, nb_frame_bits) and the carry -> (new carry, [(profile, cfgs,
+        (T2p, 8, len(cfgs) * E * C) Viterbi input)] a coding group), one
+        deinterleave_depuncture_t (kernel K4 on CUDA) a subchannel."""
+        dab, e = self.dab, self.n_ensembles
+        c = soft.shape[0] // e * dab.nb_cifs
+        new_carry = dict(carry)
+        inputs = []
+        for (profile, slice_bits, _), cfgs in self.groups.items():
+            index, n_punct, soft_t = self._viterbi_input(soft, profile, len(cfgs) * e * c)
+            for i, cfg in enumerate(cfgs):
+                key = f"deint_{cfg.subch_id}"
+                rows = SoftRows.cif_slices(dab.nb_fic_bits, dab.nb_cifs,
+                                           cfg.start_cu * CU_BITS, slice_bits)
+                new_carry[key] = deinterleave_depuncture_t(
+                    soft, rows, carry[key], index, n_punct, soft_t, i * e * c)
+            inputs.append((profile, cfgs, soft_t))
+        return new_carry, inputs
+
     def decode_soft(self, carry, soft: torch.Tensor):
         """The FEC half of the step: flat soft (E*F, nb_frame_bits) in
         soft_dtype -> (new carry, fic_bytes, subch). Each FIC batch and
@@ -159,25 +179,19 @@ class ReceiveStep(nn.Module):
         if e > 1:
             fic_bytes = fic_bytes.reshape(e, f * g, -1)
 
-        c = f * dab.nb_cifs
+        new_carry, inputs = self.msc_viterbi_inputs(carry, soft)
         lead = (e,) if e > 1 else ()
-        new_carry = dict(carry)
         subch = {}
-        for (profile, slice_bits, _), cfgs in self.groups.items():
-            index, n_punct, soft_t = self._viterbi_input(soft, profile, len(cfgs) * e * c)
-            for i, cfg in enumerate(cfgs):
-                key = f"deint_{cfg.subch_id}"
-                rows = SoftRows.cif_slices(dab.nb_fic_bits, dab.nb_cifs,
-                                           cfg.start_cu * CU_BITS, slice_bits)
-                new_carry[key] = deinterleave_depuncture_t(
-                    soft, rows, carry[key], index, n_punct, soft_t, i * e * c)
+        for profile, cfgs, soft_t in inputs:
             by = self._decode_descramble(soft_t, profile)
-            by = by.reshape((len(cfgs),) + lead + (c, -1))
+            by = by.reshape((len(cfgs),) + lead + (f * dab.nb_cifs, -1))
             for i, cfg in enumerate(cfgs):
                 subch[cfg.subch_id] = by[i]
         return new_carry, fic_bytes, subch
 
-    def forward(self, carry, frames_re, frames_im, freq_hz):
+    def demod(self, frames_re, frames_im, freq_hz):
+        """The demod half of forward: frames and freq_hz as forward takes
+        them -> (flat soft (E*F, nb_frame_bits) in soft_dtype, stats)."""
         e = self.n_ensembles
         rows = self.params.nb_frame_length // 128
         if e > 1 and frames_re.shape[0] != e:
@@ -189,9 +203,12 @@ class ReceiveStep(nn.Module):
         freq = torch.as_tensor(freq_hz, dtype=torch.float32, device=frames_re.device)
         if e > 1:
             freq = freq.broadcast_to((e,)).repeat_interleave(f)
-        soft, stats = demod_frames_split(
+        return demod_frames_split(
             flat_re, flat_im, freq, (self.dft_re, self.dft_sum, self.dft_diff),
             self.mode, self.window_offset, out_dtype=self.soft_dtype)
+
+    def forward(self, carry, frames_re, frames_im, freq_hz):
+        soft, stats = self.demod(frames_re, frames_im, freq_hz)
         new_carry, fic_bytes, subch = self.decode_soft(carry, soft)
         outputs = {"fic_bytes": fic_bytes, "subch": subch,
                    "mean_power": stats["mean_power"],

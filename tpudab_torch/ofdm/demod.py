@@ -94,12 +94,13 @@ def demod_frames(frames, freq_offset_hz, mode: int = 1, window_offset: int = 12)
     return soft.float(), {"mean_power": (frames.abs() ** 2).mean(dim=-1)}
 
 
-def demod_frames_split(frames_re, frames_im, freq_hz, operands, mode: int = 1,
-                       window_offset: int = 12, out_dtype=torch.float32):
-    """frames (F, frame_len//128, 128) or (F, frame_len), bf16 or f32;
-    freq_hz scalar or (F,); operands from dft_operands. Returns
-    (soft (F, nb_frame_bits) out_dtype, stats) with stats holding
-    mean_power (F,) and the const_re/const_im constellation tap (480,)."""
+def spectra_split(frames_re, frames_im, freq_hz, operands, mode: int = 1,
+                  window_offset: int = 12):
+    """The demod's front: carve + rotate and the DFT products. frames
+    (F, frame_len//128, 128) or (F, frame_len), bf16 or f32; freq_hz scalar
+    or (F,); operands from dft_operands. Returns (cr, ci), the (F, n_sym, K)
+    spectra at the active carriers in logical order, in the operands'
+    dtype."""
     p = get_ofdm_params(mode)
     n_sym, n_fft = p.nb_symbols, p.nb_fft
     f = frames_re.shape[0]
@@ -115,21 +116,34 @@ def demod_frames_split(frames_re, frames_im, freq_hz, operands, mode: int = 1,
         m1 = torch.matmul(xs.view(f, n_sym, n_fft), wc)
         m2 = torch.matmul(ai, wcd)
         m3 = torch.matmul(ar, wdc)
-        cr = m1 - m2
-        ci = m3 + m1
-    else:
-        (mboth,) = operands
-        ar, ai = carve_windows(frames_re, frames_im, freq_hz, mode,
-                               window_offset, torch.float32)
-        k = mboth.shape[1] // 2
-        p1 = torch.matmul(ar, mboth)          # [ar@Wre | ar@Wim]
-        p2 = torch.matmul(ai, mboth)          # [ai@Wre | ai@Wim]
-        cr = p1[..., :k] - p2[..., k:]
-        ci = p1[..., k:] + p2[..., :k]
+        return m1 - m2, m3 + m1
+    (mboth,) = operands
+    ar, ai = carve_windows(frames_re, frames_im, freq_hz, mode,
+                           window_offset, torch.float32)
+    k = mboth.shape[1] // 2
+    p1 = torch.matmul(ar, mboth)          # [ar@Wre | ar@Wim]
+    p2 = torch.matmul(ai, mboth)          # [ai@Wre | ai@Wim]
+    return p1[..., :k] - p2[..., k:], p1[..., k:] + p2[..., :k]
 
-    # differential demap z_l * conj(z_{l-1})
+
+def differential_demap(cr, ci):
+    """(F, n_sym, K) spectra -> (F, n_sym - 1, K) parts of z_l * conj(z_{l-1})."""
     dr = cr[:, 1:] * cr[:, :-1] + ci[:, 1:] * ci[:, :-1]
     di = ci[:, 1:] * cr[:, :-1] - cr[:, 1:] * ci[:, :-1]
+    return dr, di
+
+
+def demod_frames_split(frames_re, frames_im, freq_hz, operands, mode: int = 1,
+                       window_offset: int = 12, out_dtype=torch.float32):
+    """frames (F, frame_len//128, 128) or (F, frame_len), bf16 or f32;
+    freq_hz scalar or (F,); operands from dft_operands. Returns
+    (soft (F, nb_frame_bits) out_dtype, stats) with stats holding
+    mean_power (F,) and the const_re/const_im constellation tap (480,)."""
+    p = get_ofdm_params(mode)
+    n_sym = p.nb_symbols
+    f = frames_re.shape[0]
+    dr, di = differential_demap(*spectra_split(frames_re, frames_im, freq_hz, operands,
+                                               mode, window_offset))
 
     if dr.dtype == torch.bfloat16:
         # normalise the parts before the concat (equal-sized halves, so the

@@ -7,8 +7,10 @@ import argparse
 import subprocess
 import time
 
+import numpy as np
 import torch
 
+from tpudab_torch.constants.ofdm_params import get_ofdm_params
 from tpudab_torch.utils.device import resolve_device
 
 
@@ -53,3 +55,30 @@ def timer(dev: torch.device):
         torch.cuda.synchronize()
         return start.elapsed_time(end) / iters
     return ms
+
+
+def gaussian_frames(f: int, dev: torch.device, mode: int = 1):
+    """(re3, im3) of tpudab's demod tools: f frames of Gaussian IQ,
+    default_rng(0), drawn in f32 and rounded to bf16, in the
+    (f, frame_len//128, 128) tiling."""
+    p = get_ofdm_params(mode)
+    rng = np.random.default_rng(0)
+    shape = (f, p.nb_frame_length // 128, 128)
+    return tuple(torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+                 .to(dev).to(torch.bfloat16) for _ in range(2))
+
+
+def noise_args(step, n_frames: int, seed: int, dev: torch.device):
+    """(carry, frames_re, frames_im, freq_hz) for step: what tpudab's
+    example_args(n_frames, seed) gives the tools (a zero carry, Gaussian IQ
+    in the step's frame tiling, 0 Hz), with the IQ drawn in bf16 by a
+    torch.Generator on dev. The bench's 512 frames are 200M samples, which
+    numpy would take seconds to draw on the host; the step's work does not
+    depend on the values."""
+    shape = (n_frames, step.params.nb_frame_length // 128, 128)
+    if step.n_ensembles > 1:
+        shape = (step.n_ensembles,) + shape
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    re, im = (torch.randn(shape, generator=gen, device=dev, dtype=torch.bfloat16)
+              for _ in range(2))
+    return step.init_carry(dev), re, im, torch.tensor(0.0, device=dev)
