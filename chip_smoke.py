@@ -151,7 +151,17 @@ Phases, each of which raises on failure (nothing is caught):
    the Viterbi chain at the bench's batch (bytes equal to the plain twin
    on the first codewords). Every check must hold, and K5, K4 mode (b)
    and K1+K2 must be launched, with the launch counts set to 0 before and
-   read after.
+   read after;
+15. the port's bench.py and bench_scaling.py (tpudab_torch/tools/bench.py,
+   bench_scaling.py), each as `python -m` runs it: the bench at E = 32 x
+   F = 16 bf16 behind bench.py's gate (FIB CRC, subchannel 1's payload)
+   and the Viterbi's twin check, with bench.py's keys, RTF and Mbit/s above
+   0, printed beside phase 5's CUDA-event step; its run() once in process,
+   which must launch K5, K4 mode (b) and K1+K2 (counts set to 0 before and
+   read after); then the weak-scaling sweep with one trial: rows for 1, 2,
+   4 and 8 ranks and the summary, each size on NCCL where its ranks have
+   a card each, else on gloo and oversubscribed (one card: a check of the
+   protocol and its overhead, not of scaling).
 Each phase from 9 on prints its seconds.
 Every line with a device time carries the card's name and power limit. A
 bound is the least time the card could take for the work: the larger of
@@ -215,6 +225,7 @@ from tpudab_torch.synth import (ASCTY_DAB, ASCTY_DAB_PLUS, TMID_PACKET_DATA, Ens
                                 apply_impairments, modulate_frame_bits)
 from tpudab_torch.synth.ensemble import DRMLinkSpec, FMLinkSpec
 from tpudab_torch.synth.payload import dabplus_stream
+from tpudab_torch.tools import bench as bench_tool
 from tpudab_torch.tools import (exp_aligned_demod, exp_carve, exp_conv_demod, exp_demod_output,
                                 exp_depunct_t, exp_i16_probe, exp_step_shapes, exp_tb_tree,
                                 exp_viterbi, exp_viterbi_decompose, exp_viterbi_i16,
@@ -300,6 +311,10 @@ SHARD_RANKS, SHARD_FRAMES, SHARD_CALLS, SHARD_TIMEOUT_S = 2, 8, 2, 600
 TCP_FRAMES_D, TCP_RETUNE_FRAMES, TCP_D_BATCHES, TCP_MAX_POLLS = 64, 24, 3, 60
 TCP_PACE = 1.0
 TCP_EID_D = 0xD12D
+# phase 15: the port's bench.py and bench_scaling.py, each a subprocess with
+# this time limit (s); the sweep's sizes
+BENCH_TIMEOUT_S, SCALING_TIMEOUT_S = 300, 600
+SCALING_SIZES = [1, 2, 4, 8]
 # wrapper -> the kernel whose ptxas resources its kernels line carries
 PTXAS_OF = {"viterbi_fwd_traceback": "viterbi_kernel<", "viterbi_bits": "viterbi_bits_kernel<",
             "viterbi_traceback": "viterbi_traceback_kernel<"}
@@ -1410,6 +1425,83 @@ def run_step_tools(card):
           f"at {best} ({results['exp_step_shapes'][best]['rtf']:.0f}x) [{card}]")
     print(f"phase 14: {time.perf_counter() - t_phase:.1f} s in all [{card}]")
     return launches, results
+
+
+def tool_stdout(module: str, timeout: float, env=None) -> str:
+    """`python -m <module>` from the checkout's root; its standard output.
+    A non-zero exit fails with the ends of its output."""
+    proc = subprocess.run([sys.executable, "-m", module], cwd=ROOT, env=env, timeout=timeout,
+                          capture_output=True, text=True)
+    require(proc.returncode == 0, f"python -m {module}: exit code {proc.returncode}\n"
+            f"{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}")
+    return proc.stdout
+
+
+def run_bench_tools(dev, card, step_ms: float) -> dict:
+    """Phase 15: (a) `python -m tpudab_torch.tools.bench` at its defaults
+    (E = 32 x F = 16, bf16; bench.py's gate, host-clock method and Viterbi
+    microbench): rc 0, bench.py's keys, RTF and Mbit/s above 0, printed
+    beside phase 5's CUDA-event step; then tools.bench.run once in this
+    process with the launch counts set to 0 before and read after: K5, K4
+    mode (b) and K1+K2 must be launched. (b) `python -m
+    tpudab_torch.tools.bench_scaling` with one trial: rc 0, the rows of
+    SCALING_SIZES and the summary; each size over NCCL where its ranks have
+    a card each, else over gloo and oversubscribed (on one card, sizes
+    2-8 share cuda:0: a check of the protocol and its overhead, not of
+    scaling)."""
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    line = json.loads(tool_stdout("tpudab_torch.tools.bench", BENCH_TIMEOUT_S).splitlines()[-1])
+    missing = [k for k in bench_tool.KEYS if k not in line]
+    require(not missing and "error" not in line, f"bench: keys {missing} missing, or an error: "
+            f"{line}")
+    require(line["value"] > 0 and line["viterbi_mbit_s"] > 0, f"bench: {line}")
+    rtf5 = N_ENS * N_FRAMES * get_ofdm_params(1).nb_frame_length / SAMPLING_RATE / (step_ms / 1e3)
+    print(f"bench (a): python -m tpudab_torch.tools.bench: {json.dumps(line)}")
+    print(f"bench (a) [{card}]: RTF {line['value']} by bench.py's method (host clock, "
+          f"{N_ENS} x {N_FRAMES}, the checksum as the barrier) beside phase 5's {step_ms:.3f} ms "
+          f"a step by CUDA events (RTF {rtf5:.1f}) in this call; Viterbi "
+          f"{line['viterbi_mbit_s']} Mbit/s, spread {line['viterbi_mbit_s_spread']}")
+
+    torch.cuda.synchronize()
+    for name in STEP_KERNELS:
+        KERNELS[name][2].launches = 0
+    in_process, _ = bench_tool.run(dev, N_ENS, N_FRAMES)
+    torch.cuda.synchronize()
+    launches = {name: KERNELS[name][2].launches for name in STEP_KERNELS}
+    require(all(launches.values()), f"bench in process: launches {launches}")
+    print(f"bench (a) in process: {json.dumps(in_process)}; launches {launches}")
+    torch.cuda.empty_cache()
+
+    env = dict(os.environ, TPUDAB_SCALING_TRIALS="1")
+    summary = json.loads(tool_stdout("tpudab_torch.tools.bench_scaling", SCALING_TIMEOUT_S,
+                                     env).splitlines()[-1])
+    rows = summary["results"]
+    require([r["n_devices"] for r in rows] == SCALING_SIZES, f"bench_scaling: sizes "
+            f"{[r['n_devices'] for r in rows]}, want {SCALING_SIZES}")
+    cards = torch.cuda.device_count()
+    for r in rows:
+        n = r["n_devices"]
+        require(r["backend"] == ("nccl" if n <= cards else "gloo")
+                and (n <= cards or r["oversubscribed"]) and r["collective_ms"] >= 0,
+                f"bench_scaling: size {n} on {cards} card(s): {r}")
+    gloo = summary["two_process_gloo"]
+    require(gloo["backend"] == "gloo" and gloo["step_ms"] > 0, f"bench_scaling: {gloo}")
+    print(f"bench_scaling (b) [{card}]: python -m tpudab_torch.tools.bench_scaling, one trial, "
+          f"{summary['host_cores']} cores, pinned {summary['pinned']}; on {cards} card(s) the "
+          f"sizes beyond it share cuda:0 over gloo: a protocol and overhead check, not scaling")
+    for r in rows:
+        print(f"  {r['n_devices']} rank(s), mesh {tuple(r['mesh'])}, {r['backend']}, "
+              f"{r['cards']} card(s), oversubscribed {r['oversubscribed']}: step "
+              f"{r['step_ms']} ms, {r['realtime_x_per_device']}x real time a rank, halo "
+              f"{r['collective_ms']} ms an exchange ({r['collective_fraction']} of the step)")
+    print(f"  two processes over gloo: step {gloo['step_ms']} ms, halo {gloo['collective_ms']} "
+          f"ms; summary: " + json.dumps({k: v for k, v in summary.items()
+                                          if k not in ("results", "two_process_gloo")}))
+    print(f"phase 15: {time.perf_counter() - t_phase:.1f} s in all [{card}]")
+    return {"bench_launches": launches, "bench": line, "bench_in_process": in_process,
+            "scaling": summary}
 
 
 def decode_capture(n_frames: int):
@@ -2676,6 +2768,10 @@ def main() -> None:
     # phase 14: the step's measurement tools
     step_tool_launches, _ = run_step_tools(card)
     mark("14")
+
+    # phase 15: the port's bench.py and bench_scaling.py
+    bench = run_bench_tools(dev, card, step_ms)
+    mark("15")
     print("phase seconds: " + ", ".join(f"{name} {t - t0:.1f}" for (_, t0), (name, t)
                                          in zip(marks, marks[1:])))
 
@@ -2754,6 +2850,7 @@ def main() -> None:
             entry["sharded_launches"] = {k: v[name]
                                          for k, v in sharded["sharded_launches"].items()}
             entry["step_tools_launches"] = step_tool_launches[name]
+            entry["bench_launches"] = bench["bench_launches"][name]
         kernels.append(entry)
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all, the build included")
     print(json.dumps({"kernels": kernels}))

@@ -36,7 +36,8 @@ SCRIPT = textwrap.dedent("""
     assert any(m.startswith("tpudab_torch.tools.") for m in mods), mods
     assert {"tpudab_torch.parallel", "tpudab_torch.parallel.sharded_step",
             "tpudab_torch.host.rtl_tcp", "tpudab_torch.tools.launch_multihost",
-            "tpudab_torch.ofdm.sync_np"} <= set(mods)
+            "tpudab_torch.ofdm.sync_np", "tpudab_torch.tools.bench",
+            "tpudab_torch.tools.bench_scaling"} <= set(mods)
     for m in mods:
         importlib.import_module(m)
     import chip_smoke  # the smoke script imports only the port and torch

@@ -159,13 +159,7 @@ class ShardedReceiveStep:
 
         exchange = self.halo_exchange and self.n_time > 1
         if exchange:
-            t0 = time.perf_counter()
-            send = tail_cat.cpu() if self.staged else tail_cat
-            recv = torch.empty_like(send)
-            t1 = time.perf_counter()
-            group = self.mesh.time_group
-            reqs = [dist.isend(send, self._neighbour(1), group=group),
-                    dist.irecv(recv, self._neighbour(-1), group=group)]
+            pending = self.post_halo(tail_cat)
 
         # the interior while the exchange flows
         if edge_f < t_l:
@@ -177,15 +171,7 @@ class ShardedReceiveStep:
         soft = soft.reshape(e_l * t_l, -1)
 
         if exchange:
-            t2 = time.perf_counter()
-            for r in reqs:
-                r.wait()
-            t3 = time.perf_counter()
-            ring = recv.to(self.device) if self.staged else recv
-            t4 = time.perf_counter()
-            self.last_exchange = {"halo_bytes": tail_cat.numel() * tail_cat.element_size(),
-                                  "stage_ms": 1e3 * (t1 - t0 + t4 - t3),
-                                  "wait_ms": 1e3 * (t3 - t2)}
+            ring = self.wait_halo(pending)
         else:
             ring = torch.zeros_like(tail_cat)
         ring = self._split(ring)
@@ -202,6 +188,34 @@ class ShardedReceiveStep:
         out = {"fic_bytes": fic_bytes.reshape((e_l, -1) + fic_bytes.shape[-1:]),
                "subch": {k: v.reshape((e_l, -1) + v.shape[-1:]) for k, v in subch.items()}}
         return new_carry, out
+
+    def post_halo(self, tail: torch.Tensor):
+        """Send tail to the right time neighbour and post the receive of the
+        left one's (copied through host memory on gloo); wait_halo takes
+        the handle."""
+        t0 = time.perf_counter()
+        send = tail.cpu() if self.staged else tail
+        recv = torch.empty_like(send)
+        stage_s = time.perf_counter() - t0
+        group = self.mesh.time_group
+        reqs = [dist.isend(send, self._neighbour(1), group=group),
+                dist.irecv(recv, self._neighbour(-1), group=group)]
+        return send, recv, reqs, stage_s
+
+    def wait_halo(self, pending) -> torch.Tensor:
+        """post_halo's receive, on the step's device; records the exchange's
+        bytes, staging and wait in last_exchange."""
+        send, recv, reqs, stage_s = pending
+        t0 = time.perf_counter()
+        for r in reqs:
+            r.wait()
+        t1 = time.perf_counter()
+        ring = recv.to(self.device) if self.staged else recv
+        t2 = time.perf_counter()
+        self.last_exchange = {"halo_bytes": send.numel() * send.element_size(),
+                              "stage_ms": 1e3 * (stage_s + t2 - t1),
+                              "wait_ms": 1e3 * (t1 - t0)}
+        return ring
 
     def _split(self, cat: torch.Tensor) -> Dict[str, torch.Tensor]:
         """(E_l, 15, sum of slice_bits) -> {"deint_<id>": contiguous (E_l, 15,

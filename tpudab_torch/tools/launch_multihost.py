@@ -114,11 +114,18 @@ def run_worker(coordinator: str, n: int, pid: int, device: str) -> int:
     return 0
 
 
-def run_local(n: int, device: str) -> int:
-    coord = f"127.0.0.1:{free_port()}"
+def local_env(threads: int) -> dict:
+    """The environment of a local worker: the repo first on PYTHONPATH and,
+    unless set, OMP_NUM_THREADS threads."""
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [ROOT] + ([os.environ["PYTHONPATH"]] if os.environ.get("PYTHONPATH") else [])))
-    env.setdefault("OMP_NUM_THREADS", str(max(1, (os.cpu_count() or 1) // n)))  # a share each
+    env.setdefault("OMP_NUM_THREADS", str(threads))
+    return env
+
+
+def run_local(n: int, device: str) -> int:
+    coord = f"127.0.0.1:{free_port()}"
+    env = local_env(max(1, (os.cpu_count() or 1) // n))  # a share of the cores each
     procs = [subprocess.Popen([sys.executable, "-m", "tpudab_torch.tools.launch_multihost",
                                "worker", "--coordinator", coord, "--num-processes", str(n),
                                "--process-id", str(i), "--device", device], env=env, cwd=ROOT)
