@@ -1,0 +1,11 @@
+"""span.demod.carve_ms: the program's `demod.carve` span: K5's carve and
+rotate with its tables (items: window samples); summed over a step, on the
+card's clock (the CUDA events the program records on the stream at the
+span's edges), the median over the traced run's steps profiled on the card
+alone (benchmark/spans.py)."""
+
+from benchmark.spans import median_ms
+
+
+def read(r):
+    return median_ms(r, ("demod.carve",))

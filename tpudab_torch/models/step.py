@@ -11,6 +11,11 @@ Subchannels with the same coding geometry (profile, slice size, padding)
 batch into one Viterbi call across subchannels and ensembles. Every static
 table is a registered buffer, so `step.to(device)` moves them all; nothing
 else moves tensors between devices.
+
+Under a profiler the step records spans (host/profiling.py): step, demod
+(and its stages, ofdm/demod.py), fec, fec.deint (the FIC's K4 launch,
+then the subchannels'), fec.viterbi (K1 + K2 and the PRBS XOR, a Viterbi
+call).
 """
 
 from __future__ import annotations
@@ -26,6 +31,7 @@ from tpudab_torch.constants.ofdm_params import get_ofdm_params
 from tpudab_torch.constants.puncture import FIC_PROFILE, FIC_PROFILE_MODE3, eep_profile
 from tpudab_torch.fec.depuncture import depuncture_index
 from tpudab_torch.fec.prbs import prbs_bytes
+from tpudab_torch.host.profiling import span
 from tpudab_torch.msc.interleave import (TIME_INTERLEAVE_DEPTH, SoftRows,
                                          deinterleave_depuncture_t)
 from tpudab_torch.msc.subchannel import SubchannelConfig
@@ -101,6 +107,7 @@ class ReceiveStep(nn.Module):
         self.params = get_ofdm_params(mode)
         self.dab = get_dab_params(mode)
         self.fic_profile = FIC_PROFILE_MODE3 if mode == 3 else FIC_PROFILE
+        self._msc_slice_bits = sum(cfg.slice_bits for cfg in self.subchannels)
 
         for name, w in zip(("dft_re", "dft_sum", "dft_diff"),
                            dft_operands(mode, "bfloat16")):
@@ -140,8 +147,9 @@ class ReceiveStep(nn.Module):
 
     def _decode_descramble(self, soft_t: torch.Tensor, profile) -> torch.Tensor:
         """(T2p, 8, B) Viterbi input -> (B, data_bits // 8) descrambled bytes."""
-        by = viterbi_decode_bytes_t(soft_t, signs_on(soft_t.device), profile.data_bits)
-        return by ^ getattr(self, f"prbs_{self._profile_ids[profile]}")
+        with span("fec.viterbi", soft_t.shape[-1], soft_t.device):
+            by = viterbi_decode_bytes_t(soft_t, signs_on(soft_t.device), profile.data_bits)
+            return by ^ getattr(self, f"prbs_{self._profile_ids[profile]}")
 
     def msc_viterbi_inputs(self, carry, soft: torch.Tensor):
         """The MSC half of decode_soft up to the Viterbi: flat soft
@@ -172,22 +180,28 @@ class ReceiveStep(nn.Module):
         dab, e = self.dab, self.n_ensembles
         f = soft.shape[0] // e
         g = dab.nb_fib_groups
-        index, n_punct, fic_t = self._viterbi_input(soft, self.fic_profile, soft.shape[0] * g)
-        deinterleave_depuncture_t(soft, SoftRows.fib_groups(g, dab.nb_fic_bits_per_group),
-                                  None, index, n_punct, fic_t)
-        fic_bytes = self._decode_descramble(fic_t, self.fic_profile)
-        if e > 1:
-            fic_bytes = fic_bytes.reshape(e, f * g, -1)
+        with span("fec", 0, soft.device):
+            with span("fec.deint", soft.shape[0] * dab.nb_fic_bits, soft.device):
+                index, n_punct, fic_t = self._viterbi_input(soft, self.fic_profile,
+                                                            soft.shape[0] * g)
+                deinterleave_depuncture_t(
+                    soft, SoftRows.fib_groups(g, dab.nb_fic_bits_per_group), None, index,
+                    n_punct, fic_t)
+            fic_bytes = self._decode_descramble(fic_t, self.fic_profile)
+            if e > 1:
+                fic_bytes = fic_bytes.reshape(e, f * g, -1)
 
-        new_carry, inputs = self.msc_viterbi_inputs(carry, soft)
-        lead = (e,) if e > 1 else ()
-        subch = {}
-        for profile, cfgs, soft_t in inputs:
-            by = self._decode_descramble(soft_t, profile)
-            by = by.reshape((len(cfgs),) + lead + (f * dab.nb_cifs, -1))
-            for i, cfg in enumerate(cfgs):
-                subch[cfg.subch_id] = by[i]
-        return new_carry, fic_bytes, subch
+            with span("fec.deint", soft.shape[0] * dab.nb_cifs * self._msc_slice_bits,
+                      soft.device):
+                new_carry, inputs = self.msc_viterbi_inputs(carry, soft)
+            lead = (e,) if e > 1 else ()
+            subch = {}
+            for profile, cfgs, soft_t in inputs:
+                by = self._decode_descramble(soft_t, profile)
+                by = by.reshape((len(cfgs),) + lead + (f * dab.nb_cifs, -1))
+                for i, cfg in enumerate(cfgs):
+                    subch[cfg.subch_id] = by[i]
+            return new_carry, fic_bytes, subch
 
     def demod(self, frames_re, frames_im, freq_hz):
         """The demod half of forward: frames and freq_hz as forward takes
@@ -198,18 +212,21 @@ class ReceiveStep(nn.Module):
             raise ValueError(f"frames {tuple(frames_re.shape)} do not lead "
                              f"with the step's {e} ensembles")
         f = frames_re.shape[1] if e > 1 else frames_re.shape[0]
-        flat_re = frames_re.reshape((e * f, rows, 128))
-        flat_im = frames_im.reshape((e * f, rows, 128))
-        freq = torch.as_tensor(freq_hz, dtype=torch.float32, device=frames_re.device)
-        if e > 1:
-            freq = freq.broadcast_to((e,)).repeat_interleave(f)
-        return demod_frames_split(
-            flat_re, flat_im, freq, (self.dft_re, self.dft_sum, self.dft_diff),
-            self.mode, self.window_offset, out_dtype=self.soft_dtype)
+        with span("demod", e * f, frames_re.device):
+            flat_re = frames_re.reshape((e * f, rows, 128))
+            flat_im = frames_im.reshape((e * f, rows, 128))
+            freq = torch.as_tensor(freq_hz, dtype=torch.float32, device=frames_re.device)
+            if e > 1:
+                freq = freq.broadcast_to((e,)).repeat_interleave(f)
+            return demod_frames_split(
+                flat_re, flat_im, freq, (self.dft_re, self.dft_sum, self.dft_diff),
+                self.mode, self.window_offset, out_dtype=self.soft_dtype)
 
     def forward(self, carry, frames_re, frames_im, freq_hz):
-        soft, stats = self.demod(frames_re, frames_im, freq_hz)
-        new_carry, fic_bytes, subch = self.decode_soft(carry, soft)
+        n_frames = frames_re.shape[0] * (frames_re.shape[1] if self.n_ensembles > 1 else 1)
+        with span("step", n_frames, frames_re.device):
+            soft, stats = self.demod(frames_re, frames_im, freq_hz)
+            new_carry, fic_bytes, subch = self.decode_soft(carry, soft)
         outputs = {"fic_bytes": fic_bytes, "subch": subch,
                    "mean_power": stats["mean_power"],
                    "const_re": stats["const_re"], "const_im": stats["const_im"]}

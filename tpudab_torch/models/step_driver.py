@@ -18,11 +18,24 @@ from __future__ import annotations
 
 from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
+from tpudab_torch.host.profiling import span
 from tpudab_torch.models.step import ReceiveStep
 from tpudab_torch.msc.interleave import TIME_INTERLEAVE_DEPTH
 from tpudab_torch.utils.device import DEFAULT_DEVICE, resolve_device
+
+
+def read_back(step_out: Dict) -> Tuple[np.ndarray, Dict[int, np.ndarray]]:
+    """A step's decoded bytes on the host: (fic_bytes, {subch_id: bytes}),
+    each output copied by its own .cpu(), the subchannels first; under a
+    profiler inside span("readback", items=the bytes copied)."""
+    fic, subch = step_out["fic_bytes"], step_out["subch"]
+    n_bytes = sum(t.numel() * t.element_size() for t in (fic, *subch.values()))
+    with span("readback", n_bytes, fic.device):
+        subch_bytes = {k: v.cpu().numpy() for k, v in subch.items()}
+        return fic.cpu().numpy(), subch_bytes
 
 
 class StepDriver:
@@ -113,9 +126,8 @@ class StepDriver:
         """
         nf = frames_re.shape[0]
         self.carry, step_out = self.step(self.carry, frames_re, frames_im, freq_hz)
-        subch_bytes = {k: v.cpu().numpy() for k, v in step_out["subch"].items()}
-        outputs = receiver.process_step_outputs(
-            step_out["fic_bytes"].cpu().numpy(), subch_bytes, dict(self.first_logical))
+        fic_bytes, subch_bytes = read_back(step_out)
+        outputs = receiver.process_step_outputs(fic_bytes, subch_bytes, dict(self.first_logical))
         for k in self.first_logical:
             self.first_logical[k] += nf * receiver.dab.nb_cifs
         return outputs, step_out

@@ -16,6 +16,11 @@ Two DFT paths, chosen by the operands' dtype (dft_operands):
   products round as the reference's do.
 - f32: plain carve + rotate in f32 and two f32 matmuls, for parity with
   tpudab's f32 path.
+
+Under a profiler the stages record spans (host/profiling.py): demod.carve
+(K5 and its tables; items: window samples), demod.dft (the products),
+demod.demap, demod.norm (items: soft bits) and demod.stats (the tap and
+mean_power).
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ import torch
 
 from tpudab_torch.constants.interleaver import get_carrier_map_positions
 from tpudab_torch.constants.ofdm_params import SAMPLING_RATE, get_ofdm_params
+from tpudab_torch.host.profiling import span
 from tpudab_torch.ops.carve import carve_rotate, carve_windows
 
 N_CONST_POINTS = 480  # constellation tap size
@@ -104,26 +110,31 @@ def spectra_split(frames_re, frames_im, freq_hz, operands, mode: int = 1,
     p = get_ofdm_params(mode)
     n_sym, n_fft = p.nb_symbols, p.nb_fft
     f = frames_re.shape[0]
+    dev = frames_re.device
 
     if operands[0].dtype == torch.bfloat16:
         wc, wcd, wdc = operands
-        xr, xi, xs = carve_rotate(frames_re, frames_im, freq_hz, mode, window_offset,
-                                  with_sum=True)
-        ar = xr.view(f, n_sym, n_fft)
-        ai = xi.view(f, n_sym, n_fft)
-        # Karatsuba: three products instead of four, bf16 outputs; xs is
-        # the bf16 ar + ai, written by the carve
-        m1 = torch.matmul(xs.view(f, n_sym, n_fft), wc)
-        m2 = torch.matmul(ai, wcd)
-        m3 = torch.matmul(ar, wdc)
-        return m1 - m2, m3 + m1
+        with span("demod.carve", f * n_sym * n_fft, dev):
+            xr, xi, xs = carve_rotate(frames_re, frames_im, freq_hz, mode, window_offset,
+                                      with_sum=True)
+        with span("demod.dft", 0, dev):
+            ar = xr.view(f, n_sym, n_fft)
+            ai = xi.view(f, n_sym, n_fft)
+            # Karatsuba: three products instead of four, bf16 outputs; xs is
+            # the bf16 ar + ai, written by the carve
+            m1 = torch.matmul(xs.view(f, n_sym, n_fft), wc)
+            m2 = torch.matmul(ai, wcd)
+            m3 = torch.matmul(ar, wdc)
+            return m1 - m2, m3 + m1
     (mboth,) = operands
-    ar, ai = carve_windows(frames_re, frames_im, freq_hz, mode,
-                           window_offset, torch.float32)
-    k = mboth.shape[1] // 2
-    p1 = torch.matmul(ar, mboth)          # [ar@Wre | ar@Wim]
-    p2 = torch.matmul(ai, mboth)          # [ai@Wre | ai@Wim]
-    return p1[..., :k] - p2[..., k:], p1[..., k:] + p2[..., :k]
+    with span("demod.carve", f * n_sym * n_fft, dev):
+        ar, ai = carve_windows(frames_re, frames_im, freq_hz, mode,
+                               window_offset, torch.float32)
+    with span("demod.dft", 0, dev):
+        k = mboth.shape[1] // 2
+        p1 = torch.matmul(ar, mboth)          # [ar@Wre | ar@Wim]
+        p2 = torch.matmul(ai, mboth)          # [ai@Wre | ai@Wim]
+        return p1[..., :k] - p2[..., k:], p1[..., k:] + p2[..., :k]
 
 
 def differential_demap(cr, ci):
@@ -142,30 +153,35 @@ def demod_frames_split(frames_re, frames_im, freq_hz, operands, mode: int = 1,
     p = get_ofdm_params(mode)
     n_sym = p.nb_symbols
     f = frames_re.shape[0]
-    dr, di = differential_demap(*spectra_split(frames_re, frames_im, freq_hz, operands,
-                                               mode, window_offset))
+    dev = frames_re.device
+    spectra = spectra_split(frames_re, frames_im, freq_hz, operands, mode, window_offset)
+    with span("demod.demap", 0, dev):
+        dr, di = differential_demap(*spectra)
+    del spectra     # freed before the normalisation allocates
 
-    if dr.dtype == torch.bfloat16:
-        # normalise the parts before the concat (equal-sized halves, so the
-        # mean over the frame is the average of the halves' means)
-        norm = 0.5 * (dr.abs().float().mean(dim=(1, 2), keepdim=True)
-                      + di.abs().float().mean(dim=(1, 2), keepdim=True))
-        denom = norm.clamp_min(1e-20)
-        soft = torch.cat([(dr.float() / denom).to(out_dtype),
-                          (di.float() / denom).to(out_dtype)], dim=-1)
-        soft = soft.reshape(f, p.nb_frame_bits)
-    else:
-        soft = torch.cat([dr, di], dim=-1).reshape(f, p.nb_frame_bits)
-        norm = soft.abs().mean(dim=-1, keepdim=True)
-        soft = (soft / norm.clamp_min(1e-20)).to(out_dtype)
+    with span("demod.norm", f * p.nb_frame_bits, dev):
+        if dr.dtype == torch.bfloat16:
+            # normalise the parts before the concat (equal-sized halves, so
+            # the mean over the frame is the average of the halves' means)
+            norm = 0.5 * (dr.abs().float().mean(dim=(1, 2), keepdim=True)
+                          + di.abs().float().mean(dim=(1, 2), keepdim=True))
+            denom = norm.clamp_min(1e-20)
+            soft = torch.cat([(dr.float() / denom).to(out_dtype),
+                              (di.float() / denom).to(out_dtype)], dim=-1)
+            soft = soft.reshape(f, p.nb_frame_bits)
+        else:
+            soft = torch.cat([dr, di], dim=-1).reshape(f, p.nb_frame_bits)
+            norm = soft.abs().mean(dim=-1, keepdim=True)
+            soft = (soft / norm.clamp_min(1e-20)).to(out_dtype)
 
-    # decimated constellation tap of the last frame, unit RMS
-    stride = max(1, ((n_sym - 1) * dr.shape[-1]) // N_CONST_POINTS)
-    cr_pts = dr[-1].reshape(-1)[::stride][:N_CONST_POINTS].float()
-    ci_pts = di[-1].reshape(-1)[::stride][:N_CONST_POINTS].float()
-    scale = torch.rsqrt((cr_pts ** 2 + ci_pts ** 2).mean() + 1e-20)
-    fr = frames_re.reshape(f, -1).float()
-    fi = frames_im.reshape(f, -1).float()
-    stats = {"mean_power": (fr ** 2 + fi ** 2).mean(dim=-1),
-             "const_re": cr_pts * scale, "const_im": ci_pts * scale}
+    with span("demod.stats", 0, dev):
+        # decimated constellation tap of the last frame, unit RMS
+        stride = max(1, ((n_sym - 1) * dr.shape[-1]) // N_CONST_POINTS)
+        cr_pts = dr[-1].reshape(-1)[::stride][:N_CONST_POINTS].float()
+        ci_pts = di[-1].reshape(-1)[::stride][:N_CONST_POINTS].float()
+        scale = torch.rsqrt((cr_pts ** 2 + ci_pts ** 2).mean() + 1e-20)
+        fr = frames_re.reshape(f, -1).float()
+        fi = frames_im.reshape(f, -1).float()
+        stats = {"mean_power": (fr ** 2 + fi ** 2).mean(dim=-1),
+                 "const_re": cr_pts * scale, "const_im": ci_pts * scale}
     return soft, stats

@@ -39,6 +39,7 @@ import torch.distributed as dist
 
 from tpudab_torch.constants.dab_params import CIF_BITS, CU_BITS, get_dab_params
 from tpudab_torch.constants.ofdm_params import get_ofdm_params
+from tpudab_torch.host.profiling import span
 from tpudab_torch.models.convert import carry_from_jax
 from tpudab_torch.models.step import ReceiveStep
 from tpudab_torch.msc.interleave import TIME_INTERLEAVE_DEPTH
@@ -137,6 +138,10 @@ class ShardedReceiveStep:
         return self.mesh.rank_at(self.e_idx, (self.t_idx + dt) % self.n_time)
 
     def __call__(self, carry, frames_re, frames_im, freq_hz):
+        with span("step", frames_re.shape[0] * frames_re.shape[1], frames_re.device):
+            return self._call(carry, frames_re, frames_im, freq_hz)
+
+    def _call(self, carry, frames_re, frames_im, freq_hz):
         dab = self.dab
         e_l, t_l = frames_re.shape[:2]
         if t_l * dab.nb_cifs < _H:
