@@ -205,10 +205,11 @@ from tpudab_torch.msc.interleave import (SoftRows, deinterleave_cuda,
                                          deinterleave_depuncture_t_ref, deinterleave_ref,
                                          interleave_delays)
 from tpudab_torch.msc.subchannel import subch_cif_slices
+from tpudab_torch.ofdm import demod as demod_mod
 from tpudab_torch.ofdm.demod import demod_frames_split
 from tpudab_torch.ofdm.sync_device import acquire_device, acquire_host
 from tpudab_torch.ofdm.sync_np import acquire_np
-from tpudab_torch.ops import _build
+from tpudab_torch.ops import _build, demod_tail
 from tpudab_torch.ops.carve import (_windows, carve_rotate_cuda, carve_rotate_ref,
                                    carve_rotate_tables_ref, rotator_tables)
 from tpudab_torch.ops.carve_exp import carve_variant_cuda, carve_variant_ref
@@ -736,6 +737,58 @@ def unfused_chain(soft, carries, index, fic_index):
     return depuncture_t(torch.cat(logicals), index), depuncture_t(fic, fic_index)
 
 
+def check_demod_tail(dev, card):
+    """Phase 3, the demod's tail (csrc/demod_tail.cu) at the step's shapes:
+    the three bf16 products of E x F = 512 random mode-I frames; the
+    partials, the bf16 soft bits, mean_power and the tap bit-equal to the
+    plain twins on the CPU for the last 16 frames (each frame's numbers
+    depend on that frame alone, the tap on the last). Times each kernel
+    (profiler device time) beside its bound and the eager ATen chain it
+    replaced on the same products (ofdm/demod.py::eager_tail, the CPU
+    path, run on the card: the plain version's time)."""
+    f, tail = N_ENS * N_FRAMES, 16
+    n = get_ofdm_params(1).nb_frame_length
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    fr, fi = (torch.randn((f, n // 128, 128), generator=gen, device=dev).mul_(0.3)
+              .to(torch.bfloat16) for _ in range(2))
+    freq = torch.linspace(-2000.0, 2000.0, f, device=dev)
+    ops = tuple(w.to(dev) for w in demod_mod.dft_operands(1))
+    m = demod_mod._spectra(fr, fi, freq, ops, 1, 12, False)
+    partials = demod_tail.demap_cuda(*m)
+    soft = demod_tail.norm_cuda(*m, partials)
+    power, tap = demod_tail.stats_cuda(fr, fi, *m)
+    torch.cuda.synchronize()
+    mc = tuple(x[-tail:].cpu() for x in m)
+    want = demod_tail.demap_ref(*mc)
+    require(same_bits(partials[-tail:].cpu(), want), "demap_kernel differs from demap_ref")
+    require(same_bits(soft[-tail:].cpu(), demod_tail.norm_ref(*mc, want)),
+            "norm_kernel differs from norm_ref")
+    ref = demod_tail.stats_ref(fr[-tail:].cpu(), fi[-tail:].cpu(), *mc)
+    require(same_bits(power[-tail:].cpu(), ref[0]) and same_bits(tap.cpu(), ref[1]),
+            "stats_kernel differs from stats_ref")
+
+    def eager():
+        return demod_mod.eager_tail((m[0] - m[1], m[2] + m[0]), fr, fi, torch.bfloat16)
+    m_bytes = sum(x.numel() * 2 for x in m)
+    bounds = {"demap_kernel": bound(m_bytes, 0), "norm_kernel": bound(m_bytes + soft.numel() * 2, 0),
+              "stats_kernel": bound(2 * fr.numel() * 2, 0)}
+    calls = {"demap_kernel": lambda: demod_tail.demap_cuda(*m),
+             "norm_kernel": lambda: demod_tail.norm_cuda(*m, partials),
+             "stats_kernel": lambda: demod_tail.stats_cuda(fr, fi, *m)}
+    res = {}
+    for name, fn in calls.items():
+        res[name] = (kernel_ms(fn, 20, name), *bounds[name])
+    plain = cuda_ms(eager, 5)
+    total = sum(r[0] for r in res.values())
+    print(f"demod tail (512, 76, 1536) bf16 products: partials, soft bits, mean_power and tap "
+          f"bit-equal to the twins (last {tail} frames); " + ", ".join(
+              f"{k} {v[0]:.4f} ms (bound {v[1]:.4f}, {100 * v[1] / v[0]:.1f}%)"
+              for k, v in res.items())
+          + f"; all {total:.4f} ms, bound {sum(r[1] for r in res.values()):.4f}; the eager "
+          f"chain {plain:.3f} ms  [{card}]")
+    return {"demod_tail": res, "demod_tail_eager_ms": plain}
+
+
 def check_chain(dev, card):
     """Phase 3, K4's mode (b) at the step's shapes: the six 108-CU EEP 3-A
     subchannels of one group (E = 32, c = 64: B = 12,288, T2p = 1,744) and
@@ -862,8 +915,9 @@ def run_main_path(dev, card):
     carry = step.init_carry(dev)
     torch.cuda.synchronize()
 
-    for w in KERNELS.values():
-        w[2].launches = 0
+    tail = (demod_tail.demap_cuda, demod_tail.norm_cuda, demod_tail.stats_cuda)
+    for w in [w[2] for w in KERNELS.values()] + list(tail):
+        w.launches = 0
     outs = []
     for k in range(N_STEPS):
         carry, out = step(carry, chunks[k][0], chunks[k][1], freq)
@@ -872,7 +926,9 @@ def run_main_path(dev, card):
     launches = {name: KERNELS[name][2].launches for name in STEP_KERNELS}
     mode_a = deinterleave_cuda.launches
     print(f"main path: {N_STEPS} steps of E={N_ENS} x F={N_FRAMES}; launches {launches}; "
-          f"K4 mode (a) {mode_a}")
+          f"K4 mode (a) {mode_a}; demod tail {[w.launches for w in tail]}")
+    require(all(w.launches == N_STEPS for w in tail),
+            "the step's demod tail did not run as its three kernels once a step")
     for name, n in launches.items():
         if n == 0:
             raise AssertionError(f"kernel {name} was not launched by the main path")
@@ -2716,6 +2772,7 @@ def main() -> None:
     mark("1-2")
     rng = np.random.default_rng(SEED)
     res = check_kernels(dev, rng, card)
+    res.update(check_demod_tail(dev, card))
     chain = check_chain(dev, card)
     mark("3")
     launches, step_ms, bench_frames, bench_payload = run_main_path(dev, card)

@@ -21,6 +21,7 @@ from tpudab_torch.msc.interleave import (SoftRows, deinterleave_cuda,
                                          deinterleave_depuncture_t_ref, deinterleave_ref)
 from tpudab_torch.ops.carve import carve_rotate_cuda, carve_rotate_ref, carve_rotate_tables_ref
 from tpudab_torch.ops.carve_exp import carve_variant_cuda, carve_variant_ref
+from tpudab_torch.ops import demod_tail
 from tpudab_torch.ops.i16_probe import OPS as I16_OPS
 from tpudab_torch.ops.i16_probe import i16_probe_cuda, i16_probe_ref
 from tpudab_torch.ops.viterbi import radix_tables
@@ -200,6 +201,93 @@ def test_step_cuda_equals_cpu(dev):
     assert torch.equal(gpu["fic_bytes"].cpu(), cpu["fic_bytes"])
     for sid in cpu["subch"]:
         assert torch.equal(gpu["subch"][sid].cpu(), cpu["subch"][sid])
+
+
+def demod_products(dev, mode, f, seed=5):
+    """The three bf16 Karatsuba products of f random frames on the card,
+    and the frames; frame 1 all zeros where f > 1 (its mean clamps)."""
+    from tpudab_torch.ofdm import demod
+    n = get_ofdm_params(mode).nb_frame_length
+    rng = np.random.default_rng(seed)
+    fr, fi = (torch.from_numpy(0.3 * rng.standard_normal((f, n // 128, 128),
+                                                         dtype=np.float32)) for _ in range(2))
+    if f > 1:
+        fr[1] = fi[1] = 0.0
+    fr, fi = fr.to(dev, torch.bfloat16), fi.to(dev, torch.bfloat16)
+    freq = torch.linspace(-1500.0, 2500.0, f, device=dev)
+    ops = tuple(w.to(dev) for w in demod.dft_operands(mode))
+    return demod._spectra(fr, fi, freq, ops, mode, 12, False), (fr, fi)
+
+
+@pytest.mark.parametrize("f", [1, 3, 16])
+@pytest.mark.parametrize("mode", [1, 2, 3, 4])
+def test_demod_tail_kernels_equal_twins(dev, mode, f):
+    """The demod tail's three kernels bit-equal to their plain twins (run on
+    the CPU): the partials, the soft bits in bf16 and f32, mean_power and
+    the tap for bf16 and f32 frames, tiled and flat; one launch each."""
+    m, (fr, fi) = demod_products(dev, mode, f)
+    mc = tuple(x.cpu() for x in m)
+    n0 = (demod_tail.demap_cuda.launches, demod_tail.norm_cuda.launches,
+          demod_tail.stats_cuda.launches)
+    partials = demod_tail.demap_cuda(*m)
+    soft = {dt: demod_tail.norm_cuda(*m, partials, dt) for dt in (torch.bfloat16, torch.float32)}
+    stats = demod_tail.stats_cuda(fr, fi, *m)
+    torch.cuda.synchronize()
+    assert (demod_tail.demap_cuda.launches, demod_tail.norm_cuda.launches,
+            demod_tail.stats_cuda.launches) == (n0[0] + 1, n0[1] + 2, n0[2] + 1)
+    want = demod_tail.demap_ref(*mc)
+    assert same_bits(partials.cpu(), want)
+    for dt, got in soft.items():
+        assert same_bits(got.cpu(), demod_tail.norm_ref(*mc, want, dt))
+    for dtype in (torch.bfloat16, torch.float32):
+        for shape in ((f, -1, 128), (f, -1)):
+            re, im = fr.to(dtype).reshape(shape), fi.to(dtype).reshape(shape)
+            got = stats if dtype == torch.bfloat16 and len(shape) == 3 else \
+                demod_tail.stats_cuda(re, im, *m)
+            ref = demod_tail.stats_ref(re.cpu(), im.cpu(), *mc)
+            assert same_bits(got[0].cpu(), ref[0]) and same_bits(got[1].cpu(), ref[1])
+
+
+def demod_step_batch(dev):
+    """A seeded bf16 batch of the bench multiplex's first two subchannels,
+    E = 2 x F = 4, and the step for it on the card."""
+    from tpudab_torch.synth import (ASCTY_DAB_PLUS, EnsembleSpec, EnsembleSynthesizer,
+                                    ServiceSpec, SubchannelSpec, modulate_frame_bits)
+    sub = bench_subchannels()[:2]
+    spec = EnsembleSpec(0xBE9D, "Tail", [ServiceSpec(0xC201, "T", [(0, ASCTY_DAB_PLUS, 1)])],
+                        [SubchannelSpec(c.subch_id, c.start_cu, c.size_cu, ("eep", 3, 0))
+                         for c in sub])
+    synth = EnsembleSynthesizer(spec, seed=3)
+    frames = np.stack([modulate_frame_bits(synth.frame_bits(i)) for i in range(8)])
+    step = ReceiveStep(1, sub, n_ensembles=2).to(dev)
+    tiled = step.tile_frames(frames).reshape((2, 4) + step.tile_frames(frames).shape[1:])
+    re, im = (torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(dev, torch.bfloat16)
+              for x in (tiled.real, tiled.imag))
+    return step, re, im, torch.tensor([0.0, 250.0], device=dev)
+
+
+def test_receive_step_takes_the_demod_tail(dev, monkeypatch):
+    """ReceiveStep on the card with bf16 frames runs the demod's tail as
+    the three kernels, once each a step; its outputs (FIC and subchannel
+    bytes, mean_power, the tap) are those of the eager chain it replaced:
+    bytes equal, mean_power within 1e-6, the tap within 1e-6."""
+    from tpudab_torch.ofdm import demod
+    step, re, im, freq = demod_step_batch(dev)
+    wrappers = (demod_tail.demap_cuda, demod_tail.norm_cuda, demod_tail.stats_cuda)
+    n0 = [w.launches for w in wrappers]
+    _, got = step(step.init_carry(dev), re, im, freq)
+    torch.cuda.synchronize()
+    assert [w.launches - n for w, n in zip(wrappers, n0)] == [1, 1, 1]
+    monkeypatch.setattr(demod, "_tail_kernels", lambda operands, device: False)
+    _, want = step(step.init_carry(dev), re, im, freq)
+    torch.cuda.synchronize()
+    assert [w.launches - n for w, n in zip(wrappers, n0)] == [1, 1, 1]
+    assert torch.equal(got["fic_bytes"], want["fic_bytes"])
+    for sid in want["subch"]:
+        assert torch.equal(got["subch"][sid], want["subch"][sid])
+    torch.testing.assert_close(got["mean_power"], want["mean_power"], rtol=1e-6, atol=0.0)
+    for key in ("const_re", "const_im"):
+        torch.testing.assert_close(got[key], want[key], rtol=1e-6, atol=1e-7)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

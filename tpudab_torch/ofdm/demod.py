@@ -17,10 +17,22 @@ Two DFT paths, chosen by the operands' dtype (dft_operands):
 - f32: plain carve + rotate in f32 and two f32 matmuls, for parity with
   tpudab's f32 path.
 
+The tail after the products (the Karatsuba combine, the DQPSK demap, the
+normalisation, the tap and mean_power) runs where the products are:
+- CUDA tensors with bf16 operands: three launches of csrc/demod_tail.cu
+  (tpudab_torch.ops.demod_tail), which read the products in bf16 and write
+  the soft bits, with no f32 copy in between. dr and di round where the
+  eager chain does; the f32 sums behind the frame's mean, mean_power and
+  the tap's scale run in the kernels' fixed order (soft bits within 1 bf16
+  ulp of the eager chain's).
+- the CPU, or f32 operands: the eager torch chain (eager_tail), which
+  the CPU tests hold against tpudab.
+
 Under a profiler the stages record spans (host/profiling.py): demod.carve
-(K5 and its tables; items: window samples), demod.dft (the products),
-demod.demap, demod.norm (items: soft bits) and demod.stats (the tap and
-mean_power).
+(K5 and its tables; items: window samples), demod.dft (the products, and
+on the eager chain the combine), demod.demap (the demap and, on CUDA, the
+per-frame sums), demod.norm (items: soft bits) and demod.stats (the tap
+and mean_power).
 """
 
 from __future__ import annotations
@@ -33,6 +45,7 @@ import torch
 from tpudab_torch.constants.interleaver import get_carrier_map_positions
 from tpudab_torch.constants.ofdm_params import SAMPLING_RATE, get_ofdm_params
 from tpudab_torch.host.profiling import span
+from tpudab_torch.ops import demod_tail
 from tpudab_torch.ops.carve import carve_rotate, carve_windows
 
 N_CONST_POINTS = 480  # constellation tap size
@@ -107,6 +120,12 @@ def spectra_split(frames_re, frames_im, freq_hz, operands, mode: int = 1,
     or (F,); operands from dft_operands. Returns (cr, ci), the (F, n_sym, K)
     spectra at the active carriers in logical order, in the operands'
     dtype."""
+    return _spectra(frames_re, frames_im, freq_hz, operands, mode, window_offset, True)
+
+
+def _spectra(frames_re, frames_im, freq_hz, operands, mode, window_offset, combine):
+    """spectra_split; with bf16 operands and combine False, the three
+    Karatsuba products (m1, m2, m3) instead of (m1 - m2, m3 + m1)."""
     p = get_ofdm_params(mode)
     n_sym, n_fft = p.nb_symbols, p.nb_fft
     f = frames_re.shape[0]
@@ -125,7 +144,7 @@ def spectra_split(frames_re, frames_im, freq_hz, operands, mode: int = 1,
             m1 = torch.matmul(xs.view(f, n_sym, n_fft), wc)
             m2 = torch.matmul(ai, wcd)
             m3 = torch.matmul(ar, wdc)
-            return m1 - m2, m3 + m1
+            return (m1 - m2, m3 + m1) if combine else (m1, m2, m3)
     (mboth,) = operands
     with span("demod.carve", f * n_sym * n_fft, dev):
         ar, ai = carve_windows(frames_re, frames_im, freq_hz, mode,
@@ -144,22 +163,44 @@ def differential_demap(cr, ci):
     return dr, di
 
 
+def _tail_kernels(operands, device) -> bool:
+    """Whether the demod's tail runs as csrc/demod_tail.cu: on CUDA, with
+    the bf16 (Karatsuba) operands."""
+    return device.type == "cuda" and operands[0].dtype == torch.bfloat16
+
+
 def demod_frames_split(frames_re, frames_im, freq_hz, operands, mode: int = 1,
                        window_offset: int = 12, out_dtype=torch.float32):
     """frames (F, frame_len//128, 128) or (F, frame_len), bf16 or f32;
     freq_hz scalar or (F,); operands from dft_operands. Returns
     (soft (F, nb_frame_bits) out_dtype, stats) with stats holding
     mean_power (F,) and the const_re/const_im constellation tap (480,)."""
-    p = get_ofdm_params(mode)
-    n_sym = p.nb_symbols
-    f = frames_re.shape[0]
     dev = frames_re.device
-    spectra = spectra_split(frames_re, frames_im, freq_hz, operands, mode, window_offset)
+    if not _tail_kernels(operands, dev):
+        return eager_tail(spectra_split(frames_re, frames_im, freq_hz, operands, mode,
+                                        window_offset), frames_re, frames_im, out_dtype)
+    m = _spectra(frames_re, frames_im, freq_hz, operands, mode, window_offset, False)
+    with span("demod.demap", 0, dev):
+        partials = demod_tail.demap(*m)
+    with span("demod.norm", m[0].shape[0] * get_ofdm_params(mode).nb_frame_bits, dev):
+        soft = demod_tail.norm(*m, partials, out_dtype)
+    with span("demod.stats", 0, dev):
+        mean_power, tap = demod_tail.stats(frames_re, frames_im, *m)
+    return soft, {"mean_power": mean_power, "const_re": tap[0], "const_im": tap[1]}
+
+
+def eager_tail(spectra, frames_re, frames_im, out_dtype=torch.float32):
+    """The demod after the DFT in eager torch: spectra (cr, ci) from
+    spectra_split and the frames -> demod_frames_split's (soft, stats).
+    The spectra are freed before the normalisation allocates, so pass the
+    pair without keeping it."""
+    dev = frames_re.device
     with span("demod.demap", 0, dev):
         dr, di = differential_demap(*spectra)
-    del spectra     # freed before the normalisation allocates
+    del spectra
+    f, n_rows, k = dr.shape
 
-    with span("demod.norm", f * p.nb_frame_bits, dev):
+    with span("demod.norm", 2 * dr.numel(), dev):
         if dr.dtype == torch.bfloat16:
             # normalise the parts before the concat (equal-sized halves, so
             # the mean over the frame is the average of the halves' means)
@@ -168,15 +209,15 @@ def demod_frames_split(frames_re, frames_im, freq_hz, operands, mode: int = 1,
             denom = norm.clamp_min(1e-20)
             soft = torch.cat([(dr.float() / denom).to(out_dtype),
                               (di.float() / denom).to(out_dtype)], dim=-1)
-            soft = soft.reshape(f, p.nb_frame_bits)
+            soft = soft.reshape(f, -1)
         else:
-            soft = torch.cat([dr, di], dim=-1).reshape(f, p.nb_frame_bits)
+            soft = torch.cat([dr, di], dim=-1).reshape(f, -1)
             norm = soft.abs().mean(dim=-1, keepdim=True)
             soft = (soft / norm.clamp_min(1e-20)).to(out_dtype)
 
     with span("demod.stats", 0, dev):
         # decimated constellation tap of the last frame, unit RMS
-        stride = max(1, ((n_sym - 1) * dr.shape[-1]) // N_CONST_POINTS)
+        stride = max(1, (n_rows * k) // N_CONST_POINTS)
         cr_pts = dr[-1].reshape(-1)[::stride][:N_CONST_POINTS].float()
         ci_pts = di[-1].reshape(-1)[::stride][:N_CONST_POINTS].float()
         scale = torch.rsqrt((cr_pts ** 2 + ci_pts ** 2).mean() + 1e-20)

@@ -46,6 +46,9 @@ SIGNATURES = {
     "tpudab_i16_probe": (_P, _P, _P, _I, _I, _I, _P),
     "tpudab_carve_variant": (_P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                              _I, _I, _I, _I, _I, _I, _I, _P),
+    "tpudab_demod_demap": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "tpudab_demod_norm": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "tpudab_demod_stats": (_P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
 }
 
 

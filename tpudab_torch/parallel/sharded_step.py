@@ -13,7 +13,7 @@ torch.distributed (counterpart of tpudab.parallel.sharded_step).
 
 Each rank runs the port's single-device chain: a ReceiveStep of E_l
 ensembles (models/step.py), whose demod_frames_split (K5, the bf16 DFT
-GEMMs) runs twice, on the edge frames and on the interior, and whose
+GEMMs, the tail's three kernels of csrc/demod_tail.cu) runs twice, on the edge frames and on the interior, and whose
 decode_soft (K4 mode (b) from the soft bits and the halo to the Viterbi
 input, K1+K2, the PRBS XOR) takes the halo as its carry. tpudab's sharded
 step runs an f32 depuncture, deinterleave and non-transposed Viterbi

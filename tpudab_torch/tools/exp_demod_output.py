@@ -4,10 +4,11 @@ normalisation after the port's demod front (K5, the three DFT products,
 the differential demap; ofdm/demod.py::spectra_split, differential_demap).
 Four variants: the parts (dr, di) alone; + the concat to (F,
 nb_frame_bits); + the normalisation on the flat array; the parts
-normalised and not concatenated. The last is the one the port's demod runs
-(demod_frames_split normalises the parts, then concatenates), so its
-check holds it, concatenated, within 1 bf16 ulp of demod_frames_split's
-soft bits. 256 frames of Gaussian bf16 IQ, seed 0, 1200 Hz.
+normalised and not concatenated. The last is the one the port's eager
+chain runs (demod_frames_split on the CPU normalises the parts, then
+concatenates; on the card its tail is csrc/demod_tail.cu, which writes
+the same layout), so its check holds it, concatenated, within 1 bf16 ulp
+of demod_frames_split's soft bits. 256 frames of Gaussian bf16 IQ, seed 0, 1200 Hz.
 
 Run: python -m tpudab_torch.tools.exp_demod_output [iters]
 """
