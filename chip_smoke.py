@@ -22,7 +22,11 @@ Phases, each of which raises on failure (nothing is caught):
    host path runs it, on f32 (79, 108 * 64) and (79, 96 * 64) subchannel
    buffers, exact; and K4's mode (b), soft bits and carry to the Viterbi
    input, bit-equal on the step's MSC group and FIC, timed beside the
-   chain of copies and gathers it replaced (unfused_chain);
+   chain of copies and gathers it replaced (unfused_chain); and rtl_sdr's
+   raw u8 frames (512 x frame_len x 2, random bytes): K5's and
+   stats_kernel's u8 instantiations bit-equal to carve_rotate_tables_ref
+   and stats_ref on the same frames, each timed beside its bound (a 2-byte
+   read a sample);
 4. run the receive step at the bench's size (mode I, six 108-CU EEP 3-A
    subchannels, 32 ensembles x 16 frames per step, bf16 IQ) over three
    chained steps of a synthesised signal: every FIB CRC must pass, the
@@ -30,6 +34,12 @@ Phases, each of which raises on failure (nothing is caught):
    kernel's launch count must rise (K4's mode (b) once per subchannel and
    once for the FIC in each step, mode (a) never), and ensemble 0's first
    step must equal the same step run on the CPU through the plain twins;
+   then one step of the same signal as rtl_sdr's u8 (each rail's RMS 32
+   LSB) fed from 32 pinned host regions through a HostFeed: K5 and
+   stats_kernel launched once each (counts set to 0 just before),
+   E x F x 2 x frame_len bytes copied, every FIB CRC passing, subchannel
+   1's payload byte for byte, and the same bytes as the step on the f32
+   frames (x - 127.5) / 128;
 5. time the step and each kernel beside its plain twin with CUDA events
    (K4 and K5, shorter than their wrappers' host work, also alone by the
    profiler's device time: kernel_ms);
@@ -198,6 +208,7 @@ from tpudab_torch.fec.crc import check_fib_crc
 from tpudab_torch.fec.depuncture import (depuncture_index, depuncture_np, depuncture_t,
                                          puncture)
 from tpudab_torch.host.cli import main as cli_main
+from tpudab_torch.models.ingest import HostFeed
 from tpudab_torch.models.receiver import Receiver
 from tpudab_torch.models.step import ReceiveStep, bench_capture, bench_subchannels
 from tpudab_torch.msc.interleave import (SoftRows, deinterleave_cuda,
@@ -501,8 +512,8 @@ def build() -> dict:
     for label, (regs, spill, smem) in resources.items():
         print(f"  resources {label}: {regs} registers, {spill} bytes spill stores, {smem} bytes smem")
     sass_mix()
-    require(len(resources) == 9, f"ptxas reported {len(resources)} of the 7 Viterbi decode "
-            f"and traceback kernels and K5's 2: {sorted(resources)}")
+    require(len(resources) == 10, f"ptxas reported {len(resources)} of the 7 Viterbi decode "
+            f"and traceback kernels and K5's 3: {sorted(resources)}")
     for label, regs in PARENT_K5_REGS.items():
         require(resources[label][0] <= regs and resources[label][1] == 0,
                 f"{label}: {resources[label][0]} registers, {resources[label][1]} bytes spill "
@@ -519,7 +530,7 @@ def ptxas_resources(log: str) -> dict:
     """{label: (registers, spill store bytes, static shared bytes)} of the
     Viterbi decode kernels (viterbi_kernel, viterbi_bits_kernel, each in
     f32 and bf16), the traceback kernel's three modes and K5
-    (carve_kernel, f32 and bf16), from ptxas' -v report."""
+    (carve_kernel, f32, bf16 and u8), from ptxas' -v report."""
     out, label = {}, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
@@ -530,7 +541,8 @@ def ptxas_resources(log: str) -> dict:
             if k:
                 arg = k.group(2)
                 tag = ("shuffle", "masked", "tree")[int(arg[2])] if arg.startswith("Li") \
-                    else "bf16" if arg.startswith("13__nv_bfloat16") else "f32"
+                    else "bf16" if arg.startswith("13__nv_bfloat16") \
+                    else "u8" if arg.startswith("hE") else "f32"
                 label = f"{k.group(1)}<{tag}>"
                 out[label] = [0, 0, 0]
             continue
@@ -789,6 +801,59 @@ def check_demod_tail(dev, card):
     return {"demod_tail": res, "demod_tail_eager_ms": plain}
 
 
+def check_u8(dev, card):
+    """Phase 3, rtl_sdr's raw u8 frames at the step's shapes: E x F = 512
+    random u8 frames (F, frame_len, 2) on the card. K5's u8 instantiation
+    (with the sum) bit-equal to carve_rotate_tables_ref on the card, and
+    stats_kernel's to stats_ref on the CPU, on every frame; each kernel
+    timed on the device alone (K5 by the profiler, kernel_ms; stats_kernel
+    by device_ms, which holds only that kernel) beside its bound, whose
+    read is 2 bytes a sample, and beside its plain twin. A time under its
+    bound fails."""
+    f = N_ENS * N_FRAMES
+    n = get_ofdm_params(1).nb_frame_length
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    u8 = torch.randint(0, 256, (f, n, 2), generator=gen, device=dev, dtype=torch.uint8)
+    freq = torch.linspace(-2000.0, 2000.0, f, device=dev)
+    xr, xi, xs = carve_rotate_cuda(u8, None, freq, with_sum=True)
+    want = carve_rotate_tables_ref(u8, None, freq, with_sum=True)
+    torch.cuda.synchronize()
+    require(all(same_bits(a, b) for a, b in zip((xr, xi, xs), want)),
+            "K5's u8 instantiation differs from carve_rotate_tables_ref")
+    del want
+    carve = lambda: carve_rotate_cuda(u8, None, freq, with_sum=True)
+    carve_ms = kernel_ms(carve, 20, "carve_kernel")
+    carve_call = cuda_ms(carve, 20)
+    carve_plain = cuda_ms(lambda: carve_rotate_tables_ref(u8, None, freq, with_sum=True), 5)
+    carve_bnd = carve_bound(u8, xr, n_out=3)      # u8: 1-byte elements, I and Q
+
+    ops = tuple(w.to(dev) for w in demod_mod.dft_operands(1))
+    m = demod_mod._spectra(u8, None, freq, ops, 1, 12, False)
+    power, tap = demod_tail.stats_cuda(u8, None, *m)
+    torch.cuda.synchronize()
+    ref = demod_tail.stats_ref(u8.cpu(), None, *(x.cpu() for x in m))
+    require(same_bits(power.cpu(), ref[0]) and same_bits(tap.cpu(), ref[1]),
+            "stats_kernel's u8 instantiation differs from stats_ref")
+    # CUDA events behind a spin kernel: on an H100 the profiler recorded one
+    # launch in about twenty of this kernel (kernel_ms read 0.0035 ms a call)
+    stats_ms = device_ms(lambda: demod_tail.stats_cuda(u8, None, *m), 20)
+    stats_plain = cuda_ms(lambda: demod_tail.stats_ref(u8, None, *m), 5)
+    stats_bnd = bound(u8.numel(), 0)               # the frames read once
+    require(carve_ms >= carve_bnd[0] / 1.05 and stats_ms >= stats_bnd[0] / 1.05,
+            f"a u8 kernel's time is under its bound: K5 {carve_ms:.4f} ms (bound "
+            f"{carve_bnd[0]:.4f}), stats_kernel {stats_ms:.4f} ms (bound {stats_bnd[0]:.4f})")
+    print(f"u8 frames ({f}, {n}, 2): K5 carve_rotate xr, xi, xs bit-equal to the tables twin; "
+          f"kernel {carve_ms:.4f} ms (a call {carve_call:.3f} ms; bound {carve_bnd[0]:.4f} ms, "
+          f"{carve_bnd[1]}, {100 * carve_bnd[0] / carve_ms:.1f}%), plain {carve_plain:.3f} ms; "
+          f"stats_kernel mean_power and tap bit-equal to stats_ref (CPU, all {f} frames); "
+          f"kernel {stats_ms:.4f} ms (device_ms; bound {stats_bnd[0]:.4f} ms, {stats_bnd[1]}, "
+          f"{100 * stats_bnd[0] / stats_ms:.1f}%), plain {stats_plain:.3f} ms  [{card}]")
+    return {"carve_rotate_u8": {"ms": carve_ms, "call_ms": carve_call, "plain_ms": carve_plain,
+                                "bound_ms": carve_bnd[0], "bound_by": carve_bnd[1]},
+            "stats_kernel_u8": {"ms": stats_ms, "plain_ms": stats_plain,
+                                "bound_ms": stats_bnd[0], "bound_by": stats_bnd[1]}}
+
+
 def check_chain(dev, card):
     """Phase 3, K4's mode (b) at the step's shapes: the six 108-CU EEP 3-A
     subchannels of one group (E = 32, c = 64: B = 12,288, T2p = 1,744) and
@@ -952,6 +1017,9 @@ def run_main_path(dev, card):
             raise AssertionError(f"subchannel {c.subch_id} differs between CUDA and CPU")
     print("main path: ensemble 0 step 0 equals the CPU plain-twin step byte for byte")
 
+    # rtl_sdr's front end: step 0's signal as u8, fed from pinned host memory
+    run_hostfed_step(dev, step, frames[:N_FRAMES], freq, payload, subch[0].subch_id)
+
     # phase 5: timing
     state = {"carry": carry}
 
@@ -980,6 +1048,43 @@ def run_main_path(dev, card):
     state["carry"] = device_breakdown(step, state["carry"], chunks[0], freq, step_ms, card)
     fec_breakdown(step, state["carry"], soft, card)
     return launches, step_ms, frames, payload
+
+
+def run_hostfed_step(dev, step, frames: np.ndarray, freq, payload, sid: int) -> None:
+    """Phase 4, the step on rtl_sdr's raw IQ: frames (F, frame_len) complex
+    quantised as rtl_sdr delivers them (each rail's RMS 32 LSB around
+    127.5, rounded, clipped to 0..255), one pinned host region an ensemble,
+    fed through a HostFeed into a first step. K5 and stats_kernel must run
+    once each (counts set to 0 just before the step), the feed must count
+    every byte, and the bytes must be those of the f32 frames
+    (x - 127.5) / 128 through the same step, and the payload."""
+    x = frames.ravel().astype(np.complex128)
+    x *= 32.0 / np.sqrt(np.mean(np.abs(x) ** 2) / 2)
+    iq = np.clip(np.rint(np.stack([x.real, x.imag], axis=-1) + 127.5), 0, 255)
+    u8 = torch.from_numpy(iq.astype(np.uint8)).reshape(frames.shape + (2,))
+    regions = [torch.empty(u8.shape, dtype=torch.uint8, pin_memory=True).copy_(u8)
+               for _ in range(N_ENS)]
+    feed = HostFeed((N_ENS,) + tuple(u8.shape), dev)
+    torch.cuda.synchronize()
+    carve_rotate_cuda.launches = demod_tail.stats_cuda.launches = 0
+    feed.feed(regions)
+    _, got = step(step.init_carry(dev), feed, None, freq)
+    torch.cuda.synchronize()
+    k5, st = carve_rotate_cuda.launches, demod_tail.stats_cuda.launches
+    due = N_ENS * u8.numel()
+    print(f"main path, u8 through HostFeed: E={N_ENS} x F={u8.shape[0]}, {feed.bytes_copied} B "
+          f"copied from {N_ENS} pinned regions (due {due}); launches K5 {k5}, stats_kernel {st}")
+    require(k5 == 1 and st == 1, "the u8 step did not run K5 and stats_kernel once each")
+    require(feed.bytes_copied == due, "HostFeed did not count the step's bytes")
+    check_outputs(got, payload, 0, sid)
+    re = ((u8[..., 0].float() - 127.5) / 128.0).to(dev).expand((N_ENS,) + u8.shape[:-1])
+    im = ((u8[..., 1].float() - 127.5) / 128.0).to(dev).expand((N_ENS,) + u8.shape[:-1])
+    _, want = step(step.init_carry(dev), re.contiguous(), im.contiguous(), freq)
+    require(torch.equal(got["fic_bytes"], want["fic_bytes"])
+            and all(torch.equal(got["subch"][i], want["subch"][i]) for i in want["subch"]),
+            "the u8 step's bytes differ from the step on the f32 frames")
+    print("main path, u8 through HostFeed: FIB CRC 1.0; subchannel 1 payload byte-equal; "
+          "the bytes equal the step's on the f32 frames (x - 127.5) / 128")
 
 
 def device_breakdown(step, carry, chunk, freq, step_ms: float, card: str):
@@ -2773,6 +2878,7 @@ def main() -> None:
     rng = np.random.default_rng(SEED)
     res = check_kernels(dev, rng, card)
     res.update(check_demod_tail(dev, card))
+    res.update(check_u8(dev, card))
     chain = check_chain(dev, card)
     mark("3")
     launches, step_ms, bench_frames, bench_payload = run_main_path(dev, card)
@@ -2849,7 +2955,7 @@ def main() -> None:
         "deinterleave": old("deinterleave", "bound_deinterleave", res["library_deinterleave"]),
         "deinterleave_depuncture_t": chain,
         "carve_rotate": {**old("carve_rotate", "bound_carve_rotate"),
-                         **res["carve_rotate_extra"]},
+                         **res["carve_rotate_extra"], "u8": res["carve_rotate_u8"]},
         "viterbi_fwd_variant": new(fwd["full"]),
         "viterbi_traceback": new(tb["shuffle"]),
         "i16_probe": new(probe["add"]),
@@ -2910,7 +3016,10 @@ def main() -> None:
             entry["bench_launches"] = bench["bench_launches"][name]
         kernels.append(entry)
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all, the build included")
-    print(json.dumps({"kernels": kernels}))
+    tail = {name: dict(zip(("ms", "bound_ms", "bound_by"), v))
+            for name, v in res["demod_tail"].items()}
+    tail["stats_kernel_u8"] = res["stats_kernel_u8"]
+    print(json.dumps({"kernels": kernels, "demod_tail": tail}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -49,10 +49,22 @@
 // K5's kernel (carve_kernel) runs the body at <T, true, true> for one
 // frame a block on K5's own grid, with the same registers as before the
 // ablations shared it; X7's (carve_tile_kernel) loops it over fb frames.
+//
+// rtl_sdr's raw IQ (T = uint8_t): a frame is frame_len interleaved
+// offset-binary pairs (I, Q), one pointer for both parts. A sample is two
+// bytes, as a bf16 element is, so a thread loads the same aligned 16-byte
+// vectors as the bf16 body and shifts them the same way, then converts each
+// byte in registers to (x - 127.5) / 128 in f32, which is exact (9
+// significant bits; not exact in bf16). The rotation after it is the f32
+// one, so the u8 kernel gives the f32 kernel's outputs on the converted
+// frames bit for bit (ops/carve.py::u8_parts). It reads 2 bytes a window
+// sample instead of bf16's 4.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -108,6 +120,39 @@ __device__ __forceinline__ void load8(const float* row, int a, float (&w)[kPer])
   }
 }
 
+// rtl_sdr's byte x as (x - 127.5) / 128, exact in f32
+__device__ __forceinline__ float u8_sample(uint32_t x) {
+  return __fmul_rn(__fsub_rn(__uint2float_rn(x & 0xFFu), 127.5f), 0.0078125f);
+}
+
+// The re and im parts of 8 consecutive samples starting at sample a of
+// interleaved u8 pairs: one 2-byte word a sample, shifted as bf16's load8
+// shifts its elements, then each byte converted.
+template <bool kShift>
+__device__ __forceinline__ void load8_u8(const uint8_t* iq, int a, float (&wr)[kPer],
+                                         float (&wi)[kPer]) {
+  const int r = kShift ? a & 7 : 0;
+  const uint4* p = reinterpret_cast<const uint4*>(iq + 2 * (a - r));
+  const uint4 lo = p[0];
+  const uint4 hi = r ? p[1] : make_uint4(0, 0, 0, 0);
+  uint32_t x[5];
+  switch (r >> 1) {
+    case 0: x[0] = lo.x; x[1] = lo.y; x[2] = lo.z; x[3] = lo.w; x[4] = hi.x; break;
+    case 1: x[0] = lo.y; x[1] = lo.z; x[2] = lo.w; x[3] = hi.x; x[4] = hi.y; break;
+    case 2: x[0] = lo.z; x[1] = lo.w; x[2] = hi.x; x[3] = hi.y; x[4] = hi.z; break;
+    default: x[0] = lo.w; x[1] = hi.x; x[2] = hi.y; x[3] = hi.z; x[4] = hi.w; break;
+  }
+  const int sh = (r & 1) * 16;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {   // bytes I, Q of sample 2i, then of 2i + 1
+    const uint32_t v = __funnelshift_r(x[i], x[i + 1], sh);
+    wr[2 * i] = u8_sample(v);
+    wi[2 * i] = u8_sample(v >> 8);
+    wr[2 * i + 1] = u8_sample(v >> 16);
+    wi[2 * i + 1] = u8_sample(v >> 24);
+  }
+}
+
 __device__ __forceinline__ uint32_t pack(float lo, float hi) {
   return (uint32_t)__bfloat16_as_ushort(__float2bfloat16(lo))
          | ((uint32_t)__bfloat16_as_ushort(__float2bfloat16(hi)) << 16);
@@ -138,15 +183,21 @@ __device__ __forceinline__ void carve_frame(
 #pragma unroll
     for (int i = 0; i < kPer; ++i) { c_i[i] = cc[i]; s_i[i] = ss[i]; }
   }
-  const T* fr = re + (size_t)f * frame_len;
-  const T* fi = im + (size_t)f * frame_len;
+  // elements a sample: u8's I and Q interleaved, one of each split part
+  constexpr size_t kElems = std::is_same<T, uint8_t>::value ? 2 : 1;
+  const T* fr = re + (size_t)f * frame_len * kElems;
+  const T* fi = im + (size_t)f * frame_len * kElems;
 #pragma unroll 2
   for (int s = s0; s < s1; ++s) {
     const int a_s = first + s * sym_stride;
     const int a = (kRoll ? a_s : a_s / 128 * 128) + k0;
     float wr[kPer], wi[kPer];
-    load8<kRoll>(fr, a, wr);
-    load8<kRoll>(fi, a, wi);
+    if constexpr (std::is_same<T, uint8_t>::value) {
+      load8_u8<kRoll>(fr, a, wr, wi);
+    } else {
+      load8<kRoll>(fr, a, wr);
+      load8<kRoll>(fi, a, wi);
+    }
     const int w = f * n_sym + s;
     float vr[kPer], vi[kPer], vs[kPer];
     float c_a = 0.f, s_a = 0.f;
@@ -217,10 +268,11 @@ void launch_tile(const void* re, const void* im, const float* ca, const float* s
 
 }  // namespace
 
-// K5. re, im: (f, frame_len) bf16 (in_bf16=1) or f32, 16-byte aligned; ca,
+// K5. re, im: (f, frame_len) f32 (in_dtype 0) or bf16 (1), or re the
+// (f, frame_len, 2) interleaved u8 I/Q (2, im not read), 16-byte aligned; ca,
 // sa: (f, n_sym) f32; ci, si: (f, n_fft) f32; xr, xi and xs (null: not
 // written): (f, n_sym, n_fft) bf16. n_fft a multiple of 256.
-extern "C" int tpudab_carve_rotate(const void* re, const void* im, int in_bf16,
+extern "C" int tpudab_carve_rotate(const void* re, const void* im, int in_dtype,
                                    const void* ca, const void* sa,
                                    const void* ci, const void* si,
                                    void* xr, void* xi, void* xs, int f, int frame_len,
@@ -236,7 +288,11 @@ extern "C" int tpudab_carve_rotate(const void* re, const void* im, int in_bf16,
   __nv_bfloat16* oxr = static_cast<__nv_bfloat16*>(xr);
   __nv_bfloat16* oxi = static_cast<__nv_bfloat16*>(xi);
   __nv_bfloat16* oxs = static_cast<__nv_bfloat16*>(xs);
-  if (in_bf16)
+  if (in_dtype == 2)
+    carve_kernel<uint8_t><<<grid, block, 0, st>>>(
+        static_cast<const uint8_t*>(re), static_cast<const uint8_t*>(re),
+        fca, fsa, fci, fsi, oxr, oxi, oxs, frame_len, n_sym, n_fft, sym_stride, first);
+  else if (in_dtype == 1)
     carve_kernel<__nv_bfloat16><<<grid, block, 0, st>>>(
         static_cast<const __nv_bfloat16*>(re), static_cast<const __nv_bfloat16*>(im),
         fca, fsa, fci, fsi, oxr, oxi, oxs, frame_len, n_sym, n_fft, sym_stride, first);

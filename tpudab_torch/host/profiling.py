@@ -2,7 +2,10 @@
 per-stage host counters. Counterpart of tpudab.host.profiling.
 
 span(name, items, device) marks a layer boundary of the program (the
-receive step, its demod and FEC halves and their stages, the read-back).
+receive step, its demod and FEC halves and their stages, the read-back,
+and `ingest`, a HostFeed's copy of a step's u8 IQ from host memory,
+items = bytes, timed on the feed's copy stream: a span's events go on the
+current stream, which the feed makes its own around the copy).
 Spans record only while a torch.profiler session records in the calling
 thread, and never while the current CUDA stream is being captured into a
 graph; otherwise span() returns one shared no-op context, at the cost of

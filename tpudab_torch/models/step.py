@@ -15,7 +15,7 @@ else moves tensors between devices.
 Under a profiler the step records spans (host/profiling.py): step, demod
 (and its stages, ofdm/demod.py), fec, fec.deint (the FIC's K4 launch,
 then the subchannels'), fec.viterbi (K1 + K2 and the PRBS XOR, a Viterbi
-call).
+call); a HostFeed that feeds it records ingest, its copy.
 """
 
 from __future__ import annotations
@@ -32,6 +32,7 @@ from tpudab_torch.constants.puncture import FIC_PROFILE, FIC_PROFILE_MODE3, eep_
 from tpudab_torch.fec.depuncture import depuncture_index
 from tpudab_torch.fec.prbs import prbs_bytes
 from tpudab_torch.host.profiling import span
+from tpudab_torch.models.ingest import HostFeed
 from tpudab_torch.msc.interleave import (TIME_INTERLEAVE_DEPTH, SoftRows,
                                          deinterleave_depuncture_t)
 from tpudab_torch.msc.subchannel import SubchannelConfig
@@ -84,8 +85,16 @@ class ReceiveStep(nn.Module):
     """forward(carry, frames_re, frames_im, freq_hz) -> (carry, outputs).
 
     frames_re/_im: (F, frame_len//128, 128) or flat (F, frame_len), with a
-    leading E axis when n_ensembles > 1, bf16 or f32; freq_hz a scalar or
-    (E,). carry: {"deint_<id>": ([E,] 15, slice_bits)} in soft_dtype.
+    leading E axis when n_ensembles > 1, bf16 or f32. Or rtl_sdr's raw IQ
+    with frames_im None: frames_re uint8 (F, frame_len, 2) or flat
+    (F, 2 frame_len), with the same leading E axis, interleaved
+    offset-binary I/Q, decoded as the f32 frames (x - 127.5) / 128 would
+    be (K5 and stats_kernel convert them in registers); or a HostFeed
+    (models/ingest.py) that was fed such frames from host memory, whose
+    oldest buffer the step takes, waiting on the card for its copy (span
+    `ingest`, on the feed's copy stream), and releases after the demod,
+    the last that reads it. freq_hz a scalar or (E,). carry:
+    {"deint_<id>": ([E,] 15, slice_bits)} in soft_dtype.
     outputs: fic_bytes ([E,] F*n_groups, group_bytes) uint8 (before the
     CRC check); subch {id: ([E,] C, frame_bytes) uint8}, row r of a step
     being logical frame (CIFs seen before the step) + r - 15; mean_power
@@ -206,15 +215,24 @@ class ReceiveStep(nn.Module):
     def demod(self, frames_re, frames_im, freq_hz):
         """The demod half of forward: frames and freq_hz as forward takes
         them -> (flat soft (E*F, nb_frame_bits) in soft_dtype, stats)."""
+        if isinstance(frames_re, HostFeed):
+            feed = frames_re
+            try:
+                return self.demod(feed.take(), frames_im, freq_hz)
+            finally:
+                feed.release()
         e = self.n_ensembles
-        rows = self.params.nb_frame_length // 128
+        frame_len = self.params.nb_frame_length
         if e > 1 and frames_re.shape[0] != e:
             raise ValueError(f"frames {tuple(frames_re.shape)} do not lead "
                              f"with the step's {e} ensembles")
         f = frames_re.shape[1] if e > 1 else frames_re.shape[0]
         with span("demod", e * f, frames_re.device):
-            flat_re = frames_re.reshape((e * f, rows, 128))
-            flat_im = frames_im.reshape((e * f, rows, 128))
+            if frames_re.dtype == torch.uint8:      # I and Q interleaved, frames_im None
+                flat_re, flat_im = frames_re.reshape((e * f, 2 * frame_len)), frames_im
+            else:
+                flat_re = frames_re.reshape((e * f, frame_len // 128, 128))
+                flat_im = frames_im.reshape((e * f, frame_len // 128, 128))
             freq = torch.as_tensor(freq_hz, dtype=torch.float32, device=frames_re.device)
             if e > 1:
                 freq = freq.broadcast_to((e,)).repeat_interleave(f)

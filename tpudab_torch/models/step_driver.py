@@ -114,11 +114,15 @@ class StepDriver:
         self.step = new_step
         self.carry = carry
 
-    def process(self, receiver, frames_re: torch.Tensor, frames_im: torch.Tensor,
+    def process(self, receiver, frames_re, frames_im: Optional[torch.Tensor],
                 freq_hz) -> Tuple[Dict, Dict]:
         """Run one batch through the step and hand the decoded bytes to the
         receiver. frames_re/_im: lane-tiled (F, len//128, 128) on the
-        step's device.
+        step's device; or rtl_sdr's raw IQ with frames_im None: frames_re
+        uint8 (F, frame_len, 2) on the step's device, or a HostFeed
+        (models/ingest.py) fed such frames from host memory, whose copy
+        the step waits for on the card (span `ingest`, the copy; the step's
+        spans as ReceiveStep's).
 
         Returns (outputs, step_out): the receiver's {subch_id:
         AudioChannelOutput}, and the step's outputs (mean_power,

@@ -28,6 +28,13 @@ normalisation, the tap and mean_power) runs where the products are:
 - the CPU, or f32 operands: the eager torch chain (eager_tail), which
   the CPU tests hold against tpudab.
 
+rtl_sdr's raw IQ, uint8 frames (F, frame_len, 2) or (F, 2 frame_len) of
+interleaved offset-binary I/Q with frames_im None, is chosen by the
+frames' dtype: on the kernels' path K5 and stats_kernel read the bytes and
+convert them in registers; elsewhere the frames are converted first, to
+(x - 127.5) / 128 in f32 (ops/carve.py::u8_parts). Either way the soft
+bits are those of the f32 frames so converted.
+
 Under a profiler the stages record spans (host/profiling.py): demod.carve
 (K5 and its tables; items: window samples), demod.dft (the products, and
 on the eager chain the combine), demod.demap (the demap and, on CUDA, the
@@ -46,7 +53,7 @@ from tpudab_torch.constants.interleaver import get_carrier_map_positions
 from tpudab_torch.constants.ofdm_params import SAMPLING_RATE, get_ofdm_params
 from tpudab_torch.host.profiling import span
 from tpudab_torch.ops import demod_tail
-from tpudab_torch.ops.carve import carve_rotate, carve_windows
+from tpudab_torch.ops.carve import carve_rotate, carve_windows, u8_parts
 
 N_CONST_POINTS = 480  # constellation tap size
 
@@ -171,12 +178,16 @@ def _tail_kernels(operands, device) -> bool:
 
 def demod_frames_split(frames_re, frames_im, freq_hz, operands, mode: int = 1,
                        window_offset: int = 12, out_dtype=torch.float32):
-    """frames (F, frame_len//128, 128) or (F, frame_len), bf16 or f32;
+    """frames (F, frame_len//128, 128) or (F, frame_len), bf16 or f32, or
+    u8 frames (F, frame_len, 2) or (F, 2 frame_len) with frames_im None;
     freq_hz scalar or (F,); operands from dft_operands. Returns
     (soft (F, nb_frame_bits) out_dtype, stats) with stats holding
     mean_power (F,) and the const_re/const_im constellation tap (480,)."""
     dev = frames_re.device
     if not _tail_kernels(operands, dev):
+        if frames_re.dtype == torch.uint8:
+            frames_re, frames_im = u8_parts(frames_re, get_ofdm_params(mode).nb_frame_length,
+                                            frames_im)
         return eager_tail(spectra_split(frames_re, frames_im, freq_hz, operands, mode,
                                         window_offset), frames_re, frames_im, out_dtype)
     m = _spectra(frames_re, frames_im, freq_hz, operands, mode, window_offset, False)

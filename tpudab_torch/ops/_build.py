@@ -49,6 +49,7 @@ SIGNATURES = {
     "tpudab_demod_demap": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     "tpudab_demod_norm": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "tpudab_demod_stats": (_P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "tpudab_copy_h2d": (_P, _P, _P, _I, _P),
 }
 
 

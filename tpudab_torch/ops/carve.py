@@ -11,6 +11,12 @@ agree within one bf16 ulp; carve_rotate_tables_ref is the kernel's own
 arithmetic in torch, which it matches bit for bit. with_sum adds a third
 output, the bf16 sum xr + xi that the demod's first Karatsuba product
 takes (tpudab/ofdm/demod.py:214).
+
+rtl_sdr's raw IQ: frames_re may instead be (F, frame_len, 2) or flat
+(F, 2 frame_len) uint8, interleaved offset-binary I/Q, with frames_im None.
+The plain twins convert it with u8_parts, (x - 127.5) / 128, exact in f32;
+the kernel's u8 instantiation does the same conversion in registers, so it
+gives the f32 kernel's outputs on the converted frames bit for bit.
 """
 
 from __future__ import annotations
@@ -22,6 +28,9 @@ import torch
 
 from tpudab_torch.constants.ofdm_params import get_ofdm_params, SAMPLING_RATE
 from tpudab_torch.ops import _build
+
+# the kernels' frame type code (csrc/carve.cu, csrc/demod_tail.cu)
+IN_DTYPE = {torch.float32: 0, torch.bfloat16: 1, torch.uint8: 2}
 
 
 def _geometry(mode: int, window_offset: int):
@@ -35,6 +44,34 @@ def _flat(x: torch.Tensor, frame_len: int) -> torch.Tensor:
         raise ValueError(f"frames {tuple(x.shape)} are not (F, {frame_len}) "
                          f"or (F, {frame_len // 128}, 128)")
     return x.reshape(x.shape[0], frame_len)
+
+
+def u8_flat(frames: torch.Tensor, frame_len: int, frames_im=None) -> torch.Tensor:
+    """rtl_sdr's raw frames, (F, frame_len, 2) or (F, 2 frame_len) uint8
+    interleaved I/Q, handed with frames_im None -> (F, 2 frame_len)."""
+    if frames_im is not None:
+        raise ValueError("u8 frames hold I and Q interleaved: pass frames_im None")
+    if frames.dtype != torch.uint8 or (frames.shape[1:] != (frame_len, 2)
+                                       and frames.shape[1:] != (2 * frame_len,)):
+        raise ValueError(f"u8 frames {tuple(frames.shape)} {frames.dtype} are not "
+                         f"(F, {frame_len}, 2) or (F, {2 * frame_len}) uint8")
+    return frames.reshape(frames.shape[0], 2 * frame_len)
+
+
+def u8_parts(frames: torch.Tensor, frame_len: int, frames_im=None):
+    """rtl_sdr's raw frames as u8_flat takes them -> (re, im), each
+    (F, frame_len) f32: (x - 127.5) / 128, exact in f32."""
+    x = u8_flat(frames, frame_len, frames_im).view(frames.shape[0], frame_len, 2).float()
+    x = (x - 127.5) / 128.0
+    return x[..., 0].contiguous(), x[..., 1].contiguous()
+
+
+def _parts(frames_re, frames_im, frame_len: int):
+    """The frames as (F, frame_len) re and im parts: split parts as they
+    are, or u8 frames (frames_im None) converted by u8_parts."""
+    if frames_re.dtype == torch.uint8:
+        return u8_parts(frames_re, frame_len, frames_im)
+    return _flat(frames_re, frame_len), _flat(frames_im, frame_len)
 
 
 def _windows(x: torch.Tensor, mode: int, window_offset: int) -> torch.Tensor:
@@ -57,8 +94,7 @@ def carve_windows(frames_re, frames_im, freq_hz, mode: int = 1,
     p, first, stride = _geometry(mode, window_offset)
     n_sym, n_fft = p.nb_symbols, p.nb_fft
     f = frames_re.shape[0]
-    fr = _flat(frames_re, p.nb_frame_length)
-    fi = _flat(frames_im, p.nb_frame_length)
+    fr, fi = _parts(frames_re, frames_im, p.nb_frame_length)
     wr, wi = _windows(fr, mode, window_offset), _windows(fi, mode, window_offset)
     t_sym = (first + stride * np.arange(n_sym)) / SAMPLING_RATE
     t_k = np.arange(n_fft) / SAMPLING_RATE
@@ -73,7 +109,8 @@ def carve_windows(frames_re, frames_im, freq_hz, mode: int = 1,
 def carve_rotate_ref(frames_re, frames_im, freq_hz, mode: int = 1,
                      window_offset: int = 12, with_sum: bool = False):
     """Plain torch twin of the kernel: (F, frame_len//128, 128) frames (or
-    flat (F, frame_len)), bf16 or f32, and (F,) or scalar freq ->
+    flat (F, frame_len)), bf16 or f32, or u8 frames with frames_im None,
+    and (F,) or scalar freq ->
     (F, n_sym * n_fft//128, 128) bf16 re/im, tpudab's layout, and with_sum
     their bf16 sum xr + xi as a third."""
     xr, xi = carve_windows(frames_re, frames_im, freq_hz, mode, window_offset)
@@ -110,8 +147,7 @@ def carve_rotate_tables_ref(frames_re, frames_im, freq_hz, mode: int = 1,
     the kernel it gives the kernel's outputs bit for bit; it is within one
     bf16 ulp of carve_rotate_ref. Same contract as carve_rotate_ref."""
     p = get_ofdm_params(mode)
-    fr = _flat(frames_re, p.nb_frame_length).float()
-    fi = _flat(frames_im, p.nb_frame_length).float()
+    fr, fi = (x.float() for x in _parts(frames_re, frames_im, p.nb_frame_length))
     ca, sa, ci, si = rotator_tables(_freq(freq_hz, fr.shape[0], fr.device), mode,
                                     window_offset)
     wr, wi = _windows(fr, mode, window_offset), _windows(fi, mode, window_offset)
@@ -128,15 +164,18 @@ def carve_rotate_cuda(frames_re, frames_im, freq_hz, mode: int = 1,
     """Kernel K5 on CUDA tensors; same contract as carve_rotate_ref. The
     frames must be 16-byte aligned."""
     p, first, stride = _geometry(mode, window_offset)
-    fr = _flat(frames_re, p.nb_frame_length)
-    fi = _flat(frames_im, p.nb_frame_length)
+    if frames_re.dtype == torch.uint8:
+        fr = fi = u8_flat(frames_re, p.nb_frame_length, frames_im)
+    else:
+        fr = _flat(frames_re, p.nb_frame_length)
+        fi = _flat(frames_im, p.nb_frame_length)
     if not (fr.is_cuda and fi.is_cuda) or fr.dtype != fi.dtype \
-            or fr.dtype not in (torch.bfloat16, torch.float32) \
+            or fr.dtype not in (torch.bfloat16, torch.float32, torch.uint8) \
             or not (fr.is_contiguous() and fi.is_contiguous()) \
             or fr.data_ptr() % 16 or fi.data_ptr() % 16:
         raise ValueError(f"carve_rotate_cuda takes contiguous, 16-byte aligned "
-                         f"CUDA bf16 or f32 frames, got {fr.device} {fr.dtype}, "
-                         f"{fi.device} {fi.dtype}")
+                         f"CUDA bf16 or f32 frames, or u8 frames alone, got {fr.device} "
+                         f"{fr.dtype}, {fi.device} {fi.dtype}")
     f = fr.shape[0]
     freq = _freq(freq_hz, f, fr.device).contiguous()
     ca, sa, ci, si = rotator_tables(freq, mode, window_offset)
@@ -145,7 +184,7 @@ def carve_rotate_cuda(frames_re, frames_im, freq_hz, mode: int = 1,
     xi = torch.empty_like(xr)
     xs = torch.empty_like(xr) if with_sum else None
     _build.launch(_build.load_library().tpudab_carve_rotate, fr.get_device(), "carve_rotate",
-                  fr.data_ptr(), fi.data_ptr(), int(fr.dtype == torch.bfloat16),
+                  fr.data_ptr(), fi.data_ptr(), IN_DTYPE[fr.dtype],
                   ca.data_ptr(), sa.data_ptr(), ci.data_ptr(), si.data_ptr(), xr.data_ptr(),
                   xi.data_ptr(), xs.data_ptr() if with_sum else None,
                   f, p.nb_frame_length, p.nb_symbols, p.nb_fft, stride, first)

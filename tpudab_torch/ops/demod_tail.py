@@ -12,6 +12,9 @@ repeats the kernel's rounding points and summation order, so the two agree
 bit for bit. The twins round as the eager bf16 chain of ofdm/demod.py does
 (dr and di bit-equal to it); only the order of the f32 sums behind the
 frame's mean, mean_power and the tap's scale differs from the chain's.
+stats also takes rtl_sdr's raw u8 frames (frames_im None, as
+ops/carve.py takes them): its twin converts them with u8_parts, the
+kernel in registers, exactly in both.
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from tpudab_torch.ops import _build
+from tpudab_torch.ops.carve import IN_DTYPE, u8_flat, u8_parts
 
 ROWS = 19             # demapped rows a block of either pass walks
 STATS_THREADS = 256   # stats_kernel's block
@@ -123,9 +127,12 @@ def norm_ref(m1, m2, m3, partials, out_dtype=torch.bfloat16):
 
 
 def stats_ref(frames_re, frames_im, m1, m2, m3):
-    """Twin of stats_kernel: frames (F, ...) bf16 or f32, any tiling, and the
-    products -> (mean_power (F,) f32, tap (2, points) f32)."""
+    """Twin of stats_kernel: frames (F, ...) bf16 or f32, any tiling, or u8
+    frames with frames_im None, and the products -> (mean_power (F,) f32,
+    tap (2, points) f32)."""
     f = m1.shape[0]
+    if frames_re.dtype == torch.uint8:
+        frames_re, frames_im = u8_parts(frames_re, frames_re[0].numel() // 2, frames_im)
     fr = frames_re.reshape(f, -1).float()
     fi = frames_im.reshape(f, -1).float()
     n = fr.shape[1]
@@ -194,23 +201,29 @@ def stats_cuda(frames_re, frames_im, m1, m2, m3):
     """stats_kernel on CUDA; same contract as stats_ref. The frames must be
     contiguous and 16-byte aligned, as K5 takes them."""
     f, n_sym, k = _products(m1, m2, m3)
-    fr, fi = frames_re.reshape(f, -1), frames_im.reshape(f, -1)
-    if fr.device != m1.device or fr.dtype != fi.dtype \
-            or fr.dtype not in (torch.bfloat16, torch.float32) \
-            or fr.shape != fi.shape or fr.shape[1] % LANES \
+    if frames_re.dtype == torch.uint8:
+        frame_len = frames_re[0].numel() // 2
+        fr = fi = u8_flat(frames_re, frame_len, frames_im)
+    else:
+        fr, fi = frames_re.reshape(f, -1), frames_im.reshape(f, -1)
+        frame_len = fr.shape[1]
+    if fr.device != m1.device or fr.dtype != fi.dtype or fr.shape[0] != f \
+            or fr.dtype not in (torch.bfloat16, torch.float32, torch.uint8) \
+            or fr.shape != fi.shape or frame_len % LANES \
             or not (fr.is_contiguous() and fi.is_contiguous()) \
             or fr.data_ptr() % 16 or fi.data_ptr() % 16:
-        raise ValueError(f"stats_cuda takes contiguous, 16-byte aligned bf16 or f32 frames "
-                         f"on the products' device, (F, n) with n a multiple of 8; got "
+        raise ValueError(f"stats_cuda takes contiguous, 16-byte aligned bf16 or f32 frames, "
+                         f"or u8 frames alone, on the products' device, (F, n) with n a "
+                         f"multiple of 8; got "
                          f"{tuple(fr.shape)} {fr.dtype} {fr.device}, {tuple(fi.shape)} "
                          f"{fi.dtype}")
     stride, n_tap = tap_geometry(n_sym, k)
     mean_power = torch.empty((f,), dtype=torch.float32, device=m1.device)
     tap = torch.empty((2, N_TAP), dtype=torch.float32, device=m1.device)
     _build.launch(_build.load_library().tpudab_demod_stats, m1.get_device(), "demod_stats",
-                  fr.data_ptr(), fi.data_ptr(), int(fr.dtype == torch.bfloat16),
+                  fr.data_ptr(), fi.data_ptr(), IN_DTYPE[fr.dtype],
                   m1.data_ptr(), m2.data_ptr(), m3.data_ptr(), mean_power.data_ptr(),
-                  tap.data_ptr(), f, fr.shape[1], n_sym, k, stride, n_tap)
+                  tap.data_ptr(), f, frame_len, n_sym, k, stride, n_tap)
     stats_cuda.launches += 1
     return mean_power, tap[:, :n_tap]
 
