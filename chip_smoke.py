@@ -227,7 +227,8 @@ from tpudab_torch.ops.carve_exp import carve_variant_cuda, carve_variant_ref
 from tpudab_torch.ops.i16_probe import OPS as I16_OPS
 from tpudab_torch.ops.i16_probe import i16_probe_cuda, i16_probe_ref
 from tpudab_torch.ops.viterbi import branch_metric_table, mother_to_t, radix_tables
-from tpudab_torch.ops.viterbi_cuda import (signs_on, viterbi_decode_bits_cuda,
+from tpudab_torch.ops.viterbi_cuda import (K12_LAYOUTS, k12_layout, kernel_table_on, signs_on,
+                                           sm_count_of, viterbi_decode_bits_cuda,
                                            viterbi_decode_bytes_t_cuda,
                                            viterbi_decode_bytes_t_ref, viterbi_decode_ref)
 from tpudab_torch.ops.viterbi_exp import (fwd_variant_cuda, fwd_variant_ref, traceback_bytes_cuda,
@@ -500,7 +501,7 @@ def identify() -> str:
     return card
 
 
-def build() -> dict:
+def build() -> tuple:
     t0 = time.perf_counter()
     _build.load_library()
     print(f"build: {time.perf_counter() - t0:.2f} s (nvcc {_build.BuildInfo.seconds:.2f} s)"
@@ -511,8 +512,8 @@ def build() -> dict:
     resources = ptxas_resources(_build.BuildInfo.log)
     for label, (regs, spill, smem) in resources.items():
         print(f"  resources {label}: {regs} registers, {spill} bytes spill stores, {smem} bytes smem")
-    sass_mix()
-    require(len(resources) == 10, f"ptxas reported {len(resources)} of the 7 Viterbi decode "
+    sass = sass_mix()
+    require(len(resources) == 12, f"ptxas reported {len(resources)} of the 9 Viterbi decode "
             f"and traceback kernels and K5's 3: {sorted(resources)}")
     for label, regs in PARENT_K5_REGS.items():
         require(resources[label][0] <= regs and resources[label][1] == 0,
@@ -523,14 +524,15 @@ def build() -> dict:
         require(spill <= PARENT_SPILLS.get(kernel, spill),
                 f"{label} spills {spill} bytes; before the group maps it spilled "
                 f"{PARENT_SPILLS.get(kernel)}")
-    return resources
+    return resources, sass
 
 
 def ptxas_resources(log: str) -> dict:
     """{label: (registers, spill store bytes, static shared bytes)} of the
-    Viterbi decode kernels (viterbi_kernel, viterbi_bits_kernel, each in
-    f32 and bf16), the traceback kernel's three modes and K5
-    (carve_kernel, f32, bf16 and u8), from ptxas' -v report."""
+    Viterbi decode kernels (viterbi_kernel in f32 and bf16, each in its two
+    layouts, warp and bfly; viterbi_bits_kernel in f32 and bf16), the
+    traceback kernel's three modes and K5 (carve_kernel, f32, bf16 and
+    u8), from ptxas' -v report."""
     out, label = {}, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
@@ -543,6 +545,10 @@ def ptxas_resources(log: str) -> dict:
                 tag = ("shuffle", "masked", "tree")[int(arg[2])] if arg.startswith("Li") \
                     else "bf16" if arg.startswith("13__nv_bfloat16") \
                     else "u8" if arg.startswith("hE") else "f32"
+                layout = re.match(r"(?:f|13__nv_bfloat16)Li(\d+)E", arg) \
+                    if k.group(1) == "viterbi_kernel" else None
+                if layout:
+                    tag += ", " + K12_LAYOUTS[int(layout.group(1))]
                 label = f"{k.group(1)}<{tag}>"
                 out[label] = [0, 0, 0]
             continue
@@ -556,23 +562,52 @@ def ptxas_resources(log: str) -> dict:
     return {k: tuple(v) for k, v in out.items()}
 
 
-SASS_KERNELS = {"viterbi_kernel<bf16>": r"viterbi_kernelI13__nv_bfloat16",
+SASS_KERNELS = {**{f"viterbi_kernel<bf16, {name}>": rf"viterbi_kernelI13__nv_bfloat16Li{layout}E"
+                   for layout, name in K12_LAYOUTS.items()},
                 "viterbi_bits_kernel<f32>": r"viterbi_bits_kernelIf",
                 "viterbi_traceback_kernel<shuffle>": r"viterbi_traceback_kernelILi0E",
                 "forward full f32 rebase 32": r"variant_kernelIfNS_9F32MetricELi0ELi32"}
+# codewords a warp of each viterbi_kernel layout advances together, and the
+# super-steps of its inner loop (forward_acs: a group of 4;
+# forward_butterflies: two groups a pass)
+K12_CODEWORDS_PER_WARP = {"viterbi_kernel<bf16, warp>": 1, "viterbi_kernel<bf16, bfly>": 4}
+K12_LOOP_STEPS = {"viterbi_kernel<bf16, warp>": 4, "viterbi_kernel<bf16, bfly>": 8}
+SASS_OP = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]+)([^;]*);")
 
 
-def sass_mix() -> None:
+def inner_loop(part: str):
+    """(instructions, opcode counts) of a function's inner loop of
+    super-steps: the shortest loop (a backward branch) that holds 48 FFMA
+    or more (the traceback's loops hold none)."""
+    ops = [(int(m.group(1), 16), m.group(2).split(".")[0], m.group(3))
+           for m in SASS_OP.finditer(part)]
+    addr = [a for a, _, _ in ops]
+    best = None
+    for i, (a, op, rest) in enumerate(ops):
+        m = re.search(r"0x([0-9a-f]+)", rest) if op == "BRA" else None
+        if m and int(m.group(1), 16) < a and int(m.group(1), 16) in addr:
+            body = ops[addr.index(int(m.group(1), 16)): i + 1]
+            if sum(o == "FFMA" for _, o, _ in body) >= 48 \
+                    and (best is None or len(body) < len(best)):
+                best = body
+    return (len(best), collections.Counter(o for _, o, _ in best)) if best else (0, {})
+
+
+def sass_mix() -> dict:
     """Opcode counts of the Viterbi kernels' machine code (cuobjdump -sass
     of the built library), whole functions: where the instructions go,
-    for cards where a profiler of issue stalls (ncu) cannot run."""
+    for cards where a profiler of issue stalls (ncu) cannot run. For
+    viterbi_kernel's layouts also the inner loop's instructions a
+    super-step: a warp's, and a codeword's (a warp's over its codewords).
+    Returns {label: {"per_warp": .., "per_codeword": ..}}."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not os.path.exists(tool):
         print("sass: not measured (no cuobjdump)")
-        return
+        return {}
     sass = subprocess.run([tool, "-sass", _build.BuildInfo.path], capture_output=True,
                           text=True, timeout=300).stdout
     integer = ("IMAD", "LEA", "SHF", "LOP3", "IADD3", "VIADD", "SEL", "ISETP")
+    per_step = {}
     for label, pattern in SASS_KERNELS.items():
         for part in sass.split("Function : ")[1:]:
             if re.search(pattern, part.split("\n", 1)[0]):
@@ -580,8 +615,33 @@ def sass_mix() -> None:
                     r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]+)", part))
                 print(f"  sass {label}: {sum(ops.values())} instructions; "
                       + ", ".join(f"{op} {ops[op]}" for op in
-                                  ("FFMA", "FADD", "FSETP", "FSEL", "SHFL", "LDS", "STS", "BAR"))
+                                  ("FFMA", "FADD", "FSETP", "FSEL", "FMNMX", "SEL", "SHFL", "LDS",
+                                   "STS", "BAR"))
                       + f", integer {sum(ops[op] for op in integer)}")
+                if label in K12_CODEWORDS_PER_WARP:
+                    n, group = inner_loop(part)
+                    steps = K12_LOOP_STEPS[label]
+                    per_step[label] = {"per_warp": n / steps,
+                                       "per_codeword": n / steps / K12_CODEWORDS_PER_WARP[label],
+                                       "loop": dict(group.most_common(12))}
+                    print(f"  sass {label} inner loop of {steps} super-steps: {n} instructions, "
+                          f"{n / steps:.2f} a warp and super-step, "
+                          f"{n / steps / K12_CODEWORDS_PER_WARP[label]:.2f} a codeword "
+                          f"({dict(group.most_common(12))})")
+    return per_step
+
+
+def k12_entry(soft_t: torch.Tensor, n_data_bits: int, layout: int) -> torch.Tensor:
+    """K1+K2 on soft_t (T2p, 8, B) through its C entry in the given layout
+    (the wrapper takes k12_layout's) -> (B, n_data_bits // 8) uint8."""
+    t2p, _, b = soft_t.shape
+    dec = torch.empty((b, t2p // 4, 64), dtype=torch.uint8, device=soft_t.device)
+    out = torch.empty((b, n_data_bits // 8), dtype=torch.uint8, device=soft_t.device)
+    _build.launch(_build.load_library().tpudab_viterbi_decode_bytes_t, soft_t.get_device(),
+                  "viterbi", soft_t.data_ptr(), int(soft_t.dtype == torch.bfloat16),
+                  kernel_table_on(soft_t.device).data_ptr(), dec.data_ptr(), out.data_ptr(), t2p,
+                  b, n_data_bits // 8, layout)
+    return out
 
 
 def check_kernels(dev, rng, card: str):
@@ -610,13 +670,26 @@ def check_kernels(dev, rng, card: str):
         t2p = soft_t.shape[0]
         bnd = bound(soft_t.numel() * soft_t.element_size() + got.numel(),
                     b * t2p * (FWD_OPS["full"] + TB_OPS))
-        print(f"K1+K2 viterbi {label} B={b} T2p={t2p}: bytes equal; "
+        layout = K12_LAYOUTS[k12_layout(b, sm_count_of(0))]
+        print(f"K1+K2 viterbi {label} B={b} T2p={t2p} layout {layout}: bytes equal; "
               f"kernel {ms:.3f} ms ({b * n / ms / 1e3:.1f} Mbit/s decoded; device time "
               f"{dev_ms:.4f} ms, host {host:.1f} us a launch), "
               f"plain {plain:.3f} ms, bound {bnd[0]:.3f} ms ({bnd[1]})  [{card}]")
         res[f"viterbi_{label}"] = (err, ms, plain)
         res[f"bound_viterbi_{label}"] = bnd
         res[f"viterbi_{label}_device"] = (dev_ms, host)
+        res[f"viterbi_{label}_layout"] = layout
+        # each layout through the C entry, whichever the rule picks here
+        by_layout = {}
+        for lay, name in K12_LAYOUTS.items():
+            call = lambda lay=lay: k12_entry(soft_t, n, lay)
+            require(torch.equal(call(), want), f"viterbi {label}: layout {name}'s bytes differ "
+                    f"from the plain decoder's")
+            by_layout[name] = device_ms(call, 10)
+        print(f"K1+K2 viterbi {label} B={b} T2p={t2p} by layout through the C entry, bytes "
+              f"equal, device ms: " + ", ".join(f"{k} {v:.4f}" for k, v in by_layout.items())
+              + f"  [{card}]")
+        res[f"viterbi_{label}_by_layout"] = by_layout
 
     for label, profile, b in (("fic", FIC_PROFILE, 64),
                               ("msc", eep_profile(108, 3, 0), 64),
@@ -983,11 +1056,18 @@ def run_main_path(dev, card):
     tail = (demod_tail.demap_cuda, demod_tail.norm_cuda, demod_tail.stats_cuda)
     for w in [w[2] for w in KERNELS.values()] + list(tail):
         w.launches = 0
+    viterbi_decode_bytes_t_cuda.layout_launches.clear()
     outs = []
     for k in range(N_STEPS):
         carry, out = step(carry, chunks[k][0], chunks[k][1], freq)
         outs.append(out)
     torch.cuda.synchronize()
+    k12_layouts = {K12_LAYOUTS[k]: n
+                   for k, n in viterbi_decode_bytes_t_cuda.layout_launches.items()}
+    print(f"main path: K1+K2 launches by layout {k12_layouts}")
+    require(k12_layouts == {"bfly": N_STEPS, "warp": N_STEPS},
+            f"the main path's K1+K2 launches by layout {k12_layouts}: want the MSC's "
+            f"{N_STEPS} on bfly and the FIC's {N_STEPS} on warp")
     launches = {name: KERNELS[name][2].launches for name in STEP_KERNELS}
     mode_a = deinterleave_cuda.launches
     print(f"main path: {N_STEPS} steps of E={N_ENS} x F={N_FRAMES}; launches {launches}; "
@@ -1047,7 +1127,7 @@ def run_main_path(dev, card):
         f"{k} {v:.2f} ms ({100 * v / step_ms:.1f}%)" for k, v in parts.items()))
     state["carry"] = device_breakdown(step, state["carry"], chunks[0], freq, step_ms, card)
     fec_breakdown(step, state["carry"], soft, card)
-    return launches, step_ms, frames, payload
+    return launches, step_ms, frames, payload, k12_layouts
 
 
 def run_hostfed_step(dev, step, frames: np.ndarray, freq, payload, sid: int) -> None:
@@ -2873,7 +2953,7 @@ def main() -> None:
         marks.append((phases, time.perf_counter()))
     card = identify()
     dev = torch.device("cuda", 0)
-    resources = build()
+    resources, sass = build()
     mark("1-2")
     rng = np.random.default_rng(SEED)
     res = check_kernels(dev, rng, card)
@@ -2881,7 +2961,7 @@ def main() -> None:
     res.update(check_u8(dev, card))
     chain = check_chain(dev, card)
     mark("3")
-    launches, step_ms, bench_frames, bench_payload = run_main_path(dev, card)
+    launches, step_ms, bench_frames, bench_payload, k12_layouts = run_main_path(dev, card)
     mark("4-6")
     host_launches, _ = run_host_path(dev, card)
     mark("7")
@@ -2973,6 +3053,10 @@ def main() -> None:
         if name == "viterbi_fwd_traceback":
             entry["kernel_ms_host_us"] = {k: res[f"viterbi_{k}_device"] for k in ("msc", "fic")}
             entry["fic_ms"] = res["viterbi_fic"][1]
+            entry["layout"] = {k: res[f"viterbi_{k}_layout"] for k in ("msc", "fic")}
+            entry["by_layout_ms"] = {k: res[f"viterbi_{k}_by_layout"] for k in ("msc", "fic")}
+            entry["layout_launches"] = k12_layouts
+            entry["sass_per_superstep"] = sass
         if name == "viterbi_bits":
             entry["ms_by_shape"] = {k: res[f"viterbi_bits_{k}"][1:]
                                     for k in ("fic", "msc", "calibration")}

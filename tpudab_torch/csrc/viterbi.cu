@@ -29,7 +29,8 @@
 // _tb_kernel_packed (viterbi_pallas.py:124) as exp_viterbi_decompose.py's
 // `tb` (:406) and exp_depunct_t.py::tb_t (:68) call it, mode shuffle (the
 // decode kernels' traceback); tools/exp_tb_tree.py's pre-r5 masked
-// reduction (:14, mode masked) and 6-level select tree (:42, mode tree).
+// reduction (:14, mode masked) and 6-level select tree (:42, mode tree:
+// its walk by one thread a codeword, the state's byte picked by a load).
 // Plain torch twins: tpudab_torch/ops/viterbi_exp.py::fwd_variant_ref and
 // ::traceback_bytes_ref, which these kernels match exactly.
 //
@@ -45,7 +46,43 @@
 // since the maps read all 64 states) and is a chain of dependent picks,
 // which the group maps below cut to one per 4 super-steps.
 //
-// Design: one warp per codeword, kWarps codewords per block.
+// viterbi_kernel: two layouts, picked by ops/viterbi_cuda.py::k12_layout
+// from the batch B and the card's SMs.
+//   - One warp a codeword (kWarpLayout; forward_acs, below) for B up to
+//     32 codewords an SM (4224 on 132 SMs): the FIC's 2048, `decode` and
+//     `stream`. At a few codewords an SM the kernel is bound by the chain
+//     of super-steps (~470 cycles each on an H100), not by issue, and a
+//     layout with more work a thread only lengthens the chain.
+//   - Two radix-4 butterflies a thread (kBflyLayout; forward_butterflies,
+//     "butterfly layout" below) past that: the MSC's 12288. The edge is
+//     the crossover measured at T2p 1744 (device ms, warp / bfly: 4224
+//     codewords 0.763 / 0.793, 5120 1.138 / 0.913); at T2p 400 the two
+//     are within 7% from 3072 to 4224 codewords. Thread r of a codeword holds
+//     butterflies k0 and k0 ^ 6, 8 states; 8 threads a codeword, 4
+//     codewords a warp, 16 a block, 96 an SM. Each thread sums its own 8
+//     branch metrics by a prefix tree (34 adds, no shuffle), exchanges path
+//     metrics through shared memory in state order (two 16-byte stores, 8
+//     loads) and stores one 32-bit decision word a butterfly every 4
+//     super-steps, at bytes 4k .. 4k + 3 of the same (B, T2p/4, 64) rows.
+//     The per-super-step work that one warp a codeword pays once for 2
+//     states (soft loads, shuffles, exchange, loop, stores) is paid once
+//     for 8. After the forward pass 16 threads of the block walk its 16
+//     codewords (traceback_tree, the byte picked by a shared load).
+//   - SASS (sm_90a, bf16): one warp a codeword's inner group of 4
+//     super-steps is 210 instructions (52.5 a codeword and super-step,
+//     the soft staging not included); the butterflies' inner loop of 8
+//     super-steps is 1335 for a warp of 4 codewords (41.7 a codeword and
+//     super-step, its staging included): FFMA 528, FSETP 192, FMNMX 192,
+//     SEL 128, IMAD 81, LDS 80, STS 24. 80 registers, no spills.
+//   - What bounds it now: issue, at ~0.6 warp instructions a cycle a
+//     scheduler, with every class of instruction costing alike (variants
+//     without the decisions, the tree or the exchange ran 25%, 18% and 2%
+//     faster: PERF.md §6). The ~21 instructions a state and super-step are
+//     the cost: 4 adds, 3 FMNMX, 3 FSETP, 2 SEL and ~1.3 IMAD for the ACS
+//     and decisions, 4.25 for the tree, 1.25 for the exchange. The walk
+//     reads all decision rows once, ~0.1 ms at the MSC's 343 MB.
+//
+// forward_acs: one warp per codeword, kWarps codewords per block.
 //   - Lane l holds states 2l and 2l + 1, which have the same four
 //     predecessors (l >> 1) | (j << 4). The path metrics are exchanged
 //     through a per-warp double buffer in shared memory, laid out so that
@@ -494,12 +531,6 @@ __device__ __forceinline__ uint32_t lds_u16(uint32_t a) {
   asm volatile("ld.shared.u16 %0, [%1];\n" : "=r"(v) : "r"(a));
   return v;
 }
-__device__ __forceinline__ uint4 lds_u128(uint32_t a) {
-  uint4 v;
-  asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w) : "r"(a));
-  return v;
-}
 __device__ __forceinline__ void cp_async16(uint32_t smem, const void* gmem) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem), "l"(gmem) : "memory");
 }
@@ -668,13 +699,16 @@ __device__ __noinline__ void traceback(const uint8_t* __restrict__ dcw, int grou
   }
 }
 
-// The same by one thread, bytes out, picking the state's byte by a 6-level
-// binary select on the state bits, high bit first, over the row held in 16
-// registers, as tools/exp_tb_tree.py::_tb_kernel_tree halves its 64 rows.
-// Rows come through the thread's own ring of kTreeRing rows in shared
-// memory (kTreeStride bytes, padded so that a quarter warp's 16-byte reads
-// fall on distinct banks), filled by cp.async kTreeRing - 1 rows ahead.
-// Bytes are kept 4 groups to a word and stored as one word where aligned.
+// The same by one thread, bytes out. Rows come through the thread's own
+// ring of kTreeRing rows in shared memory (kTreeStride bytes, padded so
+// that a quarter warp's 16-byte reads fall on distinct banks), filled by
+// cp.async kTreeRing - 1 rows ahead. The state's byte is one load from the
+// staged row, 4 dependent loads a group: on an H100 no slower than
+// tools/exp_tb_tree.py::_tb_kernel_tree's 6-level binary select over the
+// row held in 16 registers (~70 selects a group; (6144, 448, 64) rows,
+// 0.1130 against 0.1164 ms), and faster where 96 walks share an SM
+// (viterbi_kernel's butterfly layout). Bytes are kept 4 groups to a word
+// and stored as one word where aligned.
 __device__ void traceback_tree(const uint8_t* __restrict__ dcw, int groups,
                                uint8_t* __restrict__ ocw, int n_out, uint8_t* ring) {
   const uint32_t ring_s = shared_addr(ring);
@@ -693,29 +727,11 @@ __device__ void traceback_tree(const uint8_t* __restrict__ dcw, int groups,
   for (int g = groups - 1; g >= 0; --g) {
     fetch(g - (kTreeRing - 1));
     cp_async_wait<kTreeRing - 1>();   // row g has landed
-    uint32_t r[16];
     const uint32_t row = ring_s + (g % kTreeRing) * kStates;
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      const uint4 w = lds_u128(row + 16 * u);
-      r[4 * u] = w.x; r[4 * u + 1] = w.y; r[4 * u + 2] = w.z; r[4 * u + 3] = w.w;
-    }
     uint32_t byte = 0;
 #pragma unroll
     for (int q = 3; q >= 0; --q) {
-      uint32_t v[16];
-#pragma unroll
-      for (int i = 0; i < 16; ++i) v[i] = r[i];
-#pragma unroll
-      for (int i = 0; i < 8; ++i) v[i] = ((state >> 5) & 1) ? v[i + 8] : v[i];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) v[i] = ((state >> 4) & 1) ? v[i + 4] : v[i];
-#pragma unroll
-      for (int i = 0; i < 2; ++i) v[i] = ((state >> 3) & 1) ? v[i + 2] : v[i];
-      uint32_t w = ((state >> 2) & 1) ? v[1] : v[0];
-      w = ((state >> 1) & 1) ? (w >> 16) : w;
-      const uint32_t rb = (state & 1) ? (w >> 8) : w;
-      const int j = (rb >> (6 - 2 * q)) & 3;
+      const int j = (lds_u8(row + state) >> (6 - 2 * q)) & 3;
       byte |= (uint32_t)(state & 3) << (6 - 2 * q);
       state = (state >> 2) | (j << 4);
     }
@@ -734,6 +750,274 @@ __device__ void traceback_tree(const uint8_t* __restrict__ dcw, int groups,
   }
 }
 
+// ---- viterbi_kernel's butterfly layout --------------------------------
+//
+// A radix-4 butterfly: old states k, k + 16, k + 32, k + 48 go to new
+// states 4k .. 4k + 3 (k < 16). Super-transition reg = (j << 6) | 4k | i
+// (state 4k + i, predecessor j) sends soft value n with the sign
+// (-1)^parity(kGenMasks byte n & reg). The code is linear, so for a thread
+// whose butterflies are k0 and k0 ^ 6, the signs split into the thread's
+// own t_n = the sign of n in 4 k0 (registers) and the sign of
+// (j << 6) | 4v | i, v = 0 or 6 (compile-time). The 32 super-transitions of
+// the two butterflies take 8 distinct index-order sums up to sign (6 lies
+// in {0, 6, 11, 13}, the butterflies whose sums are the same 8): 34 adds
+// of a prefix tree a thread and super-step, and no shuffle.
+
+// Byte n: the mask of soft value n's sign bit in the 8-bit super-transition
+// register (DAB's generators 0133, 0171, 0145, 0133 over two trellis steps);
+// tests/test_torch_k12_layout.py holds it to radix_tables()[0].
+constexpr unsigned long long kGenMasks = 0x6d534f6ddaa69edaull;
+constexpr int kBfly = 2;                 // butterflies a thread
+constexpr int kBflyStep = 6;             // between a thread's two butterflies
+constexpr int kBflyTpc = 16 / kBfly;     // threads a codeword
+constexpr int kBflyCw = 16;              // codewords a block
+constexpr int kBflyThreads = kBflyCw * kBflyTpc;
+constexpr int kBflyPm = 72;              // floats of a codeword's exchange buffer
+
+__host__ __device__ constexpr int parity8(int x) {
+  return (x ^ (x >> 1) ^ (x >> 2) ^ (x >> 3) ^ (x >> 4) ^ (x >> 5) ^ (x >> 6) ^ (x >> 7)) & 1;
+}
+// 1 where soft value n enters super-transition reg negated
+__host__ __device__ constexpr int sign_bit(int n, int reg) {
+  return parity8((int)((kGenMasks >> (8 * n)) & 0xffu) & reg);
+}
+// Butterfly k0 of thread r of a codeword (its other is k0 ^ 6): one of each
+// pair {k, k ^ 6}, chosen with kBflyPm so that a warp's exchange stores and
+// loads fall on distinct banks.
+__host__ __device__ constexpr int bfly_base(int r) { return r | ((r & 4) << 1); }
+
+// A thread's branch metrics as a prefix tree over its 8 index-order sums
+// (patterns: bit n set where soft value n is negated, normalised so that
+// bit 0 is clear). Level n holds the distinct prefixes of n + 1 signs;
+// level 7 the 8 sums.
+struct BmTree {
+  int count[kSoft];               // nodes at level n
+  int parent[kSoft][kSoft];       // node q of level n: its prefix at level n - 1
+  int neg[kSoft][kSoft];          // ... and whether soft value n enters it negated
+  int mag[kBfly][4][4];           // [w][i][j]: the sum of state 4k + i, pred j
+  int flip[kBfly][4][4];          // ... and whether the branch metric is its negation
+};
+
+__host__ __device__ constexpr BmTree bm_tree() {
+  BmTree t{};
+  int pats[kSoft] = {};
+  int np = 0;
+  for (int w = 0; w < kBfly; ++w)
+    for (int i = 0; i < 4; ++i)
+      for (int j = 0; j < 4; ++j) {
+        const int reg = (j << 6) | (4 * kBflyStep * w) | i, s0 = sign_bit(0, reg);
+        int pat = 0;
+        for (int n = 1; n < kSoft; ++n) pat |= (sign_bit(n, reg) ^ s0) << n;
+        int q = 0;
+        while (q < np && pats[q] != pat) ++q;
+        if (q == np && np < kSoft) pats[np++] = pat;
+        t.mag[w][i][j] = q;       // kSoft where a 9th sum would be: bm_tree_ok() fails
+        t.flip[w][i][j] = s0;
+      }
+  int prev[kSoft] = {}, cur[kSoft] = {};
+  int nprev = 1;                  // level 0: x0 alone
+  t.count[0] = 1;
+  for (int n = 1; n < kSoft; ++n) {
+    const int keep = (2 << n) - 1;
+    int nc = 0;
+    for (int p = 0; p < np; ++p) {
+      const int pre = pats[p] & keep;
+      int q = 0;
+      while (q < nc && cur[q] != pre) ++q;
+      if (q == nc) {
+        cur[nc] = pre;
+        int par = 0;
+        while (par < nprev && prev[par] != (pre & (keep >> 1))) ++par;
+        t.parent[n][nc] = par;
+        t.neg[n][nc] = (pre >> n) & 1;
+        ++nc;
+      }
+    }
+    t.count[n] = nc;
+    for (int q = 0; q < nc; ++q) prev[q] = cur[q];
+    nprev = nc;
+  }
+  return t;
+}
+
+__host__ __device__ constexpr bool bm_tree_ok() {
+  const BmTree t = bm_tree();
+  for (int w = 0; w < kBfly; ++w)
+    for (int i = 0; i < 4; ++i)
+      for (int j = 0; j < 4; ++j)
+        if (t.mag[w][i][j] >= kSoft) return false;
+  return t.count[kSoft - 1] == kSoft;
+}
+static_assert(bm_tree_ok(), "the two butterflies take 8 distinct sums");
+
+// The block's kBflyCw codewords from cw0 of (t2p, 8, b) soft values,
+// staged by its threads in halves of a chunk (8 super-steps each): thread
+// x reads codeword cw0 + x % 16 in rows x / 16 + 8 k (a 32-byte sector of
+// a bf16 row per 16 threads) and writes them to that codeword's row of the
+// buffer; a codeword past b reads 0.
+template <typename T>
+struct BlockSoft {
+  static constexpr int kRows = kBflyThreads / kBflyCw;
+  static constexpr int kHalf = kTile / kRows / 2;
+  const T* src;        // this thread's next row
+  size_t step;         // elements between its rows
+  int dst;             // its first slot in the buffer
+  bool live;
+  __device__ BlockSoft(const T* soft, int b, int cw0) {
+    const int col = (int)(threadIdx.x % kBflyCw), row = (int)(threadIdx.x / kBflyCw);
+    live = cw0 + col < b;
+    src = soft + (size_t)row * b + (live ? cw0 + col : 0);
+    step = (size_t)kRows * b;
+    dst = col * x_stride<float>() + row;
+  }
+  // the next half chunk, in flight until put()
+  __device__ void fetch(float (&r)[kHalf]) {
+#pragma unroll
+    for (int k = 0; k < kHalf; ++k, src += step) r[k] = live ? F32Metric::of(*src) : 0.f;
+  }
+  __device__ void put(const float (&r)[kHalf], float* xs, int half) const {
+#pragma unroll
+    for (int k = 0; k < kHalf; ++k) xs[dst + (half * kHalf + k) * kRows] = r[k];
+  }
+};
+
+// The 8 index-order sums of one super-step's soft values at xp (16-byte
+// aligned) by the thread's prefix tree (signs u): a level from the last,
+// one add a node.
+__device__ __forceinline__ void tree_sums(const float* xp, const float (&u)[kSoft],
+                                          float (&lvl)[kSoft]) {
+  constexpr BmTree kT = bm_tree();
+  float x[kSoft], nxt[kSoft];
+  load8(xp, x);
+  lvl[0] = x[0];
+#pragma unroll
+  for (int n = 1; n < kSoft; ++n) {
+#pragma unroll
+    for (int c = 0; c < kSoft; ++c)
+      if (c < kT.count[n]) nxt[c] = fmaf(kT.neg[n][c] ? -u[n] : u[n], x[n], lvl[kT.parent[n][c]]);
+#pragma unroll
+    for (int c = 0; c < kSoft; ++c)
+      if (c < kT.count[n]) lvl[c] = nxt[c];
+  }
+}
+
+// Forward ACS of the block's kBflyCw codewords over t2p super-steps (t2p %
+// 16 == 0), two butterflies (8 states) a thread, 8 threads a codeword, f32
+// metrics rebased by state 0 every 16. Thread r of a codeword holds
+// butterflies k0 = bfly_base(r) and k0 ^ 6; every 4 super-steps it stores
+// one 32-bit word a butterfly (states 4k .. 4k + 3: bytes 4k .. 4k + 3 of
+// the group's row) to dcw (none when null). Path metrics go through a
+// per-codeword double buffer in shared memory in state order: a
+// butterfly's 4 new metrics are one 16-byte store, its 4 predecessors 4
+// loads, one __syncwarp a super-step. xs: the staging buffer (2 chunks),
+// pmx: the exchange buffers. Every thread of the block calls it, for the
+// staging barrier.
+template <typename T>
+__device__ void forward_butterflies(const T* __restrict__ soft, int b, int cw0, int t2p,
+                                    uint8_t* __restrict__ dcw, float* xs, float* pmx) {
+  constexpr int kXs = kBflyCw * x_stride<float>(), kBuf = kBflyCw * kBflyPm;
+  constexpr BmTree kT = bm_tree();
+  BlockSoft<T> load(soft, b, cw0);
+  const int r = (int)(threadIdx.x % kBflyTpc), cwl = (int)(threadIdx.x / kBflyTpc);
+  const int k0 = bfly_base(r);
+  const int lane0 = (int)(threadIdx.x & 31) & ~(kBflyTpc - 1);   // the codeword's first lane
+  float* const pm_own = pmx + cwl * kBflyPm;
+  // this thread's signs: u_n = t_n t_0 for the tree, t_0 for the branch metric
+  float u[kSoft];
+#pragma unroll
+  for (int n = 0; n < kSoft; ++n) u[n] = (sign_bit(n, 4 * k0) ^ sign_bit(0, 4 * k0)) ? -1.f : 1.f;
+  const float t0s = sign_bit(0, 4 * k0) ? -1.f : 1.f;
+
+  float v[kBfly][4];
+#pragma unroll
+  for (int w = 0; w < kBfly; ++w) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      v[w][i] = (k0 ^ (kBflyStep * w)) == 0 && i == 0 ? 0.f : F32Metric::kStart;
+    *reinterpret_cast<float4*>(pm_own + 4 * (k0 ^ (kBflyStep * w))) =
+        make_float4(v[w][0], v[w][1], v[w][2], v[w][3]);
+  }
+  uint32_t acc[kBfly];
+  float rbuf[BlockSoft<T>::kHalf];
+  load.fetch(rbuf);
+  load.put(rbuf, xs, 0);
+  load.fetch(rbuf);
+  load.put(rbuf, xs, 1);
+
+  for (int t0 = 0, chunk = 0; t0 < t2p; t0 += kStage, ++chunk) {
+    // this chunk is staged, and every thread is done with the other buffer
+    __syncthreads();
+    const bool more = t0 + kStage < t2p;
+    if (more) load.fetch(rbuf);   // the next chunk's first half, in flight
+    const float* xw = xs + (chunk & 1) * kXs + cwl * x_stride<float>();
+    float* xn = xs + ((chunk + 1) & 1) * kXs;
+    // two groups a pass: the loop-invariant values the compiler makes
+    // again each pass (80 registers) are made once per 8 super-steps
+#pragma unroll 2
+    for (int g4 = 0; g4 < kStage; g4 += 4) {
+      if (g4 == kStage / 2 && more) {
+        load.put(rbuf, xn, 0);
+        load.fetch(rbuf);
+      }
+#pragma unroll
+      for (int w = 0; w < kBfly; ++w) acc[w] = 0;
+#pragma unroll
+      for (int uq = 0; uq < 4; ++uq) {
+        const int q = g4 + uq;
+        float lvl[kSoft];
+        tree_sums(xw + q * kSoft, u, lvl);
+        const float* rd = pm_own + (uq & 1) * kBuf;
+#pragma unroll
+        for (int w = 0; w < kBfly; ++w) {
+          const int k = k0 ^ (kBflyStep * w);
+          float p[4];
+#pragma unroll
+          for (int j = 0; j < 4; ++j) p[j] = rd[k + 16 * j];
+          uint32_t d = 0;
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            float c[4];
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+              c[j] = fmaf(kT.flip[w][i][j] ? -t0s : t0s, lvl[kT.mag[w][i][j]], p[j]);
+            // pairwise strict > (ties keep the lower j); fmaxf gives the
+            // selected value, as no candidate is -0 or NaN
+            const bool d01 = c[1] > c[0], d23 = c[3] > c[2];
+            const float m01 = fmaxf(c[0], c[1]), m23 = fmaxf(c[2], c[3]);
+            const bool dh = m23 > m01;
+            v[w][i] = fmaxf(m01, m23);
+            d |= (dh ? (d23 ? 3u : 2u) : (d01 ? 1u : 0u)) << (8 * i);
+          }
+          acc[w] = acc[w] * 4u + d;   // step q's decision in bits [6 - 2q, 8 - 2q) of its byte
+        }
+        if (uq == 3 && g4 == kStage - 4) {
+          // rebase by state 0 (thread 0 of the codeword, butterfly 0, i = 0)
+          const float base = __shfl_sync(kAll, v[0][0], lane0);
+#pragma unroll
+          for (int w = 0; w < kBfly; ++w)
+#pragma unroll
+            for (int i = 0; i < 4; ++i) v[w][i] = __fsub_rn(v[w][i], base);
+        }
+        // read at the next step behind this __syncwarp; every thread of the
+        // codeword read this buffer at the last step, before its __syncwarp
+        float* wr = pm_own + ((uq + 1) & 1) * kBuf;
+#pragma unroll
+        for (int w = 0; w < kBfly; ++w)
+          *reinterpret_cast<float4*>(wr + 4 * (k0 ^ (kBflyStep * w))) =
+              make_float4(v[w][0], v[w][1], v[w][2], v[w][3]);
+        __syncwarp();
+      }
+      if (dcw) {
+        uint8_t* row = dcw + (size_t)((t0 + g4) >> 2) * kStates;
+#pragma unroll
+        for (int w = 0; w < kBfly; ++w)
+          *reinterpret_cast<uint32_t*>(row + 4 * (k0 ^ (kBflyStep * w))) = acc[w];
+      }
+    }
+    if (more) load.put(rbuf, xn, 1);
+  }
+}
+
 // Blocks of kWarps warps, launch-bounded to 32 resident warps per SM (64
 // registers a thread).
 #define TPUDAB_WARPS_BOUNDS(W) __launch_bounds__((W) * kLanes, 1024 / ((W) * kLanes))
@@ -742,21 +1026,67 @@ __device__ void traceback_tree(const uint8_t* __restrict__ dcw, int groups,
 // would take the block past 48 KB of static shared memory (bf16, 16 warps).
 __host__ __device__ constexpr int decode_tb_stages(int warps) { return warps > 8 ? 2 : kTbStages; }
 
-template <typename T, int kWarps = transposed_warps<T>()>
-__global__ void TPUDAB_WARPS_BOUNDS(kWarps)
+// traceback_tree, not inlined: its registers stay apart from the forward
+// pass's.
+__device__ __noinline__ void walk_tree(const uint8_t* __restrict__ dcw, int groups,
+                                       uint8_t* __restrict__ ocw, int n_out, uint8_t* ring) {
+  traceback_tree(dcw, groups, ocw, n_out, ring);
+}
+
+// viterbi_kernel's thread layouts (ops/viterbi_cuda.py::K12_LAYOUTS names
+// them, ::k12_layout picks one from the batch): kWarpLayout, one warp a codeword (forward_acs and
+// the warp's shuffle traceback), kBflyLayout, two butterflies a thread
+// (forward_butterflies, then traceback_tree by one thread a codeword).
+constexpr int kWarpLayout = 0, kBflyLayout = 2;
+__host__ __device__ constexpr int k12_codewords(int layout, int warps) {
+  return layout == kWarpLayout ? warps : kBflyCw;
+}
+__host__ __device__ constexpr int k12_threads(int layout, int warps) {
+  return layout == kWarpLayout ? warps * kLanes : kBflyThreads;
+}
+// resident blocks an SM: 32 warps (64 registers) for one warp a codeword,
+// 24 (80 registers) for the butterflies
+__host__ __device__ constexpr int k12_min_blocks(int layout, int warps) {
+  return layout == kWarpLayout ? 1024 / (warps * kLanes) : 768 / kBflyThreads;
+}
+
+template <typename T, int kLayout>
+__global__ void __launch_bounds__(k12_threads(kLayout, transposed_warps<T>()),
+                                  k12_min_blocks(kLayout, transposed_warps<T>()))
 viterbi_kernel(const T* __restrict__ soft, const int* __restrict__ table,
                uint8_t* __restrict__ dec, uint8_t* __restrict__ out,
                int t2p, int b, int n_out) {
-  constexpr int kRing = tb_ring<decode_tb_stages(kWarps)>();
-  __shared__ __align__(16) uint8_t ring[kWarps * kRing];
-  const int cw0 = blockIdx.x * kWarps, cw = cw0 + (int)(threadIdx.x >> 5);
-  uint8_t* dcw = dec + (size_t)cw * (t2p / 4) * kStates;
-  forward_acs<kFull, F32Metric, kStage, kWarps>(
-      TransposedSoft<T, F32Metric, kWarps>{soft, b, cw0}, table, t2p,
-      cw < b ? reinterpret_cast<uint16_t*>(dcw) : nullptr);
-  if (cw < b)
-    traceback<false, kShuffle, decode_tb_stages(kWarps)>(
-        dcw, t2p / 4, out + (size_t)cw * n_out, n_out, ring + (threadIdx.x >> 5) * kRing);
+  const size_t rows = (size_t)(t2p / 4) * kStates;
+  if constexpr (kLayout == kWarpLayout) {
+    constexpr int kWarps = transposed_warps<T>();
+    constexpr int kRing = tb_ring<decode_tb_stages(kWarps)>();
+    __shared__ __align__(16) uint8_t ring[kWarps * kRing];
+    const int cw0 = blockIdx.x * kWarps, cw = cw0 + (int)(threadIdx.x >> 5);
+    uint8_t* dcw = dec + (size_t)cw * rows;
+    forward_acs<kFull, F32Metric, kStage, kWarps>(
+        TransposedSoft<T, F32Metric, kWarps>{soft, b, cw0}, table, t2p,
+        cw < b ? reinterpret_cast<uint16_t*>(dcw) : nullptr);
+    if (cw < b)
+      traceback<false, kShuffle, decode_tb_stages(kWarps)>(
+          dcw, t2p / 4, out + (size_t)cw * n_out, n_out, ring + (threadIdx.x >> 5) * kRing);
+  } else {
+    constexpr int kXs = kBflyCw * x_stride<float>();
+    static_assert(kBflyCw * kTreeStride <= (int)sizeof(float) * 2 * kXs,
+                  "the traceback's rings fit in the staging buffer");
+    __shared__ __align__(16) float xs[2 * kXs];
+    __shared__ __align__(16) float pmx[2 * kBflyCw * kBflyPm];
+    const int cw0 = blockIdx.x * kBflyCw, cw = cw0 + (int)threadIdx.x / kBflyTpc;
+    forward_butterflies<T>(soft, b, cw0, t2p, cw < b ? dec + (size_t)cw * rows : nullptr, xs,
+                           pmx);
+    // every warp's decision rows are written, and every warp is done with
+    // the staging buffer, which holds the rings: thread c walks codeword
+    // cw0 + c
+    __syncthreads();
+    const int c = cw0 + (int)threadIdx.x;
+    if (threadIdx.x < kBflyCw && c < b)
+      walk_tree(dec + (size_t)c * rows, t2p / 4, out + (size_t)c * n_out, n_out,
+                reinterpret_cast<uint8_t*>(xs) + threadIdx.x * kTreeStride);
+  }
 }
 
 template <typename T>
@@ -846,31 +1176,44 @@ cudaError_t launch_fwd(const void* soft, const int* table, uint8_t* dec, float* 
   return cudaGetLastError();
 }
 
+template <typename T, int kLayout>
+void launch_layout(const void* soft, const int* table, uint8_t* dec, uint8_t* out, int t2p,
+                   int b, int n_out, cudaStream_t st) {
+  constexpr int kCw = k12_codewords(kLayout, transposed_warps<T>());
+  viterbi_kernel<T, kLayout><<<(b + kCw - 1) / kCw, k12_threads(kLayout, transposed_warps<T>()),
+                               0, st>>>(static_cast<const T*>(soft), table, dec, out, t2p, b,
+                                        n_out);
+}
+
 template <typename T>
-void launch_bytes_t(const void* soft, const int* table, uint8_t* dec, uint8_t* out, int t2p,
-                    int b, int n_out, cudaStream_t st) {
-  viterbi_kernel<T><<<blocks_for<T>(b), transposed_warps<T>() * kLanes, 0, st>>>(
-      static_cast<const T*>(soft), table, dec, out, t2p, b, n_out);
+cudaError_t launch_bytes_t(const void* soft, const int* table, uint8_t* dec, uint8_t* out,
+                           int t2p, int b, int n_out, int layout, cudaStream_t st) {
+  if (layout == kWarpLayout)
+    launch_layout<T, kWarpLayout>(soft, table, dec, out, t2p, b, n_out, st);
+  else if (layout == kBflyLayout)
+    launch_layout<T, kBflyLayout>(soft, table, dec, out, t2p, b, n_out, st);
+  else
+    return cudaErrorInvalidValue;
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 // soft: (t2p, 8, b) bf16 (is_bf16=1) or f32; table: (2, 32) int32, the
-// branch-metric table (see LaneTable); dec: (b, t2p/4, 64) u8 scratch;
-// out: (b, n_out) u8. t2p % 16 == 0.
+// branch-metric table (see LaneTable; layout 0 reads it); dec: (b, t2p/4,
+// 64) u8 scratch; out: (b, n_out) u8. t2p % 16 == 0. layout: see
+// viterbi_kernel.
 extern "C" int tpudab_viterbi_decode_bytes_t(const void* soft, int is_bf16,
                                              const void* table, void* dec,
                                              void* out, int t2p, int b,
-                                             int n_out, void* stream) {
+                                             int n_out, int layout, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int* tb = static_cast<const int*>(table);
   uint8_t* d = static_cast<uint8_t*>(dec);
   uint8_t* o = static_cast<uint8_t*>(out);
   if (is_bf16)
-    launch_bytes_t<__nv_bfloat16>(soft, tb, d, o, t2p, b, n_out, st);
-  else
-    launch_bytes_t<float>(soft, tb, d, o, t2p, b, n_out, st);
-  return (int)cudaGetLastError();
+    return (int)launch_bytes_t<__nv_bfloat16>(soft, tb, d, o, t2p, b, n_out, layout, st);
+  return (int)launch_bytes_t<float>(soft, tb, d, o, t2p, b, n_out, layout, st);
 }
 
 // soft: (b, t_mother, 4) bf16 (is_bf16=1) or f32; table: (2, 32) int32;

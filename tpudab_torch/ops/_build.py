@@ -34,7 +34,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # C entry points: name -> argtypes. Each returns cudaGetLastError() as int.
 SIGNATURES = {
-    "tpudab_viterbi_decode_bytes_t": (_P, _I, _P, _P, _P, _I, _I, _I, _P),
+    "tpudab_viterbi_decode_bytes_t": (_P, _I, _P, _P, _P, _I, _I, _I, _I, _P),
     "tpudab_viterbi_decode_bits": (_P, _I, _P, _P, _P, _I, _I, _I, _I, _P),
     "tpudab_deinterleave": (_P, _P, _I, _I, _I, _I, _P),
     "tpudab_deinterleave_depuncture_t": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,

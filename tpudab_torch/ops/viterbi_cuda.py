@@ -18,6 +18,7 @@ decoder bit for bit. There is no fallback from one to the other.
 
 from __future__ import annotations
 
+import collections
 import functools
 
 import torch
@@ -27,7 +28,7 @@ from tpudab_torch.ops.viterbi import (N_STATES, RADIX, REBASE_STEPS, branch_metr
                                       mother_to_t, radix_tables,
                                       viterbi_decode_bytes_t_ref, viterbi_decode_ref)
 
-__all__ = ["viterbi_decode_bytes_t", "viterbi_decode_bytes_t_cuda",
+__all__ = ["viterbi_decode_bytes_t", "viterbi_decode_bytes_t_cuda", "k12_layout", "K12_LAYOUTS",
            "viterbi_decode_bytes_t_ref", "viterbi_decode_best",
            "viterbi_decode_bytes_best", "viterbi_decode_bits_cuda",
            "viterbi_decode_ref", "signs_on", "kernel_table", "kernel_table_on"]
@@ -81,11 +82,40 @@ def _kernel_table_for(signs: torch.Tensor, device: torch.device) -> torch.Tensor
     return kernel_table_on(device)
 
 
+# viterbi_kernel's thread layouts, id (csrc/viterbi.cu::kWarpLayout,
+# kBflyLayout) -> name
+WARP_LAYOUT, BFLY_LAYOUT = 0, 2
+K12_LAYOUTS = {WARP_LAYOUT: "warp", BFLY_LAYOUT: "bfly"}
+# codewords an SM up to which k12_layout keeps WARP_LAYOUT
+WARP_LAYOUT_CODEWORDS_PER_SM = 32
+
+
+def k12_layout(b: int, sm_count: int) -> int:
+    """The thread layout of K1+K2 (csrc/viterbi.cu::viterbi_kernel) for b
+    codewords on a card of sm_count SMs: one warp a codeword up to
+    WARP_LAYOUT_CODEWORDS_PER_SM codewords an SM, two butterflies a thread
+    past them. The edge is the crossover measured at T2p 1744, the MSC's
+    length, on an H100 of 132 SMs (PERF.md section 6, device ms warp /
+    bfly): 2048 codewords 0.440 / 0.695, 3072 0.763 / 0.770, 4224
+    0.763 / 0.793, 5120 1.138 / 0.913. At T2p 400 the layouts are within
+    7% of each other from 3072 to 4224 (3072: 0.178 / 0.166; 4224:
+    0.180 / 0.183), one warp a codeword faster up to 2048 and the
+    butterflies from 5120 (0.266 / 0.209)."""
+    return BFLY_LAYOUT if b > WARP_LAYOUT_CODEWORDS_PER_SM * sm_count else WARP_LAYOUT
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count_of(index: int) -> int:
+    """The SMs of CUDA device `index`, read once."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def viterbi_decode_bytes_t_cuda(soft_t: torch.Tensor, signs: torch.Tensor,
                                 n_data_bits: int) -> torch.Tensor:
     """Kernels K1 + K2 on a CUDA tensor: soft_t (T2p, 8, B) bf16 or f32,
     contiguous, T2p % 16 == 0; signs (8, 256) f32 -> (B, n_data_bits // 8)
-    uint8."""
+    uint8. The thread layout is k12_layout(B, the card's SMs); .launches
+    counts the launches and .layout_launches[layout] those of each layout."""
     t2p, eight, b = soft_t.shape
     if not soft_t.is_cuda or soft_t.dtype not in (torch.bfloat16, torch.float32) \
             or not soft_t.is_contiguous() or eight != 4 * RADIX \
@@ -96,18 +126,22 @@ def viterbi_decode_bytes_t_cuda(soft_t: torch.Tensor, signs: torch.Tensor,
                          f"{soft_t.device} {soft_t.dtype} "
                          f"{tuple(soft_t.shape)}, n_data_bits={n_data_bits}")
     table = _kernel_table_for(signs, soft_t.device)
+    layout = k12_layout(b, sm_count_of(soft_t.get_device()))
     dec = torch.empty((b, t2p // 4, N_STATES), dtype=torch.uint8,
                       device=soft_t.device)
     out = torch.empty((b, n_data_bits // 8), dtype=torch.uint8,
                       device=soft_t.device)
     _build.launch(_build.load_library().tpudab_viterbi_decode_bytes_t, soft_t.get_device(),
                   "viterbi", soft_t.data_ptr(), int(soft_t.dtype == torch.bfloat16),
-                  table.data_ptr(), dec.data_ptr(), out.data_ptr(), t2p, b, n_data_bits // 8)
+                  table.data_ptr(), dec.data_ptr(), out.data_ptr(), t2p, b, n_data_bits // 8,
+                  layout)
     viterbi_decode_bytes_t_cuda.launches += 1
+    viterbi_decode_bytes_t_cuda.layout_launches[layout] += 1
     return out
 
 
 viterbi_decode_bytes_t_cuda.launches = 0
+viterbi_decode_bytes_t_cuda.layout_launches = collections.Counter()
 
 
 def viterbi_decode_bytes_t(soft_t: torch.Tensor, signs: torch.Tensor,

@@ -19,7 +19,8 @@ off, run by tpudab_torch/tools/:
 - traceback_bytes(decs, mode, n_out): packed decisions (B, G, 64) -> MSB-
   first bytes (B, n_out), mode "shuffle" (the production traceback, X2's
   tbonly and X6's tb_t), "masked" (X5's pre-r5 masked reduction) or
-  "tree" (X5's select tree). The three give identical bytes.
+  "tree" (X5's select tree; the kernel walks by one thread a codeword and
+  picks by a load). The three give identical bytes.
 - traceback_maps_ref(decs, mode, n_out, bits, compose): the same walk as
   csrc/viterbi.cu's traceback takes it (group_maps: each group's map of
   its 64 start states, built off the chain; then one pick a group, or one

@@ -3,8 +3,9 @@ tools/exp_viterbi_params.py): depuncture_t, then K1+K2, on the bench
 subchannel's geometry (eep_profile(108, 3, 0)), B = 6 x 16 x 64 = 6144
 codewords (6 subchannels x 16 ensembles x 64 CIFs) of Gaussian bf16 soft
 bits, seed 0. tpudab's tool sweeps the Pallas kernel's tiling (chunk,
-b_tile); csrc/viterbi.cu has no such knob (one warp a codeword, the
-rebase fixed), so this tool times the chain once and prints one row: the
+b_tile); csrc/viterbi.cu has no such knob (its thread layout follows B,
+ops/viterbi_cuda.py::k12_layout; the rebase is fixed), so this tool
+times the chain once and prints one row: the
 decode alone on the depunctured input, as tpudab's rows do, and the
 chain. Checks the first TWIN_B codewords' bytes against the plain twin.
 
@@ -13,12 +14,15 @@ Run: python -m tpudab_torch.tools.exp_viterbi_params [iters]
 
 from __future__ import annotations
 
+import collections
+
 import numpy as np
 import torch
 
 from tpudab_torch.constants.puncture import eep_profile
 from tpudab_torch.fec.depuncture import depuncture_index, depuncture_t
-from tpudab_torch.ops.viterbi_cuda import signs_on, viterbi_decode_bytes_t
+from tpudab_torch.ops.viterbi_cuda import (K12_LAYOUTS, signs_on, viterbi_decode_bytes_t,
+                                           viterbi_decode_bytes_t_cuda)
 from tpudab_torch.ops.viterbi import viterbi_decode_bytes_t_ref
 from tpudab_torch.tools._common import card, parse, timer
 
@@ -65,8 +69,12 @@ def run(dev: torch.device, iters: int, b: int = B) -> dict:
     twin = viterbi_decode_bytes_t_ref(st[:, :, :n].contiguous(), signs_on(dev), prof.data_bits)
     checks = {"twin": torch.equal(by[:n], twin)}
     print(f"first {n} codewords equal the plain twin's: {checks['twin']}", flush=True)
+    before = collections.Counter(viterbi_decode_bytes_t_cuda.layout_launches)
     res = {name: ms(fn, iters) for name, fn in fns.items()}
-    print(f"K1+K2 (one warp a codeword) decode {res['decode']:7.2f} ms, "
+    taken = {K12_LAYOUTS[k]: n
+             for k, n in (viterbi_decode_bytes_t_cuda.layout_launches - before).items()}
+    print(f"K1+K2 (launches by layout: {taken or 'none, the plain twin'}) decode "
+          f"{res['decode']:7.2f} ms, "
           f"depuncture_t + decode {res['chain']:7.2f} ms  [{label}]", flush=True)
     return {"ms": res, "checks": checks}
 

@@ -3,7 +3,8 @@ tools/exp_viterbi_sweep.py): viterbi_decode_bytes_best (the flush-padded
 transposed copy, then K1+K2) on (6144, 3462, 4) f32 mother soft bits,
 3456 data bits, seed 1, 15 queued calls, in decoded Gbit/s. tpudab's tool
 sweeps the Pallas kernel's tiling (chunk, b_tile); csrc/viterbi.cu has no
-such knob (one warp a codeword), so this tool prints one row. Checks the
+such knob (its thread layout follows B: ops/viterbi_cuda.py::k12_layout),
+so this tool prints one row. Checks the
 first TWIN_B codewords' bytes against the plain twin.
 
 Run: python -m tpudab_torch.tools.exp_viterbi_sweep [iters]
@@ -11,11 +12,14 @@ Run: python -m tpudab_torch.tools.exp_viterbi_sweep [iters]
 
 from __future__ import annotations
 
+import collections
+
 import numpy as np
 import torch
 
 from tpudab_torch.ops.viterbi import mother_to_t, viterbi_decode_bytes_t_ref
-from tpudab_torch.ops.viterbi_cuda import signs_on, viterbi_decode_bytes_best
+from tpudab_torch.ops.viterbi_cuda import (K12_LAYOUTS, signs_on, viterbi_decode_bytes_best,
+                                           viterbi_decode_bytes_t_cuda)
 from tpudab_torch.tools._common import card, parse, timer
 
 B, NBITS = 6144, 3456
@@ -46,10 +50,13 @@ def run(dev: torch.device, iters: int, b: int = B, n_bits: int = NBITS) -> dict:
     twin = viterbi_decode_bytes_t_ref(mother_to_t(soft[:n]), signs_on(dev), n_bits)
     checks = {"twin": torch.equal(by[:n], twin)}
     print(f"first {n} codewords equal the plain twin's: {checks['twin']}", flush=True)
+    before = collections.Counter(viterbi_decode_bytes_t_cuda.layout_launches)
     dt = ms(lambda: viterbi_decode_bytes_best(soft, n_bits), iters)
+    taken = {K12_LAYOUTS[k]: n
+             for k, n in (viterbi_decode_bytes_t_cuda.layout_launches - before).items()}
     res = {"decode": dt, "gbit_s": b * n_bits / (dt / 1e3) / 1e9}
-    print(f"K1+K2 (one warp a codeword)  {dt:7.3f} ms  {res['gbit_s']:6.2f} Gbit/s  [{label}]",
-          flush=True)
+    print(f"K1+K2 (launches by layout: {taken or 'none, the plain twin'})  {dt:7.3f} ms  "
+          f"{res['gbit_s']:6.2f} Gbit/s  [{label}]", flush=True)
     return {"ms": res, "checks": checks}
 
 
