@@ -210,7 +210,7 @@ from tpudab_torch.fec.depuncture import (depuncture_index, depuncture_np, depunc
 from tpudab_torch.host.cli import main as cli_main
 from tpudab_torch.models.ingest import HostFeed
 from tpudab_torch.models.receiver import Receiver
-from tpudab_torch.models.step import ReceiveStep, bench_capture, bench_subchannels
+from tpudab_torch.models.step import ReceiveStep
 from tpudab_torch.msc.interleave import (SoftRows, deinterleave_cuda,
                                          deinterleave_depuncture_t_cuda,
                                          deinterleave_depuncture_t_ref, deinterleave_ref,
@@ -244,6 +244,7 @@ from tpudab_torch.tools import (exp_aligned_demod, exp_carve, exp_conv_demod, ex
                                 exp_viterbi, exp_viterbi_decompose, exp_viterbi_i16,
                                 exp_viterbi_params, exp_viterbi_sweep, profile_step3)
 from tpudab_torch.tools._common import card as card_name
+from tpudab_torch.tools.bench import bench_capture, bench_subchannels
 from tpudab_torch.tools.launch_multihost import free_port
 from tpudab_torch.tools._common import timer
 

@@ -148,7 +148,8 @@ def main(tree: str) -> None:
         res[f"x7_{label}"] = (cuda_ms(f, 10), kernel_ms(f, 10, "carve"), device_ms(f, 10))
     del fr, fi
 
-    from tpudab_torch.models.step import ReceiveStep, bench_capture, bench_subchannels
+    from tpudab_torch.models.step import ReceiveStep
+    from tpudab_torch.tools.bench import bench_capture, bench_subchannels
     frames, _ = bench_capture(16)
     step = ReceiveStep(1, bench_subchannels(), n_ensembles=32).to(dev)
     tiled = step.tile_frames(frames)

@@ -30,8 +30,8 @@ from test_torch_parsers import one_torch_thread  # noqa: F401  (autouse fixture)
 from tpudab.models.step import ReceiveStep as JaxStep
 from tpudab.ops.viterbi_pallas import viterbi_decode_bytes_best as jax_viterbi_bytes
 from tpudab_torch.constants.ofdm_params import SAMPLING_RATE
-from tpudab_torch.models.step import bench_capture
 from tpudab_torch.tools import bench
+from tpudab_torch.tools.bench import bench_capture
 from tpudab_torch.tools.exp_viterbi_sweep import NBITS
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

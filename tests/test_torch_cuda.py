@@ -15,7 +15,7 @@ from tpudab_torch.constants.dab_params import CU_BITS, get_dab_params
 from tpudab_torch.constants.ofdm_params import get_ofdm_params
 from tpudab_torch.constants.puncture import FIC_PROFILE, eep_profile, get_uep_profile
 from tpudab_torch.fec.depuncture import depuncture_index, depuncture_t
-from tpudab_torch.models.step import ReceiveStep, bench_subchannels
+from tpudab_torch.models.step import ReceiveStep
 from tpudab_torch.msc.interleave import (SoftRows, deinterleave_cuda,
                                          deinterleave_depuncture_t_cuda,
                                          deinterleave_depuncture_t_ref, deinterleave_ref)
@@ -32,6 +32,7 @@ from tpudab_torch.ops.viterbi_cuda import (BFLY_LAYOUT, WARP_LAYOUT,
 from tpudab_torch.ops.viterbi_exp import (VARIANTS, fwd_variant_cuda, fwd_variant_ref,
                                           traceback_bytes_cuda, traceback_bytes_ref,
                                           traceback_maps_ref)
+from tpudab_torch.tools.bench import bench_subchannels
 
 pytestmark = pytest.mark.cuda
 

@@ -22,12 +22,13 @@ if str(ROOT) not in sys.path:
 from benchmark import reference, reference_u8  # noqa: E402
 from tpudab_torch.constants.ofdm_params import SAMPLING_RATE, get_ofdm_params  # noqa: E402
 from tpudab_torch.models.ingest import HostFeed  # noqa: E402
-from tpudab_torch.models.step import ReceiveStep, bench_capture, bench_subchannels  # noqa: E402
+from tpudab_torch.models.step import ReceiveStep  # noqa: E402
 from tpudab_torch.models.step_driver import StepDriver  # noqa: E402
 from tpudab_torch.ofdm import demod  # noqa: E402
 from tpudab_torch.ops import demod_tail  # noqa: E402
 from tpudab_torch.ops.carve import (carve_rotate_ref, carve_rotate_tables_ref,  # noqa: E402
                                     u8_parts)
+from tpudab_torch.tools.bench import bench_capture, bench_subchannels  # noqa: E402
 
 FRAME_LEN = get_ofdm_params(1).nb_frame_length
 

@@ -18,11 +18,12 @@ from tpudab_torch.constants.ofdm_params import get_ofdm_params
 from tpudab_torch.constants.puncture import eep_profile
 from tpudab_torch.host import profiling
 from tpudab_torch.host.profiling import StageTimer, reset_spans, span, spans, trace
-from tpudab_torch.models.step import ReceiveStep, bench_subchannels
+from tpudab_torch.models.step import ReceiveStep
 from tpudab_torch.models.step_driver import StepDriver, read_back
 from tpudab_torch.msc.subchannel import SubchannelConfig
 from tpudab_torch.parallel.mesh import Mesh
 from tpudab_torch.parallel.sharded_step import ShardedReceiveStep
+from tpudab_torch.tools.bench import bench_subchannels
 
 DEMOD_STAGES = ["demod.carve", "demod.dft", "demod.demap", "demod.norm", "demod.stats"]
 N_FRAMES = 1

@@ -11,11 +11,11 @@ an EMA of the batch's FIB error rate, after a coarse-frequency triage).
 The state machine and the tracking arithmetic are tpudab's, line for line.
 
 On the device: each batch crosses to the receiver's device in one copy
-(models/pipeline.py's frames_on_device), the three tracking taps of
+(models/step.py's frames_on_device), StepDriver.decode takes it on its
+route (the host leg or the step), and the three tracking taps of
 ofdm/sync_device.py slice their segments from that copy and each reads its
 scalars back once. The residual, the timing shift and the drift resampler
-stay host numpy, as tpudab's. The host leg demodulates with the bf16 DFT
-operands, built once.
+stay host numpy, as tpudab's.
 
 StageTimer keeps tpudab's stage names (read, step, demod, decode, track,
 audio) and reads the host clock. On a CUDA device the demod stage ends
@@ -38,10 +38,9 @@ from tpudab_torch.audio.pipeline import AudioPipeline
 from tpudab_torch.constants.ofdm_params import SAMPLING_RATE, get_ofdm_params
 from tpudab_torch.host.dashboard import constellation_snr_db
 from tpudab_torch.host.profiling import StageTimer
-from tpudab_torch.models.pipeline import frames_on_device
 from tpudab_torch.models.receiver import Receiver
+from tpudab_torch.models.step import frames_on_device
 from tpudab_torch.models.step_driver import StepDriver
-from tpudab_torch.ofdm.demod import demod_frames_split, dft_operands
 from tpudab_torch.ofdm.sync import SyncConfig
 from tpudab_torch.ofdm.sync_device import (acquire_host, coarse_freq_device,
                                            fine_freq_device, fine_time_sync_device)
@@ -126,7 +125,6 @@ class StreamingRadio:
             use_device_step = self.device.type == "cuda"
         self.use_device_step = use_device_step
         self._driver = StepDriver(mode, sync_cfg.window_offset, self.device)
-        self._operands = tuple(w.to(self.device) for w in dft_operands(mode, "bfloat16"))
         self.stats = StreamingStats()
         self._residual = np.zeros(0, dtype=np.complex64)
         self._decoders: Dict[int, object] = {}
@@ -176,7 +174,7 @@ class StreamingRadio:
             drain -= len(c)
         self._residual = np.zeros(0, dtype=np.complex64)
         self.receiver.reset()
-        self._driver = StepDriver(self.mode, self.sync_cfg.window_offset, self.device)
+        self._driver.reset()
         self._decoders.clear()
         if self.audio is not None:
             self.audio.clear_sources()
@@ -356,7 +354,6 @@ class StreamingRadio:
     def run(self, max_batches: Optional[int] = None,
             on_outputs: Optional[Callable] = None) -> None:
         p = self.params
-        cfg = self.sync_cfg
         if not self._acquire():
             return
         fib_err_prev = 0
@@ -380,21 +377,9 @@ class StreamingRadio:
             self._residual = buf[nf * p.nb_frame_length:]
 
             re, im = frames_on_device(frames, self.device)
-            if self.use_device_step:
-                self._driver.maybe_build(self.receiver, self.stats.total_frames)
-            if self._driver.step is not None:
-                # ONE fused device program per batch (demod + FIC Viterbi +
-                # all-MSC deinterleave/depuncture/Viterbi to packed bytes)
-                with self.timers.stage("step", items=nf * p.nb_frame_length):
-                    outputs, sstat = self._driver.process(
-                        self.receiver, re, im, self.stats.net_freq_hz)
-            else:
-                with self.timers.stage("demod", items=nf * p.nb_frame_length):
-                    soft, sstat = demod_frames_split(
-                        re, im, self.stats.net_freq_hz, self._operands, self.mode,
-                        cfg.window_offset)
-                with self.timers.stage("decode", items=nf):
-                    outputs = self.receiver.process_frame_bits(soft)
+            outputs, sstat = self._driver.decode(self.receiver, re, im, self.stats.net_freq_hz,
+                                                 self.use_device_step, self.stats.total_frames,
+                                                 self.timers)
             self._dashboard_taps(sstat)
             self.stats.total_frames += nf
             self._batches += 1

@@ -4,7 +4,8 @@
 Acquire once over the head of the buffer, demodulate frames in batches on
 the device, feed the Receiver; re-run the acquisition when every FIB of a
 batch fails its CRC. With use_device_step the fused ReceiveStep takes over
-once the FIC has found the layout (StepDriver).
+once the FIC has found the layout; StepDriver.decode takes each batch's
+route.
 """
 
 from __future__ import annotations
@@ -13,25 +14,14 @@ import dataclasses
 from typing import Dict, Optional
 
 import numpy as np
-import torch
 
 from tpudab_torch.constants.ofdm_params import get_ofdm_params
 from tpudab_torch.models.receiver import Receiver
+from tpudab_torch.models.step import frames_on_device
 from tpudab_torch.models.step_driver import StepDriver
-from tpudab_torch.ofdm.demod import demod_frames_split, dft_operands
 from tpudab_torch.ofdm.sync import SyncConfig
 from tpudab_torch.ofdm.sync_device import acquire_host
 from tpudab_torch.utils.device import DEFAULT_DEVICE
-
-
-def frames_on_device(frames: np.ndarray, device):
-    """(nf, frame_len) complex host frames -> one host-to-device copy of the
-    complex64 samples, then lane-tiled (nf, len//128, 128) f32 re and im
-    there."""
-    nf, n = frames.shape
-    x = torch.from_numpy(np.ascontiguousarray(frames, dtype=np.complex64)).to(device)
-    tiled = (nf, n // 128, 128)
-    return x.real.reshape(tiled).contiguous(), x.imag.reshape(tiled).contiguous()
 
 
 @dataclasses.dataclass
@@ -53,8 +43,7 @@ class OfflinePipeline:
     and all MSC decoding run as one step per batch, with the host
     decoders' deinterleaver history handed into the step's carry so the
     logical-frame sequence continues seamlessly. Each batch's frames cross
-    to the device in one copy; the host leg demodulates them with the bf16
-    DFT operands (tpudab's default dft_dtype), built once.
+    to the device in one copy.
     """
 
     def __init__(self, mode: int = 1, batch_frames: int = 8,
@@ -70,7 +59,6 @@ class OfflinePipeline:
         self.use_device_step = use_device_step
         self.stats = PipelineStats()
         self._driver = StepDriver(mode, sync_cfg.window_offset, self.device)
-        self._operands = tuple(w.to(self.device) for w in dft_operands(mode, "bfloat16"))
         self._resumed = False  # set by models.checkpoint.pipeline_restore
 
     def _acquire(self, iq: np.ndarray):
@@ -114,15 +102,8 @@ class OfflinePipeline:
             if nf == 0:
                 break
             re, im = self._frames_on_device(iq, pos, nf)
-            if self.use_device_step:
-                self._driver.maybe_build(self.receiver, self.stats.total_frames)
-            if self._driver.step is not None:
-                outputs, _ = self._driver.process(self.receiver, re, im,
-                                                  self.stats.net_freq_hz)
-            else:
-                soft, _ = demod_frames_split(re, im, self.stats.net_freq_hz, self._operands,
-                                             self.mode, self.sync_cfg.window_offset)
-                outputs = self.receiver.process_frame_bits(soft)
+            outputs, _ = self._driver.decode(self.receiver, re, im, self.stats.net_freq_hz,
+                                             self.use_device_step, self.stats.total_frames)
             self.stats.total_frames += nf
             pos += nf * p.nb_frame_length
 

@@ -28,7 +28,7 @@ from torch import nn
 
 from tpudab_torch.constants.dab_params import CU_BITS, get_dab_params
 from tpudab_torch.constants.ofdm_params import get_ofdm_params
-from tpudab_torch.constants.puncture import FIC_PROFILE, FIC_PROFILE_MODE3, eep_profile
+from tpudab_torch.constants.puncture import FIC_PROFILE, FIC_PROFILE_MODE3
 from tpudab_torch.fec.depuncture import depuncture_index
 from tpudab_torch.fec.prbs import prbs_bytes
 from tpudab_torch.host.profiling import span
@@ -38,47 +38,17 @@ from tpudab_torch.msc.interleave import (TIME_INTERLEAVE_DEPTH, SoftRows,
 from tpudab_torch.msc.subchannel import SubchannelConfig
 from tpudab_torch.ofdm.demod import demod_frames_split, dft_operands
 from tpudab_torch.ops.viterbi_cuda import signs_on, viterbi_decode_bytes_t
-from tpudab_torch.synth import (ASCTY_DAB_PLUS, EnsembleSpec, EnsembleSynthesizer,
-                                ServiceSpec, SubchannelSpec, modulate_frame_bits)
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
-def bench_subchannels() -> Tuple[SubchannelConfig, ...]:
-    """The bench's full-ensemble layout: six 108-CU EEP 3-A subchannels
-    (tpudab's __graft_entry__._bench_subchannels)."""
-    layout = [(1, 0, 108), (2, 108, 108), (3, 216, 108),
-              (4, 324, 108), (5, 432, 108), (6, 540, 108)]
-    return tuple(SubchannelConfig(subch_id=sid, start_cu=start, size_cu=size,
-                                  profile=eep_profile(size, 3, 0))
-                 for sid, start, size in layout)
-
-
-def bench_capture(n_frames: int, streams=None):
-    """The bench's signal (tpudab bench.py:26-51, same spec and seeds) for
-    bench_subchannels(): (n_frames, frame_len) complex64 frames and the
-    known payload of subchannel 1, (4 * n_frames, frame_bytes) uint8.
-    streams, {subch_id: (4 * n_frames, frame_bytes) uint8}, replaces the
-    payloads of those subchannels (subchannel 1's seeded random bytes, the
-    others' synthesiser stream)."""
-    subchannels = bench_subchannels()
-    spec = EnsembleSpec(
-        ensemble_id=0xBE9C, label="Bench Ensemble",
-        services=[ServiceSpec(0xC200 + c.subch_id, f"Bench {c.subch_id}",
-                              [(0, ASCTY_DAB_PLUS, c.subch_id)])
-                  for c in subchannels],
-        subchannels=[SubchannelSpec(c.subch_id, start_cu=c.start_cu,
-                                    size_cu=c.size_cu, protection=("eep", 3, 0))
-                     for c in subchannels])
-    synth = EnsembleSynthesizer(spec, seed=1)
-    rng = np.random.default_rng(2)
-    data = rng.integers(0, 256, (n_frames * 4, subchannels[0].data_bits // 8)).astype(np.uint8)
-    streams = {subchannels[0].subch_id: data, **(streams or {})}
-    for sid, stream in streams.items():
-        synth.payload_fn[sid] = lambda m, st=stream: st[m].tobytes()
-    data = streams[subchannels[0].subch_id]
-    frames = np.stack([modulate_frame_bits(synth.frame_bits(i)) for i in range(n_frames)])
-    return frames, data
+def frames_on_device(frames: np.ndarray, device):
+    """Complex host frames (..., frame_len) -> one host-to-device copy of
+    the complex64 samples, then lane-tiled (..., frame_len//128, 128) f32
+    re and im there: the step's input format."""
+    x = torch.from_numpy(np.ascontiguousarray(frames, dtype=np.complex64)).to(device)
+    tiled = x.shape[:-1] + (x.shape[-1] // 128, 128)
+    return x.real.reshape(tiled).contiguous(), x.imag.reshape(tiled).contiguous()
 
 
 class ReceiveStep(nn.Module):
@@ -257,14 +227,9 @@ class ReceiveStep(nn.Module):
                                    + (self.params.nb_frame_length // 128, 128))
 
     def call_complex(self, carry, frames, freq_hz):
-        """forward on complex64 host frames (..., frame_len): tiled, split
-        to f32 and moved to the step's device."""
-        frames = self.tile_frames(np.asarray(frames))
-        device = self.dft_re.device
-        return self(carry,
-                    torch.from_numpy(frames.real.astype(np.float32)).to(device),
-                    torch.from_numpy(frames.imag.astype(np.float32)).to(device),
-                    freq_hz)
+        """forward on complex host frames (..., frame_len), moved to the
+        step's device by frames_on_device."""
+        return self(carry, *frames_on_device(frames, self.dft_re.device), freq_hz)
 
     def example_args(self, n_frames: int = 4, seed: int = 0, device="cuda"):
         """(carry, frames_re, frames_im, freq_hz) of seeded Gaussian noise

@@ -3,7 +3,8 @@
 Counterpart of tpudab.models.step_driver. The driver tracks what lives
 across batches: the step (rebuilt when the FIC database discovers new
 subchannels), the deinterleaver ring carry, and the logical-frame index of
-each subchannel's next output row.
+each subchannel's next output row. Its decode takes every batch's route
+(the host leg, or the step once built) for the pipeline and the live loop.
 
 The handoff dtype: a host SubchannelDecoder keeps an f32 history, and the
 step's chain runs in its soft_dtype (bf16 by default), whose K4 mode (b)
@@ -16,14 +17,16 @@ that subchannel's chain to f32; the port keeps the bf16 chain.)
 
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
-from tpudab_torch.host.profiling import span
+from tpudab_torch.host.profiling import StageTimer, span
 from tpudab_torch.models.step import ReceiveStep
 from tpudab_torch.msc.interleave import TIME_INTERLEAVE_DEPTH
+from tpudab_torch.ofdm.demod import demod_frames_split, dft_operands
 from tpudab_torch.utils.device import DEFAULT_DEVICE, resolve_device
 
 
@@ -40,7 +43,8 @@ def read_back(step_out: Dict) -> Tuple[np.ndarray, Dict[int, np.ndarray]]:
 
 class StepDriver:
     """Builds/rebuilds a ReceiveStep on device from a Receiver's discovered
-    subchannels and runs batches through it.
+    subchannels and runs batches through it, or the host leg (with bf16 DFT
+    operands, tpudab's default, built once) while there is none.
 
     Attributes (checkpointable, see tpudab_torch.models.checkpoint):
       step: the current ReceiveStep (None until first discovery)
@@ -52,6 +56,11 @@ class StepDriver:
         self.mode = mode
         self.window_offset = window_offset
         self.device = resolve_device(device)
+        self.operands = tuple(w.to(self.device) for w in dft_operands(mode, "bfloat16"))
+        self.reset()
+
+    def reset(self) -> None:
+        """No step, no carry: the next batch takes the host leg."""
         self.step: Optional[ReceiveStep] = None
         self.carry: Optional[Dict[str, torch.Tensor]] = None
         self.first_logical: Dict[int, int] = {}
@@ -91,9 +100,7 @@ class StepDriver:
                     if self.carry is not None and key in self.carry:
                         dec._history = self.carry[key].to(dec.device, torch.float32)
                         dec._n_seen = self.first_logical[subch_id] + warmup
-                self.step = None
-                self.carry = None
-                self.first_logical = {}
+                self.reset()
             return
         new_step = self.new_step(d.config for d in receiver.subch_decoders.values())
         old_carry = self.carry or {}
@@ -135,3 +142,23 @@ class StepDriver:
         for k in self.first_logical:
             self.first_logical[k] += nf * receiver.dab.nb_cifs
         return outputs, step_out
+
+    def decode(self, receiver, frames_re, frames_im, freq_hz, use_step: bool,
+               total_frames: int, timers: Optional[StageTimer] = None) -> Tuple[Dict, Dict]:
+        """One batch of lane-tiled frames (F, len//128, 128) on the device:
+        with use_step maybe_build (total_frames decoded before it) first;
+        then process if a step is built, else the host leg
+        (demod_frames_split, then receiver.process_frame_bits). Returns (outputs, stats holding the
+        demod's mean_power, const_re, const_im); timers, the caller's
+        StageTimer, times the stage `step`, or `demod` then `decode`."""
+        if use_step:
+            self.maybe_build(receiver, total_frames)
+        stage = timers.stage if timers is not None else lambda *a, **k: contextlib.nullcontext()
+        if self.step is not None:
+            with stage("step", items=frames_re.numel()):
+                return self.process(receiver, frames_re, frames_im, freq_hz)
+        with stage("demod", items=frames_re.numel()):
+            soft, stats = demod_frames_split(frames_re, frames_im, freq_hz, self.operands,
+                                             self.mode, self.window_offset)
+        with stage("decode", items=frames_re.shape[0]):
+            return receiver.process_frame_bits(soft), stats

@@ -2,7 +2,7 @@
 and the traceback alone in three modes.
 
 Counterparts of the forward and traceback kernels of tpudab's kernel-
-experiment tools (X1, X2, X3, X5, X6; ROADMAP Queue 2), each a part of
+experiment tools (X1, X2, X3, X5, X6; PERF.md section 6), each a part of
 kernels K1 and K2 (tpudab/ops/viterbi_pallas.py:60,124) switched on or
 off, run by tpudab_torch/tools/:
 

@@ -38,10 +38,9 @@ import torch
 import torch.distributed as dist
 
 from tpudab_torch.constants.dab_params import CIF_BITS, CU_BITS, get_dab_params
-from tpudab_torch.constants.ofdm_params import get_ofdm_params
 from tpudab_torch.host.profiling import span
 from tpudab_torch.models.convert import carry_from_jax
-from tpudab_torch.models.step import ReceiveStep
+from tpudab_torch.models.step import ReceiveStep, frames_on_device
 from tpudab_torch.msc.interleave import TIME_INTERLEAVE_DEPTH
 from tpudab_torch.msc.subchannel import SubchannelConfig
 from tpudab_torch.ofdm.demod import demod_frames_split
@@ -80,7 +79,6 @@ class ShardedReceiveStep:
         self.halo_exchange = halo_exchange
         self.soft_dtype = soft_dtype
         self.device = resolve_device(device)
-        self.params = get_ofdm_params(mode)
         self.dab = get_dab_params(mode)
         self.n_ens, self.n_time = mesh.shape
         self.e_idx, self.t_idx = mesh.coords
@@ -236,7 +234,8 @@ class ShardedReceiveStep:
     def shard_inputs(self, frames, freq_hz):
         """frames: complex (E, T, frame_len) host array of the whole mesh,
         freq_hz (E,) -> this rank's (E_l, T_l) block as lane-tiled f32
-        re/im and its (E_l,) frequencies, copied to the step's device once."""
+        re/im (frames_on_device) and its (E_l,) frequencies, on the step's
+        device."""
         frames = np.asarray(frames)
         e, t = frames.shape[:2]
         e_l = self._e_l(e)
@@ -245,12 +244,9 @@ class ShardedReceiveStep:
         t_l = t // self.n_time
         block = frames[self.e_idx * e_l:(self.e_idx + 1) * e_l,
                        self.t_idx * t_l:(self.t_idx + 1) * t_l]
-        tiled = (e_l, t_l, self.params.nb_frame_length // 128, 128)
-        re = np.ascontiguousarray(block.real, dtype=np.float32).reshape(tiled)
-        im = np.ascontiguousarray(block.imag, dtype=np.float32).reshape(tiled)
         freq = np.broadcast_to(np.asarray(freq_hz, np.float32), (e,))
         freq = np.array(freq[self.e_idx * e_l:(self.e_idx + 1) * e_l])
-        return tuple(torch.from_numpy(x).to(self.device) for x in (re, im, freq))
+        return (*frames_on_device(block, self.device), torch.from_numpy(freq).to(self.device))
 
     def gather_outputs(self, out) -> Optional[dict]:
         """Every rank's outputs -> on rank 0 the whole mesh's, in tpudab's

@@ -35,16 +35,21 @@ import json
 import os
 import time
 import traceback
+from typing import Tuple
 
 import numpy as np
 import torch
 
 from tpudab_torch.constants.ofdm_params import SAMPLING_RATE
+from tpudab_torch.constants.puncture import eep_profile
 from tpudab_torch.fec.crc import check_fib_crc
-from tpudab_torch.models.step import ReceiveStep, bench_capture, bench_subchannels
+from tpudab_torch.models.step import ReceiveStep
 from tpudab_torch.msc.interleave import TIME_INTERLEAVE_DEPTH
+from tpudab_torch.msc.subchannel import SubchannelConfig
 from tpudab_torch.ops.viterbi import mother_to_t, viterbi_decode_bytes_t_ref
 from tpudab_torch.ops.viterbi_cuda import signs_on, viterbi_decode_bytes_best
+from tpudab_torch.synth import (ASCTY_DAB_PLUS, EnsembleSpec, EnsembleSynthesizer,
+                                ServiceSpec, SubchannelSpec, modulate_frame_bits)
 from tpudab_torch.tools._common import card
 from tpudab_torch.tools.exp_viterbi_sweep import B, NBITS, TWIN_B, soft_input
 from tpudab_torch.utils.device import resolve_device
@@ -55,6 +60,43 @@ KEYS = ("metric", "value", "unit", "vs_baseline", "samples_per_s", "viterbi_mbit
         "viterbi_mbit_s_spread", "device", "n_frames_per_step", "n_ensembles_per_step")
 TARGET_S = 5.0                 # the queued steps' time, from the timed step
 V_ITERS, V_REPS = 10, 3        # Viterbi calls a rep, reps
+
+
+def bench_subchannels() -> Tuple[SubchannelConfig, ...]:
+    """The bench's full-ensemble layout: six 108-CU EEP 3-A subchannels
+    (tpudab's __graft_entry__._bench_subchannels)."""
+    layout = [(1, 0, 108), (2, 108, 108), (3, 216, 108),
+              (4, 324, 108), (5, 432, 108), (6, 540, 108)]
+    return tuple(SubchannelConfig(subch_id=sid, start_cu=start, size_cu=size,
+                                  profile=eep_profile(size, 3, 0))
+                 for sid, start, size in layout)
+
+
+def bench_capture(n_frames: int, streams=None):
+    """The bench's signal (tpudab bench.py:26-51, same spec and seeds) for
+    bench_subchannels(): (n_frames, frame_len) complex64 frames and the
+    known payload of subchannel 1, (4 * n_frames, frame_bytes) uint8.
+    streams, {subch_id: (4 * n_frames, frame_bytes) uint8}, replaces the
+    payloads of those subchannels (subchannel 1's seeded random bytes, the
+    others' synthesiser stream)."""
+    subchannels = bench_subchannels()
+    spec = EnsembleSpec(
+        ensemble_id=0xBE9C, label="Bench Ensemble",
+        services=[ServiceSpec(0xC200 + c.subch_id, f"Bench {c.subch_id}",
+                              [(0, ASCTY_DAB_PLUS, c.subch_id)])
+                  for c in subchannels],
+        subchannels=[SubchannelSpec(c.subch_id, start_cu=c.start_cu,
+                                    size_cu=c.size_cu, protection=("eep", 3, 0))
+                     for c in subchannels])
+    synth = EnsembleSynthesizer(spec, seed=1)
+    rng = np.random.default_rng(2)
+    data = rng.integers(0, 256, (n_frames * 4, subchannels[0].data_bits // 8)).astype(np.uint8)
+    streams = {subchannels[0].subch_id: data, **(streams or {})}
+    for sid, stream in streams.items():
+        synth.payload_fn[sid] = lambda m, st=stream: st[m].tobytes()
+    data = streams[subchannels[0].subch_id]
+    frames = np.stack([modulate_frame_bits(synth.frame_bits(i)) for i in range(n_frames)])
+    return frames, data
 
 
 def bench_inputs(dev: torch.device, n_ens: int, n_frames: int):

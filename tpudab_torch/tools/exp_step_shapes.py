@@ -15,8 +15,9 @@ from __future__ import annotations
 import torch
 
 from tpudab_torch.constants.ofdm_params import SAMPLING_RATE
-from tpudab_torch.models.step import ReceiveStep, bench_subchannels
+from tpudab_torch.models.step import ReceiveStep
 from tpudab_torch.tools._common import card, noise_args, parse, timer
+from tpudab_torch.tools.bench import bench_subchannels
 
 SHAPES = ((16, 16), (16, 24), (16, 32), (24, 16), (32, 16), (8, 32))
 
