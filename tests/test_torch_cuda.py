@@ -294,6 +294,111 @@ def test_receive_step_takes_the_demod_tail(dev, monkeypatch):
         torch.testing.assert_close(got[key], want[key], rtol=1e-6, atol=1e-7)
 
 
+def eager_demod(monkeypatch, step, frames_re, frames_im, freq_hz):
+    """step.demod with the graph held off: the eager chain."""
+    from tpudab_torch.models import demod_graph
+    with monkeypatch.context() as m:
+        m.setattr(demod_graph, "engages", lambda device, operands: False)
+        return step.demod(frames_re, frames_im, freq_hz)
+
+
+def same_stats(a, b):
+    return all(torch.equal(a[k], b[k]) for k in ("mean_power", "const_re", "const_im"))
+
+
+def test_demod_graph_replays_the_eager_bits(dev, monkeypatch):
+    """ReceiveStep.demod on the same bf16 frames five steps running, the
+    frames rewritten in place and the frequency changed each step (a
+    tensor, or a number): eager, then a capture and its replay, then
+    replays. Each step's soft bits, mean_power, tap and decoded bytes
+    equal an eager step's bit for bit; the mean_power and tap of step k,
+    held across step k + 1, keep step k's values; each counting wrapper
+    (K5, demap, norm, stats) counts one launch a step, replays included."""
+    from tpudab_torch.models.demod_graph import counted
+    step, re, im, freq = demod_step_batch(dev)
+    ref = ReceiveStep(1, step.subchannels, n_ensembles=2).to(dev)
+    base_re, base_im = re.clone(), im.clone()
+    freqs = [freq, freq + 125.0, freq - 300.0, 777.0, freq * 2.0]
+    carry, ref_carry, held = step.init_carry(dev), ref.init_carry(dev), None
+    for k, fq in enumerate(freqs):
+        re_k, im_k = base_re.roll(k, dims=1), base_im.roll(k, dims=1)
+        re.copy_(re_k)
+        im.copy_(im_k)
+        n0 = [w.launches for w in counted()]
+        soft, stats = step.demod(re, im, fq)
+        assert [w.launches - n for w, n in zip(counted(), n0)] == [1, 1, 1, 1]
+        carry, fic, subch = step.decode_soft(carry, soft)
+        want_soft, want_stats = eager_demod(monkeypatch, ref, re_k, im_k, fq)
+        ref_carry, want_fic, want_subch = ref.decode_soft(ref_carry, want_soft)
+        torch.cuda.synchronize()
+        assert torch.equal(soft, want_soft) and same_stats(stats, want_stats)
+        assert torch.equal(fic, want_fic)
+        assert all(torch.equal(subch[s], want_subch[s]) for s in want_subch)
+        if held is not None:
+            assert same_stats(*held)
+        held = stats, {key: v.clone() for key, v in want_stats.items()}
+    g = step.graphs
+    assert (g.captures, g.replays, g.eager) == (1, 4, 1)
+
+
+@pytest.mark.parametrize("activities", [["CUDA"], ["CPU", "CUDA"]], ids=["card", "both"])
+def test_demod_graph_not_under_the_profiler(dev, activities):
+    """Under torch.profiler (recording the card alone, as the benchmark's
+    traced stretch does, or the host too) the demod runs eagerly and its
+    spans record; nothing replays until the profiler stops."""
+    from tpudab_torch.host.profiling import reset_spans, spans
+    step, re, im, freq = demod_step_batch(dev)
+    for _ in range(3):
+        step.demod(re, im, freq)
+    g = step.graphs
+    assert (g.captures, g.replays, g.eager) == (1, 2, 1)
+    reset_spans()
+    acts = [getattr(torch.profiler.ProfilerActivity, a) for a in activities]
+    with torch.profiler.profile(activities=acts):
+        for _ in range(2):
+            step.demod(re, im, freq)
+        torch.cuda.synchronize()
+    assert (g.captures, g.replays, g.eager) == (1, 2, 3)
+    names = [s["name"] for s in spans()]
+    for name in ("demod", "demod.carve", "demod.dft", "demod.demap", "demod.norm",
+                 "demod.stats"):
+        assert names.count(name) == 2, (name, names)
+    step.demod(re, im, freq)
+    assert (g.captures, g.replays, g.eager) == (1, 3, 3)
+
+
+def test_demod_graph_hostfeed_two_graphs(dev, monkeypatch):
+    """rtl_sdr's u8 frames through a HostFeed: its two buffers alternate
+    and give two graphs (eager, eager, capture, capture, replay, replay),
+    each step's soft bits and stats equal to an eager step's on the same
+    bytes; frames at a third address run eagerly, with the same bits."""
+    from tpudab_torch.models.ingest import HostFeed
+    step, _, _, freq = demod_step_batch(dev)
+    frame_len = get_ofdm_params(1).nb_frame_length
+    gen = torch.Generator().manual_seed(7)
+    hosts = [torch.randint(0, 256, (2, 4, frame_len, 2), dtype=torch.uint8,
+                           generator=gen).pin_memory() for _ in range(6)]
+    feed = HostFeed(hosts[0].shape, dev)
+    ref = ReceiveStep(1, step.subchannels, n_ensembles=2).to(dev)
+    for k, host in enumerate(hosts):
+        feed.feed(host)
+        soft, stats = step.demod(feed, None, freq + 50.0 * k)
+        want_soft, want_stats = eager_demod(monkeypatch, ref, host.to(dev), None,
+                                            freq + 50.0 * k)
+        torch.cuda.synchronize()
+        assert torch.equal(soft, want_soft) and same_stats(stats, want_stats), k
+    g = step.graphs
+    assert (g.captures, g.replays, g.eager) == (2, 4, 2)
+    assert len(g.graphs) == 2
+    third = hosts[0].to(dev)
+    for _ in range(2):
+        soft, stats = step.demod(third, None, freq)
+        want_soft, want_stats = eager_demod(monkeypatch, ref, third, None, freq)
+        torch.cuda.synchronize()
+        assert torch.equal(soft, want_soft) and same_stats(stats, want_stats)
+    assert (g.captures, g.replays, g.eager) == (2, 4, 4)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,n", [(1, 256), (5, 101), (3, 774 - 6), (70, 3456)],
                          ids=["batch1", "n_odd_T_odd", "fic", "msc"])

@@ -114,13 +114,22 @@ class _Span:
         return False
 
 
+def profiling() -> bool:
+    """Whether a torch.profiler session records in the calling thread."""
+    return _profiler_enabled()
+
+
+def capturing() -> bool:
+    """Whether the current CUDA stream is being captured into a graph."""
+    return torch.cuda.is_initialized() and torch.cuda.is_current_stream_capturing()
+
+
 def span(name: str, items: float = 0, device=None):
     """A context that records the span `name` covering `items` units of
     work, timed on the card when `device` is a CUDA device; the shared
     no-op context unless a profiler records in this thread, and while the
     current CUDA stream is being captured."""
-    if not _profiler_enabled() or (torch.cuda.is_initialized()
-                                   and torch.cuda.is_current_stream_capturing()):
+    if not _profiler_enabled() or capturing():
         return _OFF
     stream = None
     if device is not None and torch.device(device).type == "cuda":

@@ -15,7 +15,9 @@ else moves tensors between devices.
 Under a profiler the step records spans (host/profiling.py): step, demod
 (and its stages, ofdm/demod.py), fec, fec.deint (the FIC's K4 launch,
 then the subchannels'), fec.viterbi (K1 + K2 and the PRBS XOR, a Viterbi
-call); a HostFeed that feeds it records ingest, its copy.
+call); a HostFeed that feeds it records ingest, its copy. With no
+profiler recording, the demod half on the card replays a CUDA graph of
+its chain for frames it has seen before (models/demod_graph.py).
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ from tpudab_torch.constants.puncture import FIC_PROFILE, FIC_PROFILE_MODE3
 from tpudab_torch.fec.depuncture import depuncture_index
 from tpudab_torch.fec.prbs import prbs_bytes
 from tpudab_torch.host.profiling import span
+from tpudab_torch.models.demod_graph import DemodGraphs
 from tpudab_torch.models.ingest import HostFeed
 from tpudab_torch.msc.interleave import (TIME_INTERLEAVE_DEPTH, SoftRows,
                                          deinterleave_depuncture_t)
@@ -87,6 +90,7 @@ class ReceiveStep(nn.Module):
         self.dab = get_dab_params(mode)
         self.fic_profile = FIC_PROFILE_MODE3 if mode == 3 else FIC_PROFILE
         self._msc_slice_bits = sum(cfg.slice_bits for cfg in self.subchannels)
+        self.graphs = DemodGraphs()
 
         for name, w in zip(("dft_re", "dft_sum", "dft_diff"),
                            dft_operands(mode, "bfloat16")):
@@ -184,7 +188,13 @@ class ReceiveStep(nn.Module):
 
     def demod(self, frames_re, frames_im, freq_hz):
         """The demod half of forward: frames and freq_hz as forward takes
-        them -> (flat soft (E*F, nb_frame_bits) in soft_dtype, stats)."""
+        them -> (flat soft (E*F, nb_frame_bits) in soft_dtype, stats).
+
+        On the card with no profiler recording, frames seen before replay
+        a CUDA graph of the chain (self.graphs, models/demod_graph.py):
+        soft is then the graph's buffer, valid until the step's next demod
+        on the same frames buffer (with two graphs, whose pool is shared,
+        until its next demod); mean_power and the tap are the caller's."""
         if isinstance(frames_re, HostFeed):
             feed = frames_re
             try:
@@ -192,23 +202,31 @@ class ReceiveStep(nn.Module):
             finally:
                 feed.release()
         e = self.n_ensembles
-        frame_len = self.params.nb_frame_length
         if e > 1 and frames_re.shape[0] != e:
             raise ValueError(f"frames {tuple(frames_re.shape)} do not lead "
                              f"with the step's {e} ensembles")
         f = frames_re.shape[1] if e > 1 else frames_re.shape[0]
         with span("demod", e * f, frames_re.device):
-            if frames_re.dtype == torch.uint8:      # I and Q interleaved, frames_im None
-                flat_re, flat_im = frames_re.reshape((e * f, 2 * frame_len)), frames_im
-            else:
-                flat_re = frames_re.reshape((e * f, frame_len // 128, 128))
-                flat_im = frames_im.reshape((e * f, frame_len // 128, 128))
-            freq = torch.as_tensor(freq_hz, dtype=torch.float32, device=frames_re.device)
-            if e > 1:
-                freq = freq.broadcast_to((e,)).repeat_interleave(f)
-            return demod_frames_split(
-                flat_re, flat_im, freq, (self.dft_re, self.dft_sum, self.dft_diff),
-                self.mode, self.window_offset, out_dtype=self.soft_dtype)
+            return self.graphs.run(self._demod_chain, (self.dft_re, self.dft_sum, self.dft_diff),
+                                   frames_re, frames_im, freq_hz, (e,) if e > 1 else (f,))
+
+    def _demod_chain(self, frames_re, frames_im, freq_hz):
+        """demod's work on the frames, eager: K5 and its tables, the DFT
+        products and the demod tail (ofdm/demod.py::demod_frames_split)."""
+        e = self.n_ensembles
+        frame_len = self.params.nb_frame_length
+        f = frames_re.shape[1] if e > 1 else frames_re.shape[0]
+        if frames_re.dtype == torch.uint8:      # I and Q interleaved, frames_im None
+            flat_re, flat_im = frames_re.reshape((e * f, 2 * frame_len)), frames_im
+        else:
+            flat_re = frames_re.reshape((e * f, frame_len // 128, 128))
+            flat_im = frames_im.reshape((e * f, frame_len // 128, 128))
+        freq = torch.as_tensor(freq_hz, dtype=torch.float32, device=frames_re.device)
+        if e > 1:
+            freq = freq.broadcast_to((e,)).repeat_interleave(f)
+        return demod_frames_split(
+            flat_re, flat_im, freq, (self.dft_re, self.dft_sum, self.dft_diff),
+            self.mode, self.window_offset, out_dtype=self.soft_dtype)
 
     def forward(self, carry, frames_re, frames_im, freq_hz):
         n_frames = frames_re.shape[0] * (frames_re.shape[1] if self.n_ensembles > 1 else 1)
