@@ -26,7 +26,11 @@ Phases, each of which raises on failure (nothing is caught):
    raw u8 frames (512 x frame_len x 2, random bytes): K5's and
    stats_kernel's u8 instantiations bit-equal to carve_rotate_tables_ref
    and stats_ref on the same frames, each timed beside its bound (a 2-byte
-   read a sample);
+   read a sample); and the wideband channeliser at the hackrf8 cell's
+   shapes (4 receivers' s8 streams of 16 frames -> 32 ensembles' bf16
+   frames): within a bf16 ulp of channelise_tables_ref and a relative RMS
+   of 1.5e-3 of channelise_ref, timed beside its bound and the plain path,
+   and launched once a step by a wideband ReceiveStep;
 4. run the receive step at the bench's size (mode I, six 108-CU EEP 3-A
    subchannels, 32 ensembles x 16 frames per step, bf16 IQ) over three
    chained steps of a synthesised signal: every FIB CRC must pass, the
@@ -341,6 +345,11 @@ DECODE_KERNELS = ("viterbi_bits", "deinterleave", "carve_rotate", "deinterleave_
 # data sheet: 3.35 TB/s; 67 TFLOP/s of f32 counts an FMA as 2, so 33.5e12
 # simple f32 ops/s, used for the integer ops too).
 HBM_BYTES_PER_S, ALU_OPS_PER_S = 3.35e12, 33.5e12
+# the channeliser's operations run on the tensor cores: its bound takes
+# their dense f16 rate (the data sheet's 989.4 TFLOP/s), as ddc_roofline
+# does; the hackrf8 cell's receivers
+DDC_TENSOR_OPS_PER_S = 989.4e12
+DDC_CENTRES = (181e6, 195e6, 209e6, 223e6)
 
 
 def prefix_tree_adds() -> int:
@@ -926,6 +935,103 @@ def check_u8(dev, card):
                                 "bound_ms": carve_bnd[0], "bound_by": carve_bnd[1]},
             "stats_kernel_u8": {"ms": stats_ms, "plain_ms": stats_plain,
                                 "bound_ms": stats_bnd[0], "bound_by": stats_bnd[1]}}
+
+
+def check_channelise(dev, card):
+    """Phase 3, the wideband channeliser (csrc/channelise.cu) at the hackrf8
+    cell's shapes: four receivers' random s8 streams of F = 16 frames
+    ((4, 25,165,824, 2) and their random tails) and random frame offsets (0
+    and frame_len - 1 among them) -> (32, 16, 1536, 128) bf16 re and im.
+    The next tail the stream's last samples exactly; the frames within one
+    bf16 ulp plus 2e-6 of channelise_tables_ref (the kernel's arithmetic in
+    torch, on the card; 99% bit-equal) and within a relative RMS of 1.5e-3
+    of channelise_ref (the plain conv1d path with f32 taps, on the card):
+    tests/test_torch_cuda.py's tolerances. Times the kernel (profiler
+    device time) and a call beside its bound (DDC_TENSOR_OPS_PER_S) and
+    channelise_ref's time on the card; then two chained steps of a
+    ReceiveStep built with the plan on these streams, the launch counts
+    zeroed before them and read after: one channeliser launch a step."""
+    from tpudab_torch.ofdm.channelise import (ChannelPlan, Channeliser, channelise_ref,
+                                              channelise_tables_ref)
+    from tpudab_torch.ops.channelise_cuda import channelise_cuda
+    plan = ChannelPlan.band_iii(DDC_CENTRES)
+    ch = Channeliser(plan).to(dev)
+    n = get_ofdm_params(1).nb_frame_length
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    streams = torch.randint(-128, 128, (plan.receivers, 8 * N_FRAMES * n, 2), generator=gen,
+                            device=dev, dtype=torch.int8)
+    tail = ch.init_tail(dev)
+    tail.copy_(torch.randint(-128, 128, tuple(tail.shape), generator=gen, device=dev,
+                             dtype=torch.int8))
+    offsets = torch.randint(0, n, (plan.n_ensembles,), generator=gen, device=dev)
+    offsets[:2] = torch.tensor([0, n - 1], device=dev)
+    offsets = offsets.to(torch.int32)
+    new_tail, re, im = ch(tail, streams, offsets)
+    torch.cuda.synchronize()
+    require(torch.equal(new_tail, torch.cat([tail, streams], dim=1)[:, -ch.n_tail:]),
+            "the channeliser's next tail is not the stream's last samples")
+    t_re, t_im = torch.empty_like(re), torch.empty_like(im)
+    channelise_tables_ref(tail, streams, offsets.cpu(), plan, ch.b_taps, ch.scale, t_re, t_im)
+    excess, same = 0.0, 1.0
+    for got, want in ((re, t_re), (im, t_im)):
+        g, w = got.float(), want.float()
+        excess = max(excess, float(((g - w).abs() - w.abs() * 2 ** -7).max()))
+        same = min(same, float((got == want).float().mean()))
+    del t_re, t_im
+    require(excess <= 2e-6 and same > 0.99,
+            f"channelise_kernel against channelise_tables_ref: {excess:.3g} past one bf16 "
+            f"ulp, {100 * same:.2f}% bit-equal")
+    cudnn_tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False      # the plain path's conv1d in f32
+    p_re, p_im = torch.empty_like(re), torch.empty_like(im)
+    plain = lambda: channelise_ref(tail, streams, offsets, plan, p_re, p_im)
+    plain()
+    d = (re.double() - p_re.double()) ** 2 + (im.double() - p_im.double()) ** 2
+    rel = float((d.sum() / (p_re.double() ** 2 + p_im.double() ** 2).sum()).sqrt())
+    del d
+    require(rel < 1.5e-3, f"channelise_kernel against channelise_ref: relative RMS {rel:.3g}")
+    plain_ms = cuda_ms(plain, 3)
+    torch.backends.cudnn.allow_tf32 = cudnn_tf32
+    del p_re, p_im
+
+    call = lambda: channelise_cuda(tail, streams, ch.frag, ch.phase_step, ch.scale, offsets,
+                                   re, im, new_tail, plan)
+    ms = kernel_ms(call, 20, "channelise_kernel")
+    call_ms = cuda_ms(call, 20)
+    outputs = re.numel()
+    n_bytes = streams.numel() + 2 * tail.numel() + 2 * 2 * outputs
+    n_ops = 8 * plan.taps * outputs
+    tb, to = n_bytes / HBM_BYTES_PER_S, n_ops / DDC_TENSOR_OPS_PER_S
+    bnd = (max(tb, to) * 1e3, "bytes" if tb >= to else "operations")
+    require(ms >= bnd[0] / 1.05, f"channelise_kernel {ms:.4f} ms is under its bound {bnd[0]:.4f}")
+
+    step = ReceiveStep(1, bench_subchannels(), n_ensembles=plan.n_ensembles,
+                       channels=plan).to(dev)
+    freq = torch.zeros(plan.n_ensembles, device=dev)
+    carry = step.init_carry(dev)
+    torch.cuda.synchronize()
+    channelise_cuda.launches = 0
+    for _ in range(2):
+        carry, out = step(carry, streams, None, freq, offsets)
+    torch.cuda.synchronize()
+    launches = channelise_cuda.launches
+    require(launches == 2 and (step.ddc.calls, step.ddc.launches) == (2, 2)
+            and step.ddc.samples_in == 2 * (streams.numel() // 2)
+            and out["fic_bytes"].shape[0] == plan.n_ensembles,
+            f"two wideband steps launched the channeliser {launches} times "
+            f"(step.ddc: {step.ddc.calls} calls, {step.ddc.launches} launches)")
+    del step, carry, out, ch, streams, tail, new_tail, re, im
+    torch.cuda.empty_cache()
+    print(f"channeliser ({plan.receivers}, {8 * N_FRAMES * n}, 2) s8 + tails -> "
+          f"({plan.n_ensembles}, {N_FRAMES}, {n // 128}, 128) bf16 x2: tail exact; within a "
+          f"bf16 ulp of the tables twin ({100 * same:.2f}% bit-equal), relative RMS {rel:.3g} "
+          f"against channelise_ref; kernel {ms:.4f} ms (a call {call_ms:.3f} ms; bound "
+          f"{bnd[0]:.4f} ms, {bnd[1]}, {100 * bnd[0] / ms:.1f}%), plain {plain_ms:.3f} ms; "
+          f"a wideband ReceiveStep launched it {launches} times in 2 steps  [{card}]")
+    return {"name": "channelise", "route": "cuda", "source": "tpudab_torch/csrc/channelise.cu",
+            "replaces": None, "launches": launches, "past_bf16_ulp": excess, "ms": ms,
+            "call_ms": call_ms, "plain_ms": plain_ms, "bound_ms": bnd[0], "bound_by": bnd[1],
+            "library_ms": None, "bit_equal_share": same, "plain_rel_rms": rel}
 
 
 def check_chain(dev, card):
@@ -2960,6 +3066,7 @@ def main() -> None:
     res = check_kernels(dev, rng, card)
     res.update(check_demod_tail(dev, card))
     res.update(check_u8(dev, card))
+    ddc = check_channelise(dev, card)
     chain = check_chain(dev, card)
     mark("3")
     launches, step_ms, bench_frames, bench_payload, k12_layouts = run_main_path(dev, card)
@@ -3100,6 +3207,7 @@ def main() -> None:
             entry["step_tools_launches"] = step_tool_launches[name]
             entry["bench_launches"] = bench["bench_launches"][name]
         kernels.append(entry)
+    kernels.append(ddc)          # port only: no TPU kernel does this work
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all, the build included")
     tail = {name: dict(zip(("ms", "bound_ms", "bound_by"), v))
             for name, v in res["demod_tail"].items()}

@@ -820,3 +820,156 @@ def test_streaming_radio_cuda_equals_cpu(dev):
         assert launched == ([True] * 5 if device_step else
                             [False, False, True, True, True]), launched
     np.testing.assert_array_equal(want[1:], data[1: want.shape[0]])
+
+
+# ---------------- the wideband channeliser (csrc/channelise.cu) ----------------
+
+def wide_batch(dev, f, seed, receivers=1):
+    """A plan of `receivers` HackRF-style receivers (8 Band III blocks each),
+    its Channeliser on the card, random s8 streams of f frames, a random
+    tail and random frame offsets (the extremes included)."""
+    from tpudab_torch.ofdm.channelise import ChannelPlan, Channeliser
+    plan = ChannelPlan.band_iii([181e6, 195e6, 209e6, 223e6][:receivers])
+    ch = Channeliser(plan).to(dev)
+    frame_len = get_ofdm_params(1).nb_frame_length
+    rng = np.random.default_rng(seed)
+    n = 8 * f * frame_len
+    streams = torch.from_numpy(rng.integers(-128, 128, (receivers, n, 2), dtype=np.int8)).to(dev)
+    tail = ch.init_tail(dev)
+    tail.copy_(torch.from_numpy(rng.integers(-128, 128, tuple(tail.shape), dtype=np.int8)))
+    offsets = rng.integers(0, frame_len, plan.n_ensembles)
+    offsets[:2] = (0, frame_len - 1)
+    return ch, plan, tail, streams, torch.from_numpy(offsets).to(dev)
+
+
+def rel_rms(got_re, got_im, want_re, want_im):
+    d = (got_re.double() - want_re.double()) ** 2 + (got_im.double() - want_im.double()) ** 2
+    return float((d.sum() / (want_re.double() ** 2 + want_im.double() ** 2).sum()).sqrt())
+
+
+@pytest.mark.parametrize("f", [1, 16])
+def test_channelise_kernel_equals_twins(dev, f):
+    """The channeliser kernel on one receiver, at the cell's 16 frames and at
+    1 (where the tail outlasts the new samples): one launch; the next tail
+    the stream's last T samples exactly; the frames against the kernel's
+    arithmetic in torch (channelise_tables_ref, the same f16 taps, f32 sums
+    in another order: every output within one bf16 ulp, at most 2^-7 of
+    its magnitude, plus 2e-6, what f32 sums of 240 products of up to 16 can
+    err by after the 1/128 scale where they cancel; 99% bit-equal) and against
+    the plain conv1d path (f32 taps: relative RMS error under 1.5e-3, two
+    bf16 roundings of 2^-9 RMS each and the f16 taps' 2^-12)."""
+    from tpudab_torch.ofdm.channelise import channelise_ref, channelise_tables_ref
+    from tpudab_torch.ops.channelise_cuda import channelise_cuda
+    torch.backends.cudnn.allow_tf32 = False
+    ch, plan, tail, streams, offsets = wide_batch(dev, f, 40 + f)
+    n0 = channelise_cuda.launches
+    new_tail, re, im = ch(tail, streams, offsets)
+    torch.cuda.synchronize()
+    assert channelise_cuda.launches == n0 + 1 and ch.launches == 1 and ch.calls == 1
+    assert ch.samples_in == streams.shape[1]
+    want_tail = torch.cat([tail, streams], dim=1)[:, -ch.n_tail:]
+    assert torch.equal(new_tail, want_tail)
+    t_re, t_im = torch.empty_like(re), torch.empty_like(im)
+    channelise_tables_ref(tail, streams, offsets.cpu(), plan, ch.b_taps, ch.scale, t_re, t_im)
+    for got, want in ((re, t_re), (im, t_im)):
+        g, w = got.float(), want.float()
+        excess = ((g - w).abs() - w.abs() * 2 ** -7).max()
+        same = float((got == want).float().mean())
+        assert float(excess) <= 2e-6 and same > 0.99, (float(excess), same)
+    cpu_re, cpu_im = torch.empty(re.shape, dtype=re.dtype), torch.empty(im.shape, dtype=im.dtype)
+    channelise_ref(tail.cpu(), streams.cpu(), offsets.cpu(), plan, cpu_re, cpu_im)
+    assert rel_rms(re.cpu(), im.cpu(), cpu_re, cpu_im) < 1.5e-3
+
+
+def test_channelise_kernel_chunks_equal_whole(dev):
+    """Four receivers: two steps of 2 frames, the tail carried, give the
+    second half of one 4-frame run's outputs bit for bit (the same kernel
+    on the same windows)."""
+    ch, plan, tail, streams, offsets = wide_batch(dev, 4, 7, receivers=4)
+    n = streams.shape[1] // 2
+    t1, _, _ = ch(tail, streams[:, :n].contiguous(), offsets)
+    _, re2, im2 = ch(t1, streams[:, n:].contiguous(), offsets)
+    re2, im2 = re2.clone(), im2.clone()
+    _, re, im = ch(tail, streams, offsets)
+    torch.cuda.synchronize()
+    assert torch.equal(re2, re[:, 2:]) and torch.equal(im2, im[:, 2:])
+
+
+def test_wide_step_graph_replay_equals_eager(dev, monkeypatch):
+    """ReceiveStep with a plan of one receiver through a HostFeed of s8 bytes,
+    four steps: the demod graph captures on the channeliser's frames buffer
+    and replays, and every step's bytes, mean_power and tap equal those of
+    the same step with the graph held off, bit for bit; the channeliser
+    counts one call, its samples and one launch a step."""
+    from tpudab_torch.models import demod_graph
+    from tpudab_torch.models.ingest import HostFeed
+    from tpudab_torch.ofdm.channelise import ChannelPlan
+    plan = ChannelPlan.band_iii([195e6], first="7A")
+    frame_len = get_ofdm_params(1).nb_frame_length
+    rng = np.random.default_rng(3)
+    hosts = [torch.from_numpy(rng.integers(-128, 128, (1, 8 * 2 * frame_len, 2),
+                                           dtype=np.int8)).pin_memory() for _ in range(4)]
+    freq = torch.linspace(-3000.0, 3000.0, 8, device=dev)
+    offsets = torch.arange(8, device=dev) * 20000
+    outs = {}
+    for graphs in (True, False):
+        step = ReceiveStep(1, bench_subchannels(), n_ensembles=8, channels=plan).to(dev)
+        feed = HostFeed(hosts[0].shape, dev)
+        carry, got = step.init_carry(dev), []
+        with monkeypatch.context() as m:
+            if not graphs:
+                m.setattr(demod_graph, "engages", lambda device, operands: False)
+            for host in hosts:
+                feed.feed(host.view(torch.uint8))
+                carry, out = step(carry, feed, None, freq, offsets)
+                got.append({"fic": out["fic_bytes"].cpu(),
+                            **{f"s{k}": v.cpu() for k, v in out["subch"].items()},
+                            **{k: out[k].cpu() for k in ("mean_power", "const_re", "const_im")}})
+        outs[graphs] = got
+        assert (step.ddc.calls, step.ddc.launches) == (4, 4)
+        assert step.ddc.samples_in == 4 * hosts[0].shape[1]
+        assert feed.bytes_copied == 4 * hosts[0].numel()
+        if graphs:
+            assert (step.graphs.captures, step.graphs.replays) == (1, 3)
+    for a, b in zip(outs[True], outs[False]):
+        assert a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a)
+
+
+def test_channelise_refuses_offsets_out_of_range_on_the_card(dev):
+    """Frame offsets outside [0, frame_len) on the card are refused before
+    the kernel runs (it would leave part of those frames unwritten): a
+    tensor on the card is read once and again after it changes in place;
+    a list is checked on the host."""
+    from tpudab_torch.ops.channelise_cuda import channelise_cuda
+    ch, plan, tail, streams, offsets = wide_batch(dev, 1, 11)
+    frame_len = get_ofdm_params(1).nb_frame_length
+    n0 = channelise_cuda.launches
+    ch(tail, streams, offsets)
+    ch(tail, streams, offsets)
+    offsets[3] = frame_len
+    with pytest.raises(ValueError):
+        ch(tail, streams, offsets)
+    offsets[3] = -1
+    with pytest.raises(ValueError):
+        ch(tail, streams, offsets)
+    with pytest.raises(ValueError):
+        ch(tail, streams, [0] * 7 + [frame_len])
+    torch.cuda.synchronize()
+    assert channelise_cuda.launches == n0 + 2 and ch.calls == 2
+
+
+def test_bench6_and_rtl6_paths_launch_no_channeliser(dev):
+    """A step without a plan has no channeliser and no "ddc" carry; on bf16
+    frames and on rtl_sdr's u8 frames it launches K5 once and the
+    channeliser never, as before the wideband front end."""
+    from tpudab_torch.ops.channelise_cuda import channelise_cuda
+    step = ReceiveStep(1, bench_subchannels(), n_ensembles=2).to(dev)
+    assert step.ddc is None and "ddc" not in step.init_carry(dev)
+    frame_len = get_ofdm_params(1).nb_frame_length
+    u8 = torch.randint(0, 256, (2, 2, frame_len, 2), dtype=torch.uint8, device=dev)
+    re = torch.randn(2, 2, frame_len // 128, 128, device=dev).to(torch.bfloat16)
+    n_ch, n_k5 = channelise_cuda.launches, carve_rotate_cuda.launches
+    step(step.init_carry(dev), re, re.clone(), 0.0)
+    step(step.init_carry(dev), u8, None, 0.0)
+    torch.cuda.synchronize()
+    assert channelise_cuda.launches == n_ch and carve_rotate_cuda.launches == n_k5 + 2

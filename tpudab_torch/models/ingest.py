@@ -4,7 +4,9 @@ An rtl_sdr front end (osmocom's rtl_sdr / rtl_tcp) delivers 8-bit unsigned
 interleaved I/Q into host memory, two bytes a sample. The receive step
 reads those bytes as they are (K5 and stats_kernel convert them in
 registers, ofdm/demod.py), so what crosses PCIe is the raw u8, a quarter of
-the f32 pair that host-side conversion would send.
+the f32 pair that host-side conversion would send. A wideband receiver's
+8-bit signed I/Q crosses as the same bytes, fed as a uint8 view: a
+ReceiveStep with a ChannelPlan views the buffer it takes as int8.
 
 A HostFeed owns two device buffers of the step's frames, shape
 ([E,] F, frame_len, 2) uint8, and on CUDA a copy stream of its own:

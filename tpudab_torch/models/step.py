@@ -18,11 +18,17 @@ then the subchannels'), fec.viterbi (K1 + K2 and the PRBS XOR, a Viterbi
 call); a HostFeed that feeds it records ingest, its copy. With no
 profiler recording, the demod half on the card replays a CUDA graph of
 its chain for frames it has seen before (models/demod_graph.py).
+
+Built with a ChannelPlan (ofdm/channelise.py), the step takes wideband
+receivers' s8 streams instead of frames and channelises them first (span
+demod.ddc inside demod; its Channeliser is `step.ddc`, with its counters),
+the carry holding each receiver's tail; the channelised frames then take
+the same demod (and graph) and FEC.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -39,6 +45,7 @@ from tpudab_torch.models.ingest import HostFeed
 from tpudab_torch.msc.interleave import (TIME_INTERLEAVE_DEPTH, SoftRows,
                                          deinterleave_depuncture_t)
 from tpudab_torch.msc.subchannel import SubchannelConfig
+from tpudab_torch.ofdm.channelise import ChannelPlan, Channeliser
 from tpudab_torch.ofdm.demod import demod_frames_split, dft_operands
 from tpudab_torch.ops.viterbi_cuda import signs_on, viterbi_decode_bytes_t
 
@@ -75,11 +82,20 @@ class ReceiveStep(nn.Module):
 
     soft_dtype "bfloat16" (default) halves the FEC chain's memory traffic;
     "float32" gives exact parity with tpudab's f32 chain.
+
+    With `channels` (a ChannelPlan of plan.n_ensembles == n_ensembles),
+    frames_re is instead the receivers' wideband streams, int8 (S, N, 2)
+    or flat (S, 2 N), N = decimation x F x frame_len, interleaved I/Q
+    scaled by 1/128, or a HostFeed fed their bytes (uint8), with frames_im None;
+    forward(carry, streams, None, freq_hz, frame_offset) channelises them
+    (Channeliser, `self.ddc`) and decodes the frames, frame_offset the (E,)
+    ensembles' frame offsets (None: all 0). The carry then also holds
+    "ddc", the receivers' tails (S, T, 2) int8.
     """
 
     def __init__(self, mode: int, subchannels: Tuple[SubchannelConfig, ...],
                  window_offset: int = 12, n_ensembles: int = 1,
-                 soft_dtype: str = "bfloat16"):
+                 soft_dtype: str = "bfloat16", channels: Optional[ChannelPlan] = None):
         super().__init__()
         self.mode = mode
         self.subchannels = tuple(subchannels)
@@ -91,6 +107,12 @@ class ReceiveStep(nn.Module):
         self.fic_profile = FIC_PROFILE_MODE3 if mode == 3 else FIC_PROFILE
         self._msc_slice_bits = sum(cfg.slice_bits for cfg in self.subchannels)
         self.graphs = DemodGraphs()
+        self.ddc = None
+        if channels is not None:
+            if channels.n_ensembles != n_ensembles:
+                raise ValueError(f"the plan's {channels.n_ensembles} ensembles are not the "
+                                 f"step's {n_ensembles}")
+            self.ddc = Channeliser(channels, mode)
 
         for name, w in zip(("dft_re", "dft_sum", "dft_diff"),
                            dft_operands(mode, "bfloat16")):
@@ -115,10 +137,13 @@ class ReceiveStep(nn.Module):
 
     def init_carry(self, device) -> Dict[str, torch.Tensor]:
         lead = (self.n_ensembles,) if self.n_ensembles > 1 else ()
-        return {f"deint_{cfg.subch_id}": torch.zeros(
-                    lead + (TIME_INTERLEAVE_DEPTH - 1, cfg.slice_bits),
-                    dtype=self.soft_dtype, device=device)
-                for cfg in self.subchannels}
+        carry = {f"deint_{cfg.subch_id}": torch.zeros(
+                     lead + (TIME_INTERLEAVE_DEPTH - 1, cfg.slice_bits),
+                     dtype=self.soft_dtype, device=device)
+                 for cfg in self.subchannels}
+        if self.ddc is not None:
+            carry["ddc"] = self.ddc.init_tail(device)
+        return carry
 
     # -------- the chain --------
 
@@ -207,8 +232,37 @@ class ReceiveStep(nn.Module):
                              f"with the step's {e} ensembles")
         f = frames_re.shape[1] if e > 1 else frames_re.shape[0]
         with span("demod", e * f, frames_re.device):
-            return self.graphs.run(self._demod_chain, (self.dft_re, self.dft_sum, self.dft_diff),
-                                   frames_re, frames_im, freq_hz, (e,) if e > 1 else (f,))
+            return self._demod_graph(frames_re, frames_im, freq_hz)
+
+    def _demod_graph(self, frames_re, frames_im, freq_hz):
+        e = self.n_ensembles
+        f = frames_re.shape[1] if e > 1 else frames_re.shape[0]
+        return self.graphs.run(self._demod_chain, (self.dft_re, self.dft_sum, self.dft_diff),
+                               frames_re, frames_im, freq_hz, (e,) if e > 1 else (f,))
+
+    def wide_frames(self, streams) -> int:
+        """Frames a step of these wideband streams ((S, N, 2) or (S, 2 N),
+        a tensor or a HostFeed) holds for each ensemble."""
+        n = streams.shape[1] if len(streams.shape) == 3 else streams.shape[1] // 2
+        return n // (self.ddc.plan.decimation * self.params.nb_frame_length)
+
+    def demod_wide(self, carry, streams, freq_hz, frame_offset=None):
+        """The demod half on wideband streams (a step built with a plan):
+        the channeliser, then demod's work on its frames -> (new carry,
+        soft, stats), the carry's "ddc" tails advanced. A HostFeed's
+        buffer is taken, viewed as int8, and released as demod does."""
+        if isinstance(streams, HostFeed):
+            feed = streams
+            try:
+                return self.demod_wide(carry, feed.take().view(torch.int8), freq_hz,
+                                       frame_offset)
+            finally:
+                feed.release()
+        n = self.n_ensembles * self.wide_frames(streams)
+        with span("demod", n, streams.device):
+            tail, frames_re, frames_im = self.ddc(carry["ddc"], streams, frame_offset)
+            soft, stats = self._demod_graph(frames_re, frames_im, freq_hz)
+        return {**carry, "ddc": tail}, soft, stats
 
     def _demod_chain(self, frames_re, frames_im, freq_hz):
         """demod's work on the frames, eager: K5 and its tables, the DFT
@@ -228,10 +282,18 @@ class ReceiveStep(nn.Module):
             flat_re, flat_im, freq, (self.dft_re, self.dft_sum, self.dft_diff),
             self.mode, self.window_offset, out_dtype=self.soft_dtype)
 
-    def forward(self, carry, frames_re, frames_im, freq_hz):
-        n_frames = frames_re.shape[0] * (frames_re.shape[1] if self.n_ensembles > 1 else 1)
+    def forward(self, carry, frames_re, frames_im, freq_hz, frame_offset=None):
+        if self.ddc is not None:
+            if frames_im is not None:
+                raise ValueError("wideband streams hold I and Q interleaved: pass frames_im None")
+            n_frames = self.n_ensembles * self.wide_frames(frames_re)
+        else:
+            n_frames = frames_re.shape[0] * (frames_re.shape[1] if self.n_ensembles > 1 else 1)
         with span("step", n_frames, frames_re.device):
-            soft, stats = self.demod(frames_re, frames_im, freq_hz)
+            if self.ddc is not None:
+                carry, soft, stats = self.demod_wide(carry, frames_re, freq_hz, frame_offset)
+            else:
+                soft, stats = self.demod(frames_re, frames_im, freq_hz)
             new_carry, fic_bytes, subch = self.decode_soft(carry, soft)
         outputs = {"fic_bytes": fic_bytes, "subch": subch,
                    "mean_power": stats["mean_power"],

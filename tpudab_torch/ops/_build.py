@@ -32,6 +32,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 # C entry points: name -> argtypes. Each returns cudaGetLastError() as int.
 SIGNATURES = {
     "tpudab_viterbi_decode_bytes_t": (_P, _I, _P, _P, _P, _I, _I, _I, _I, _P),
@@ -50,6 +51,8 @@ SIGNATURES = {
     "tpudab_demod_norm": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "tpudab_demod_stats": (_P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "tpudab_copy_h2d": (_P, _P, _P, _I, _P),
+    "tpudab_channelise": (_P, _L, _L, _P, _L, _L, _P, _P, _P, _P, _P, _P, _L, _P, _L, _I, _L,
+                          _P),
 }
 
 
