@@ -27,10 +27,18 @@ frame_len + d_e, which the synthesis makes frame 0 of the batch.
 The window is hostfed's closed loop one step of IQ ahead (step k + 1's IQ
 fed under step k's kernels); with --trace 1 the window calls the step's
 halves (demod_wide, then decode_soft) and profiles the same two stretches.
+A step's bytes come to the host as Readback copies them: each output into
+a pinned host buffer without blocking, then one wait on the card. Not
+step.py's to_host, a blocking round trip an output (seven here): the card
+idles through each for as long as the host takes to answer, ~1 ms a step
+that moves with the host's speed from process to process, enough to
+spread the cell's runs past half its bounds.
 
 Metrics: as hostfed's: rtf_per_gpu (ensemble-seconds decoded per second of
 the window), step_ms_p95 (from an event recorded on the copy stream just
 before the step's IQ copy starts to its bytes on the host), setup_s.
+Beside them, step_parts_ms splits the unprofiled steps' period (see
+step_parts).
 
 Correct: every step's bytes against the bytes transmitted (bytes_wrong);
 HostFeed.bytes_copied equal to the steps fed times a step's bytes
@@ -152,6 +160,31 @@ def wide_signal(cfg: dict, tr: dict, seed: int, device) -> WideSignal:
     return WideSignal(out, cfo.astype(np.float32), offset, level_db, mon)
 
 
+class Readback:
+    """A step's FIC and subchannel bytes on the host: each output copied
+    into a pinned host buffer of its own without blocking (the card's
+    copies follow the step's kernels on its stream), then one wait for
+    the last of them. The buffers are reused from step to step: the bytes
+    of a call hold until the next call."""
+
+    def __init__(self):
+        self.buffers = {}
+
+    def __call__(self, out: dict):
+        parts = [("fic", out["fic_bytes"])] + list(out["subch"].items())
+        host = {}
+        for key, t in parts:
+            buf = self.buffers.get(key)
+            if buf is None or buf.shape != t.shape or buf.dtype != t.dtype:
+                buf = self.buffers[key] = torch.empty(t.shape, dtype=t.dtype,
+                                                      pin_memory=t.is_cuda)
+            buf.copy_(t, non_blocking=True)
+            host[key] = buf
+        if out["fic_bytes"].is_cuda:
+            torch.cuda.current_stream(out["fic_bytes"].device).synchronize()
+        return host.pop("fic").numpy(), {k: v.numpy() for k, v in host.items()}
+
+
 def step_bytes(cell) -> int:
     """The s8 bytes of one step: R x 8 F frame_len x 2."""
     return cell.traffic["receivers"] * samples(cell) * 2
@@ -199,11 +232,18 @@ def run(cell, seed: int, seconds: float, trace: bool, device: str, t_start: floa
     want = (torch.from_numpy(mon.fibs.reshape(d, f * dab.nb_fib_groups, -1)[ens.numpy()]).to(dev),
             {sid: torch.from_numpy(t).to(dev) for sid, t in step_truth(mon, e, c, 0).items()})
     clock = _step.Clock(dev)
+    to_host = Readback()
 
     def feed_step():
+        """Enqueue one step's IQ copy; the marks just before it starts and
+        just after it ends (on the copy stream)."""
         t = None if cuda else clock.mark()
         feed.feed(regions)
-        return feed.started if cuda else t
+        if not cuda:
+            return t, t
+        done = torch.cuda.Event(enable_timing=True)
+        done.record(feed.stream)
+        return feed.started, done
 
     def call(carry, marks):
         if not trace:
@@ -222,7 +262,7 @@ def run(cell, seed: int, seconds: float, trace: bool, device: str, t_start: floa
         carry, out = call(carry, [])
         if i:
             _step.wrong_bytes(out, want, 0)
-        _step.to_host(out)
+        to_host(out)
         if i == 0:
             first_s = time.perf_counter() - t0
     if cuda:
@@ -233,7 +273,7 @@ def run(cell, seed: int, seconds: float, trace: bool, device: str, t_start: floa
     # rows are due once the warm-up and the window have passed the ramp
     min_steps = max(1, RAMP_CIFS // c + 2 - WARM_STEPS)
     stretches = [("device", TRACED_STEPS), ("host", GAP_STEPS)] if trace else []
-    wrongs, taps, spans, kinds, held, traces = [], [], [], [], [], {}
+    wrongs, taps, spans, copies, kinds, held, traces = [], [], [], [], [], [], {}
     prof, kind, left = None, "plain", 0
     t_win = time.perf_counter()
     setup_s = t_win - t_start
@@ -250,7 +290,7 @@ def run(cell, seed: int, seconds: float, trace: bool, device: str, t_start: floa
                 else contextlib.nullcontext():
             if not last:
                 after = feed_step()        # step k + 1's IQ, copied under step k's kernels
-            marks = [start, clock.mark()]
+            marks = [start[0], clock.mark()]
             carry, out = call(carry, marks)
             k += 1
             if prof is not None:
@@ -259,9 +299,10 @@ def run(cell, seed: int, seconds: float, trace: bool, device: str, t_start: floa
                 wrongs.append(_step.wrong_bytes(out, want, lo))
             else:
                 held.append((out, lo))
-            _step.to_host(out)
+            to_host(out)
         marks.append(clock.mark())
         spans.append(marks)
+        copies.append(start[1])
         kinds.append(kind)
         taps.append((out["mean_power"], out["const_re"], out["const_im"]))
         del out
@@ -282,6 +323,7 @@ def run(cell, seed: int, seconds: float, trace: bool, device: str, t_start: floa
                zip(spans, spans[1:], kinds, kinds[1:]) if ka == kb == "plain"]
     halves = ([clock.ms(m[1], m[2]) for m in spans], [clock.ms(m[2], m[3]) for m in spans]) \
         if trace else None
+    parts = step_parts(clock, spans, copies, kinds)
     per_step = torch.stack(wrongs).cpu().numpy()
     mp = torch.stack([t[0] for t in taps]).cpu().numpy()
     tap = torch.stack([torch.stack([t[1], t[2]]) for t in taps]).cpu().numpy()
@@ -317,7 +359,7 @@ def run(cell, seed: int, seconds: float, trace: bool, device: str, t_start: floa
               "setup_parts": {"synth_s": synth_s, "first_step_s": first_s,
                               "build_s": _build.BuildInfo.seconds},
               "steps_checked": int(per_step.size), "bytes_copied": bytes_copied,
-              "ddc_calls": ddc_calls,
+              "ddc_calls": ddc_calls, "step_parts_ms": parts,
               "step_ms_median": {kd: statistics.median(ms for ms, kk in zip(step_ms, kinds)
                                                        if kk == kd) for kd in sorted(set(kinds))}}
     if trace:
@@ -346,6 +388,25 @@ def run(cell, seed: int, seconds: float, trace: bool, device: str, t_start: floa
             "setup_s": {"value": setup_s, "unit": "s"},
         }
     return result, checks
+
+
+def step_parts(clock, spans, copies, kinds) -> dict:
+    """Medians over the window's unprofiled steps, ms on the card's clock:
+    `copy`, a step's IQ copy; `loop`, from the step before's bytes on the
+    host to the step's first mark (the host's turn of the loop, in which
+    the card has nothing to run); `run`, from the later of that mark and
+    the copy's end to the step's bytes on the host; `period`, from one
+    step's bytes on the host to the next's."""
+    t0 = spans[0][0]
+    at = [(clock.ms(t0, m[1]), clock.ms(t0, m[-1]), clock.ms(t0, m[0]), clock.ms(t0, c))
+          for m, c in zip(spans, copies)]
+    plain = [i for i in range(1, len(spans)) if kinds[i] == kinds[i - 1] == "plain"]
+    if not plain:
+        return {}
+    return {"copy": statistics.median(at[i][3] - at[i][2] for i in plain),
+            "loop": statistics.median(at[i][0] - at[i - 1][1] for i in plain),
+            "run": statistics.median(at[i][1] - max(at[i][0], at[i][3]) for i in plain),
+            "period": statistics.median(at[i][1] - at[i - 1][1] for i in plain)}
 
 
 def reference_frames(cell, sig: WideSignal, precision: str = "f64"):

@@ -182,6 +182,27 @@ def test_skipped_step_fails(monkeypatch):
     assert checks["bytes_wrong"][0] == 0
 
 
+def test_readback_copies_the_bytes_as_to_host():
+    """Readback hands back the bytes step.py's to_host does, each output
+    whole, and its buffers hold a call's bytes until the next call."""
+    import numpy as np
+    import torch
+
+    drv = harness.driver_module(harness.load_cell(CELL))
+    g = torch.Generator().manual_seed(7)
+    outs = [{"fic_bytes": torch.randint(0, 256, (2, 12, 32), generator=g, dtype=torch.uint8),
+             "subch": {sid: torch.randint(0, 256, (2, 64, 432), generator=g, dtype=torch.uint8)
+                       for sid in (3, 1, 5)}} for _ in range(2)]
+    readback = drv.Readback()
+    for out in outs:
+        fic, subch = readback(out)
+        want_fic, want_subch = drv._step.to_host(out)
+        assert np.array_equal(fic, want_fic) and sorted(subch) == sorted(want_subch)
+        for sid, b in subch.items():
+            assert np.array_equal(b, want_subch[sid])
+    assert len(readback.buffers) == 4
+
+
 SCRIPT = """
 import json, sys
 sys.path.insert(0, {root!r})
