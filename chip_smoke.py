@@ -231,7 +231,8 @@ from tpudab_torch.ops.carve_exp import carve_variant_cuda, carve_variant_ref
 from tpudab_torch.ops.i16_probe import OPS as I16_OPS
 from tpudab_torch.ops.i16_probe import i16_probe_cuda, i16_probe_ref
 from tpudab_torch.ops.viterbi import branch_metric_table, mother_to_t, radix_tables
-from tpudab_torch.ops.viterbi_cuda import (K12_LAYOUTS, k12_layout, kernel_table_on, signs_on,
+from tpudab_torch.ops.viterbi_cuda import (BFLY4_LAYOUT, K12_LAYOUTS, k12_layout,
+                                           k12_resident_blocks, kernel_table_on, signs_on,
                                            sm_count_of, viterbi_decode_bits_cuda,
                                            viterbi_decode_bytes_t_cuda,
                                            viterbi_decode_bytes_t_ref, viterbi_decode_ref)
@@ -523,8 +524,9 @@ def build() -> tuple:
     for label, (regs, spill, smem) in resources.items():
         print(f"  resources {label}: {regs} registers, {spill} bytes spill stores, {smem} bytes smem")
     sass = sass_mix()
-    require(len(resources) == 12, f"ptxas reported {len(resources)} of the 9 Viterbi decode "
-            f"and traceback kernels and K5's 3: {sorted(resources)}")
+    n_viterbi = 2 * len(K12_LAYOUTS) + 2 + 3
+    require(len(resources) == n_viterbi + 3, f"ptxas reported {len(resources)} of the "
+            f"{n_viterbi} Viterbi decode and traceback kernels and K5's 3: {sorted(resources)}")
     for label, regs in PARENT_K5_REGS.items():
         require(resources[label][0] <= regs and resources[label][1] == 0,
                 f"{label}: {resources[label][0]} registers, {resources[label][1]} bytes spill "
@@ -534,13 +536,38 @@ def build() -> tuple:
         require(spill <= PARENT_SPILLS.get(kernel, spill),
                 f"{label} spills {spill} bytes; before the group maps it spilled "
                 f"{PARENT_SPILLS.get(kernel)}")
+    check_bfly4(resources, sass)
     return resources, sass
+
+
+def check_bfly4(resources: dict, sass: dict) -> None:
+    """The four-butterfly layout at the MSC's batch: its registers and
+    spills, the codewords one wave holds on this card (the occupancy
+    calculator's resident blocks of 16), and its inner loop's SASS a
+    codeword and super-step; no spills, one wave and at most
+    BFLY4_SASS_MAX instructions, or it fails."""
+    label = "viterbi_kernel<bf16, bfly4>"
+    regs, spill, _ = resources[label]
+    b, sms = 6 * N_ENS * 4 * N_FRAMES, sm_count_of(0)
+    blocks = k12_resident_blocks(BFLY4_LAYOUT, True)
+    wave = blocks * 16 * sms
+    per_cw = sass.get(label, {}).get("per_codeword")
+    print(f"  {label}: {regs} registers, {spill} bytes spill stores; {blocks} blocks of 16 "
+          f"codewords resident an SM, {wave} codewords a wave on {sms} SMs: the MSC's {b} in "
+          f"{-(-b // wave)} wave(s); inner loop "
+          + (f"{per_cw:.2f}" if per_cw is not None else "not measured")
+          + " SASS instructions a codeword and super-step")
+    require(spill == 0, f"{label} spills {spill} bytes")
+    require(b <= wave, f"{label}: the MSC's {b} codewords take {-(-b // wave)} waves")
+    require(per_cw is None or per_cw <= BFLY4_SASS_MAX,
+            f"{label}: {per_cw} SASS instructions a codeword and super-step, over "
+            f"{BFLY4_SASS_MAX}")
 
 
 def ptxas_resources(log: str) -> dict:
     """{label: (registers, spill store bytes, static shared bytes)} of the
-    Viterbi decode kernels (viterbi_kernel in f32 and bf16, each in its two
-    layouts, warp and bfly; viterbi_bits_kernel in f32 and bf16), the
+    Viterbi decode kernels (viterbi_kernel in f32 and bf16, each in its
+    layouts, K12_LAYOUTS; viterbi_bits_kernel in f32 and bf16), the
     traceback kernel's three modes and K5 (carve_kernel, f32, bf16 and
     u8), from ptxas' -v report."""
     out, label = {}, None
@@ -579,9 +606,15 @@ SASS_KERNELS = {**{f"viterbi_kernel<bf16, {name}>": rf"viterbi_kernelI13__nv_bfl
                 "forward full f32 rebase 32": r"variant_kernelIfNS_9F32MetricELi0ELi32"}
 # codewords a warp of each viterbi_kernel layout advances together, and the
 # super-steps of its inner loop (forward_acs: a group of 4;
-# forward_butterflies: two groups a pass)
-K12_CODEWORDS_PER_WARP = {"viterbi_kernel<bf16, warp>": 1, "viterbi_kernel<bf16, bfly>": 4}
-K12_LOOP_STEPS = {"viterbi_kernel<bf16, warp>": 4, "viterbi_kernel<bf16, bfly>": 8}
+# forward_butterflies: BflyMap::kSteps, 8 for two butterflies, 4 for four)
+K12_CODEWORDS_PER_WARP = {"viterbi_kernel<bf16, warp>": 1, "viterbi_kernel<bf16, bfly>": 4,
+                          "viterbi_kernel<bf16, bfly4>": 8}
+K12_LOOP_STEPS = {"viterbi_kernel<bf16, warp>": 4, "viterbi_kernel<bf16, bfly>": 8,
+                  "viterbi_kernel<bf16, bfly4>": 4}
+# the four-butterfly layout at the MSC's batch (12288 codewords at T2p 1744
+# on 132 SMs): one wave, no spills, and at most this many SASS instructions
+# a codeword and super-step in its inner loop
+BFLY4_SASS_MAX = 37.0
 SASS_OP = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]+)([^;]*);")
 
 
@@ -1172,9 +1205,9 @@ def run_main_path(dev, card):
     k12_layouts = {K12_LAYOUTS[k]: n
                    for k, n in viterbi_decode_bytes_t_cuda.layout_launches.items()}
     print(f"main path: K1+K2 launches by layout {k12_layouts}")
-    require(k12_layouts == {"bfly": N_STEPS, "warp": N_STEPS},
+    require(k12_layouts == {"bfly4": N_STEPS, "warp": N_STEPS},
             f"the main path's K1+K2 launches by layout {k12_layouts}: want the MSC's "
-            f"{N_STEPS} on bfly and the FIC's {N_STEPS} on warp")
+            f"{N_STEPS} on bfly4 and the FIC's {N_STEPS} on warp")
     launches = {name: KERNELS[name][2].launches for name in STEP_KERNELS}
     mode_a = deinterleave_cuda.launches
     print(f"main path: {N_STEPS} steps of E={N_ENS} x F={N_FRAMES}; launches {launches}; "

@@ -25,7 +25,8 @@ from tpudab_torch.ops import demod_tail
 from tpudab_torch.ops.i16_probe import OPS as I16_OPS
 from tpudab_torch.ops.i16_probe import i16_probe_cuda, i16_probe_ref
 from tpudab_torch.ops.viterbi import radix_tables
-from tpudab_torch.ops.viterbi_cuda import (BFLY_LAYOUT, WARP_LAYOUT,
+from tpudab_torch.ops.viterbi_cuda import (BFLY4_LAYOUT, BFLY_LAYOUT,
+                                           BFLY_LAYOUT_CODEWORDS_PER_SM, WARP_LAYOUT,
                                            WARP_LAYOUT_CODEWORDS_PER_SM, signs_on,
                                            viterbi_decode_bits_cuda, viterbi_decode_bytes_t_cuda,
                                            viterbi_decode_bytes_t_ref, viterbi_decode_ref)
@@ -61,12 +62,12 @@ def test_viterbi_kernel_equals_plain(dev, profile, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("b", [1, 17, 1000, 5003])
+@pytest.mark.parametrize("b", [1, 17, 1000, 5003, 8003])
 def test_viterbi_kernel_ragged_batch(dev, b, dtype):
     """K1+K2 at batches that are not a multiple of the codewords per block
-    (8 f32, 16 bf16 one warp a codeword; 16 the butterflies, which 5003
-    takes on a card of up to 156 SMs): the last block's missing codewords
-    store nothing."""
+    (8 f32, 16 bf16 one warp a codeword; 16 the butterflies: two a thread
+    for 5003 on a card of 105 to 156 SMs, four for 8003 on one of up to
+    166): the last block's missing codewords store nothing."""
     rng = np.random.default_rng(b)
     profile = FIC_PROFILE
     soft = torch.from_numpy(rng.standard_normal((b, int(profile.mask().sum())), dtype=np.float32))
@@ -536,13 +537,14 @@ def test_traceback_mode_ragged(dev, mode, b, groups, n_out):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("t2p,b", [(16, 3), (48, 17), (272, 9), (1744, 33), (16, 4243),
-                                   (48, 4501)])
+                                   (48, 4501), (16, 6501), (272, 7003)])
 def test_viterbi_kernel_ragged_groups(dev, t2p, b, dtype):
     """K1+K2 at G = T2p / 4 of 4, 12, 68 and 436 groups (not multiples of
     the 8-row stage or the 32-group window), ragged B (4243 and 4501 past
-    one warp a codeword's 32 an SM on a card of up to 132 SMs: the
-    butterflies, in blocks of 16 codewords), n_data_bits short of 2 T2p by
-    3 bytes; a fifth of the codewords erased (ties)."""
+    one warp a codeword's 32 an SM on a card of 132 SMs: two butterflies a
+    thread; 6501 and 7003 past their 48: four; both in blocks of 16
+    codewords), n_data_bits short of 2 T2p by 3 bytes; a fifth of the
+    codewords erased (ties)."""
     rng = np.random.default_rng(t2p + b)
     soft_t = torch.from_numpy(rng.standard_normal((t2p, 8, b), dtype=np.float32))
     soft_t[:, :, : b // 5] = 0.0
@@ -555,13 +557,14 @@ def test_viterbi_kernel_ragged_groups(dev, t2p, b, dtype):
 
 def test_viterbi_kernel_layout_launches(dev):
     """Each launch counts once in .launches and once under the layout that
-    k12_layout picked for its B on this card; a batch on each side of the
-    rule's edge takes each layout, both bit-equal to the twin."""
+    k12_layout picked for its B on this card; a batch in each of the rule's
+    three ranges takes each layout, all bit-equal to the twin."""
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     launches0, layouts0 = (viterbi_decode_bytes_t_cuda.launches,
                            dict(viterbi_decode_bytes_t_cuda.layout_launches))
     rng = np.random.default_rng(5)
-    for b in (300, WARP_LAYOUT_CODEWORDS_PER_SM * sms + 5):
+    for b in (300, WARP_LAYOUT_CODEWORDS_PER_SM * sms + 5,
+              BFLY_LAYOUT_CODEWORDS_PER_SM * sms + 5):
         soft_t = torch.from_numpy(rng.standard_normal((32, 8, b), dtype=np.float32))
         soft_t[:, :, : b // 5] = 0.0
         soft_t = soft_t.to(dev, torch.bfloat16)
@@ -569,9 +572,10 @@ def test_viterbi_kernel_layout_launches(dev):
         torch.cuda.synchronize()
         assert torch.equal(got, viterbi_decode_bytes_t_ref(soft_t, signs_on(dev), 40))
     counts = viterbi_decode_bytes_t_cuda.layout_launches
-    assert viterbi_decode_bytes_t_cuda.launches == launches0 + 2
-    assert {k: counts[k] - layouts0.get(k, 0) for k in (WARP_LAYOUT, BFLY_LAYOUT)} == \
-        {WARP_LAYOUT: 1, BFLY_LAYOUT: 1}
+    assert viterbi_decode_bytes_t_cuda.launches == launches0 + 3
+    assert {k: counts[k] - layouts0.get(k, 0) for k in (WARP_LAYOUT, BFLY_LAYOUT,
+                                                         BFLY4_LAYOUT)} == \
+        {WARP_LAYOUT: 1, BFLY_LAYOUT: 1, BFLY4_LAYOUT: 1}
 
 
 @pytest.mark.parametrize("b,t,n", [(1, 20, 13), (5, 270, 203), (70, 1550, 1541)])

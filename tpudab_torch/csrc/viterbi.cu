@@ -46,41 +46,52 @@
 // since the maps read all 64 states) and is a chain of dependent picks,
 // which the group maps below cut to one per 4 super-steps.
 //
-// viterbi_kernel: two layouts, picked by ops/viterbi_cuda.py::k12_layout
-// from the batch B and the card's SMs.
+// viterbi_kernel: three layouts, picked by ops/viterbi_cuda.py::k12_layout
+// from the batch B and the card's SMs (device ms on an NVIDIA H100 80GB
+// HBM3: PERF.md section 6).
 //   - One warp a codeword (kWarpLayout; forward_acs, below) for B up to
 //     32 codewords an SM (4224 on 132 SMs): the FIC's 2048, `decode` and
 //     `stream`. At a few codewords an SM the kernel is bound by the chain
 //     of super-steps (~470 cycles each on an H100), not by issue, and a
 //     layout with more work a thread only lengthens the chain.
-//   - Two radix-4 butterflies a thread (kBflyLayout; forward_butterflies,
-//     "butterfly layout" below) past that: the MSC's 12288. The edge is
-//     the crossover measured at T2p 1744 (device ms, warp / bfly: 4224
-//     codewords 0.763 / 0.793, 5120 1.138 / 0.913); at T2p 400 the two
-//     are within 7% from 3072 to 4224 codewords. Thread r of a codeword holds
-//     butterflies k0 and k0 ^ 6, 8 states; 8 threads a codeword, 4
-//     codewords a warp, 16 a block, 96 an SM. Each thread sums its own 8
-//     branch metrics by a prefix tree (34 adds, no shuffle), exchanges path
-//     metrics through shared memory in state order (two 16-byte stores, 8
-//     loads) and stores one 32-bit decision word a butterfly every 4
-//     super-steps, at bytes 4k .. 4k + 3 of the same (B, T2p/4, 64) rows.
-//     The per-super-step work that one warp a codeword pays once for 2
-//     states (soft loads, shuffles, exchange, loop, stores) is paid once
-//     for 8. After the forward pass 16 threads of the block walk its 16
-//     codewords (traceback_tree, the byte picked by a shared load).
+//   - Radix-4 butterflies past that ("butterfly layouts" below;
+//     forward_butterflies): two a thread (kBflyLayout; 8 states, 8 threads
+//     a codeword, 4 codewords a warp) up to 48 codewords an SM, four
+//     (kBfly4Layout; 16 states, 4 threads a codeword, 8 codewords a warp)
+//     past that: the MSC's 12288. Both take 16 codewords a block. A thread
+//     holds butterflies k0 ^ v for v in a subgroup of {0, 6, 11, 13}, sums
+//     its own 8 branch metrics by a prefix tree (34 adds, no shuffle),
+//     exchanges path metrics through shared memory in state order (a
+//     16-byte store and 4 loads a butterfly) and stores one 32-bit
+//     decision word a butterfly every 4 super-steps, at bytes 4k .. 4k + 3
+//     of the same (B, T2p/4, 64) rows. The per-super-step work that one
+//     warp a codeword pays once for 2 states (soft loads, shuffles,
+//     exchange, loop, stores) is paid once for 8 or 16. After the forward
+//     pass 16 threads of the block walk its 16 codewords (traceback_tree,
+//     the byte picked by a shared load).
+//   - The crossovers: warp / bfly 4224 codewords 0.763 / 0.793, 5120
+//     1.138 / 0.913 at T2p 1744 (within 7% at T2p 400 from 3072 to 4224);
+//     bfly / bfly4 at T2p 1744, 4608 0.678 / 0.751, 6656 0.880 / 0.780,
+//     12288 1.274 / 1.124. Four butterflies need half the warps of two, so
+//     at the MSC's 12288 an SM holds 12 warps (3 a scheduler) against 24:
+//     they win by dispatching fewer instructions, not by hiding more
+//     latency.
 //   - SASS (sm_90a, bf16): one warp a codeword's inner group of 4
 //     super-steps is 210 instructions (52.5 a codeword and super-step,
-//     the soft staging not included); the butterflies' inner loop of 8
-//     super-steps is 1335 for a warp of 4 codewords (41.7 a codeword and
-//     super-step, its staging included): FFMA 528, FSETP 192, FMNMX 192,
-//     SEL 128, IMAD 81, LDS 80, STS 24. 80 registers, no spills.
-//   - What bounds it now: issue, at ~0.6 warp instructions a cycle a
-//     scheduler, with every class of instruction costing alike (variants
-//     without the decisions, the tree or the exchange ran 25%, 18% and 2%
-//     faster: PERF.md §6). The ~21 instructions a state and super-step are
-//     the cost: 4 adds, 3 FMNMX, 3 FSETP, 2 SEL and ~1.3 IMAD for the ACS
-//     and decisions, 4.25 for the tree, 1.25 for the exchange. The walk
-//     reads all decision rows once, ~0.1 ms at the MSC's 343 MB.
+//     the soft staging not included); two butterflies' inner loop of 8
+//     super-steps 1292 for a warp of 4 codewords (40.4 a codeword and
+//     super-step, its staging included; 80 registers); four butterflies'
+//     inner loop of 4 super-steps 1106 for a warp of 8 codewords (34.6,
+//     the staging outside it): FFMA 392, FSETP 192, FMNMX 192, SEL 128,
+//     LDS 72, IMAD 61, STS 16; 126 registers, no spills.
+//   - What bounds them: dispatch, every class of instruction costing alike
+//     (without the decisions, the tree or the exchange two butterflies ran
+//     25%, 18% and 2% faster). The ~21 instructions a state and super-step
+//     of two butterflies: 4 adds, 3 FMNMX, 3 FSETP, 2 SEL and ~1.3 IMAD for
+//     the ACS and decisions, 4.25 for the tree, 1.25 for the exchange; four
+//     pay the tree, the soft loads, the loop and the rebase once per 16
+//     states, ~17 a state. The walk reads all decision rows once, ~0.1 ms
+//     at the MSC's 343 MB.
 //
 // forward_acs: one warp per codeword, kWarps codewords per block.
 //   - Lane l holds states 2l and 2l + 1, which have the same four
@@ -750,30 +761,28 @@ __device__ void traceback_tree(const uint8_t* __restrict__ dcw, int groups,
   }
 }
 
-// ---- viterbi_kernel's butterfly layout --------------------------------
+// ---- viterbi_kernel's butterfly layouts -------------------------------
 //
 // A radix-4 butterfly: old states k, k + 16, k + 32, k + 48 go to new
 // states 4k .. 4k + 3 (k < 16). Super-transition reg = (j << 6) | 4k | i
 // (state 4k + i, predecessor j) sends soft value n with the sign
 // (-1)^parity(kGenMasks byte n & reg). The code is linear, so for a thread
-// whose butterflies are k0 and k0 ^ 6, the signs split into the thread's
-// own t_n = the sign of n in 4 k0 (registers) and the sign of
-// (j << 6) | 4v | i, v = 0 or 6 (compile-time). The 32 super-transitions of
-// the two butterflies take 8 distinct index-order sums up to sign (6 lies
-// in {0, 6, 11, 13}, the butterflies whose sums are the same 8): 34 adds
-// of a prefix tree a thread and super-step, and no shuffle.
+// whose butterflies are k0 ^ v, v in V = {0, 6, 11, 13} (a subgroup under
+// XOR, whose four cosets split the 16 butterflies evenly), the signs split
+// into the thread's own t_n = the sign of n in 4 k0 (registers) and the
+// sign of (j << 6) | 4v | i (compile-time). The 64 super-transitions of the
+// four butterflies take 8 distinct index-order sums up to sign: 34 adds of
+// a prefix tree a thread and super-step, and no shuffle. A thread holds
+// kBfly of them: 2 (v = 0, 6; kBflyLayout) or all 4 (kBfly4Layout).
 
 // Byte n: the mask of soft value n's sign bit in the 8-bit super-transition
 // register (DAB's generators 0133, 0171, 0145, 0133 over two trellis steps);
 // tests/test_torch_k12_layout.py holds it to radix_tables()[0].
 constexpr unsigned long long kGenMasks = 0x6d534f6ddaa69edaull;
-constexpr int kBfly = 2;                 // butterflies a thread
-constexpr int kBflyStep = 6;             // between a thread's two butterflies
-constexpr int kBflyTpc = 16 / kBfly;     // threads a codeword
+constexpr int kCoset = 0xdb60;           // V, a nibble each: v_w = 0, 6, 11, 13
 constexpr int kBflyCw = 16;              // codewords a block
-constexpr int kBflyThreads = kBflyCw * kBflyTpc;
-constexpr int kBflyPm = 72;              // floats of a codeword's exchange buffer
 
+__host__ __device__ constexpr int coset_offset(int w) { return (kCoset >> (4 * w)) & 15; }
 __host__ __device__ constexpr int parity8(int x) {
   return (x ^ (x >> 1) ^ (x >> 2) ^ (x >> 3) ^ (x >> 4) ^ (x >> 5) ^ (x >> 6) ^ (x >> 7)) & 1;
 }
@@ -781,10 +790,35 @@ __host__ __device__ constexpr int parity8(int x) {
 __host__ __device__ constexpr int sign_bit(int n, int reg) {
   return parity8((int)((kGenMasks >> (8 * n)) & 0xffu) & reg);
 }
-// Butterfly k0 of thread r of a codeword (its other is k0 ^ 6): one of each
-// pair {k, k ^ 6}, chosen with kBflyPm so that a warp's exchange stores and
-// loads fall on distinct banks.
-__host__ __device__ constexpr int bfly_base(int r) { return r | ((r & 4) << 1); }
+
+// Where a butterfly layout's threads sit: kBfly butterflies (4 kBfly
+// states) a thread, kTpc threads a codeword, kBflyCw codewords a block.
+// Thread r of a codeword holds butterflies base(r) ^ v_w, w < kBfly, and
+// its codeword's exchange buffer is kPm floats; the thread map, base and
+// kPm are chosen together so that a warp's 16-byte exchange stores (a
+// quarter warp at a time) and its scalar loads fall on distinct banks.
+//   - kBfly 2: lanes 8c + r (4 codewords a warp), base(r) one of each pair
+//     {k, k ^ 6}, kPm 72.
+//   - kBfly 4: lanes c + 8r (8 codewords a warp), base(r) = r, kPm 68 (17
+//     16-byte units, odd): a quarter warp's stores are 8 codewords of one r,
+//     at units 17c + k, distinct mod 8; a warp's loads k + 16j + 68c, with
+//     k = r ^ v distinct mod 4 over r and 68c = 4c (mod 32), cover the 32
+//     banks.
+template <int kBfly>
+struct BflyMap {
+  static_assert(kBfly == 2 || kBfly == 4, "two or four butterflies a thread");
+  static constexpr int kTpc = 16 / kBfly;
+  static constexpr int kThreads = kBflyCw * kTpc;
+  static constexpr int kPm = kBfly == 2 ? 72 : 68;
+  // super-steps a pass of the inner loop: at (12288, 1744) the four
+  // butterflies took 1.124 ms at 4 and 1.26 at 8 (NVIDIA H100 80GB HBM3)
+  static constexpr int kSteps = kBfly == 2 ? 8 : 4;
+  __device__ static int cw(int x) { return kBfly == 2 ? x / 8 : (x >> 5) * 8 + (x & 7); }
+  __device__ static int r(int x) { return kBfly == 2 ? x % 8 : (x & 31) >> 3; }
+  __device__ static int base(int r) { return kBfly == 2 ? r | ((r & 4) << 1) : r; }
+  // the lane of thread 0 of lane's codeword
+  __device__ static int lane0(int lane) { return kBfly == 2 ? lane & ~7 : lane & 7; }
+};
 
 // A thread's branch metrics as a prefix tree over its 8 index-order sums
 // (patterns: bit n set where soft value n is negated, normalised so that
@@ -794,18 +828,18 @@ struct BmTree {
   int count[kSoft];               // nodes at level n
   int parent[kSoft][kSoft];       // node q of level n: its prefix at level n - 1
   int neg[kSoft][kSoft];          // ... and whether soft value n enters it negated
-  int mag[kBfly][4][4];           // [w][i][j]: the sum of state 4k + i, pred j
-  int flip[kBfly][4][4];          // ... and whether the branch metric is its negation
+  int mag[4][4][4];               // [w][i][j]: the sum of state 4k + i, pred j
+  int flip[4][4][4];              // ... and whether the branch metric is its negation
 };
 
 __host__ __device__ constexpr BmTree bm_tree() {
   BmTree t{};
   int pats[kSoft] = {};
   int np = 0;
-  for (int w = 0; w < kBfly; ++w)
+  for (int w = 0; w < 4; ++w)
     for (int i = 0; i < 4; ++i)
       for (int j = 0; j < 4; ++j) {
-        const int reg = (j << 6) | (4 * kBflyStep * w) | i, s0 = sign_bit(0, reg);
+        const int reg = (j << 6) | (4 * coset_offset(w)) | i, s0 = sign_bit(0, reg);
         int pat = 0;
         for (int n = 1; n < kSoft; ++n) pat |= (sign_bit(n, reg) ^ s0) << n;
         int q = 0;
@@ -842,42 +876,46 @@ __host__ __device__ constexpr BmTree bm_tree() {
 
 __host__ __device__ constexpr bool bm_tree_ok() {
   const BmTree t = bm_tree();
-  for (int w = 0; w < kBfly; ++w)
+  for (int w = 0; w < 4; ++w)
     for (int i = 0; i < 4; ++i)
       for (int j = 0; j < 4; ++j)
         if (t.mag[w][i][j] >= kSoft) return false;
   return t.count[kSoft - 1] == kSoft;
 }
-static_assert(bm_tree_ok(), "the two butterflies take 8 distinct sums");
+static_assert(bm_tree_ok(), "the four butterflies of a coset of V take 8 distinct sums");
 
 // The block's kBflyCw codewords from cw0 of (t2p, 8, b) soft values,
-// staged by its threads in halves of a chunk (8 super-steps each): thread
-// x reads codeword cw0 + x % 16 in rows x / 16 + 8 k (a 32-byte sector of
-// a bf16 row per 16 threads) and writes them to that codeword's row of the
-// buffer; a codeword past b reads 0.
-template <typename T>
+// staged by its kThreads threads in halves of a chunk (8 super-steps each):
+// thread x reads codeword cw0 + x % 16 in rows x / 16 + kRows k (a 32-byte
+// sector of a bf16 row per 16 threads) and writes them to that codeword's
+// row of the buffer; a codeword past b reads codeword cw0's (finite values;
+// it stores nothing). The loads are unconditional and kept raw until put()
+// converts them, so that a half chunk's loads are all in flight at once and
+// nothing waits on them before put(): loads under a select, each converted
+// at once, kept the butterflies waiting on device memory one load at a time
+// (at (12288, 1744) two butterflies 1.45 ms against 1.28, four, 8
+// super-steps a pass, 1.62 against 1.24; NVIDIA H100 80GB HBM3).
+template <typename T, int kThreads>
 struct BlockSoft {
-  static constexpr int kRows = kBflyThreads / kBflyCw;
+  static constexpr int kRows = kThreads / kBflyCw;
   static constexpr int kHalf = kTile / kRows / 2;
   const T* src;        // this thread's next row
   size_t step;         // elements between its rows
   int dst;             // its first slot in the buffer
-  bool live;
   __device__ BlockSoft(const T* soft, int b, int cw0) {
     const int col = (int)(threadIdx.x % kBflyCw), row = (int)(threadIdx.x / kBflyCw);
-    live = cw0 + col < b;
-    src = soft + (size_t)row * b + (live ? cw0 + col : 0);
+    src = soft + (size_t)row * b + (cw0 + col < b ? cw0 + col : cw0);
     step = (size_t)kRows * b;
     dst = col * x_stride<float>() + row;
   }
   // the next half chunk, in flight until put()
-  __device__ void fetch(float (&r)[kHalf]) {
+  __device__ void fetch(T (&r)[kHalf]) {
 #pragma unroll
-    for (int k = 0; k < kHalf; ++k, src += step) r[k] = live ? F32Metric::of(*src) : 0.f;
+    for (int k = 0; k < kHalf; ++k, src += step) r[k] = *src;
   }
-  __device__ void put(const float (&r)[kHalf], float* xs, int half) const {
+  __device__ void put(const T (&r)[kHalf], float* xs, int half) const {
 #pragma unroll
-    for (int k = 0; k < kHalf; ++k) xs[dst + (half * kHalf + k) * kRows] = r[k];
+    for (int k = 0; k < kHalf; ++k) xs[dst + (half * kHalf + k) * kRows] = F32Metric::of(r[k]);
   }
 };
 
@@ -902,26 +940,29 @@ __device__ __forceinline__ void tree_sums(const float* xp, const float (&u)[kSof
 }
 
 // Forward ACS of the block's kBflyCw codewords over t2p super-steps (t2p %
-// 16 == 0), two butterflies (8 states) a thread, 8 threads a codeword, f32
-// metrics rebased by state 0 every 16. Thread r of a codeword holds
-// butterflies k0 = bfly_base(r) and k0 ^ 6; every 4 super-steps it stores
-// one 32-bit word a butterfly (states 4k .. 4k + 3: bytes 4k .. 4k + 3 of
-// the group's row) to dcw (none when null). Path metrics go through a
+// 16 == 0), kBfly butterflies (4 kBfly states) a thread, f32 metrics
+// rebased by state 0 every 16. Thread r of a codeword holds butterflies
+// k0 ^ v_w (k0 = BflyMap::base(r)); every 4 super-steps it stores one
+// 32-bit word a butterfly (states 4k .. 4k + 3: bytes 4k .. 4k + 3 of the
+// group's row) to dcw (none when null). Path metrics go through a
 // per-codeword double buffer in shared memory in state order: a
 // butterfly's 4 new metrics are one 16-byte store, its 4 predecessors 4
 // loads, one __syncwarp a super-step. xs: the staging buffer (2 chunks),
 // pmx: the exchange buffers. Every thread of the block calls it, for the
-// staging barrier.
-template <typename T>
+// staging barrier. The inner loop runs Map::kSteps super-steps a pass, the
+// staging of the next chunk's halves between its passes.
+template <typename T, int kBfly>
 __device__ void forward_butterflies(const T* __restrict__ soft, int b, int cw0, int t2p,
                                     uint8_t* __restrict__ dcw, float* xs, float* pmx) {
-  constexpr int kXs = kBflyCw * x_stride<float>(), kBuf = kBflyCw * kBflyPm;
+  using Map = BflyMap<kBfly>;
+  constexpr int kXs = kBflyCw * x_stride<float>(), kBuf = kBflyCw * Map::kPm;
+  constexpr int kSteps = Map::kSteps;
+  static_assert(kSteps % 4 == 0 && (kStage / 2) % kSteps == 0, "whole groups of 4 a pass");
   constexpr BmTree kT = bm_tree();
-  BlockSoft<T> load(soft, b, cw0);
-  const int r = (int)(threadIdx.x % kBflyTpc), cwl = (int)(threadIdx.x / kBflyTpc);
-  const int k0 = bfly_base(r);
-  const int lane0 = (int)(threadIdx.x & 31) & ~(kBflyTpc - 1);   // the codeword's first lane
-  float* const pm_own = pmx + cwl * kBflyPm;
+  BlockSoft<T, Map::kThreads> load(soft, b, cw0);
+  const int x = (int)threadIdx.x, cwl = Map::cw(x), k0 = Map::base(Map::r(x));
+  const int lane0 = Map::lane0(x & 31);
+  float* const pm_own = pmx + cwl * Map::kPm;
   // this thread's signs: u_n = t_n t_0 for the tree, t_0 for the branch metric
   float u[kSoft];
 #pragma unroll
@@ -933,12 +974,12 @@ __device__ void forward_butterflies(const T* __restrict__ soft, int b, int cw0, 
   for (int w = 0; w < kBfly; ++w) {
 #pragma unroll
     for (int i = 0; i < 4; ++i)
-      v[w][i] = (k0 ^ (kBflyStep * w)) == 0 && i == 0 ? 0.f : F32Metric::kStart;
-    *reinterpret_cast<float4*>(pm_own + 4 * (k0 ^ (kBflyStep * w))) =
+      v[w][i] = (k0 ^ coset_offset(w)) == 0 && i == 0 ? 0.f : F32Metric::kStart;
+    *reinterpret_cast<float4*>(pm_own + 4 * (k0 ^ coset_offset(w))) =
         make_float4(v[w][0], v[w][1], v[w][2], v[w][3]);
   }
   uint32_t acc[kBfly];
-  float rbuf[BlockSoft<T>::kHalf];
+  T rbuf[BlockSoft<T, Map::kThreads>::kHalf];
   load.fetch(rbuf);
   load.put(rbuf, xs, 0);
   load.fetch(rbuf);
@@ -951,67 +992,67 @@ __device__ void forward_butterflies(const T* __restrict__ soft, int b, int cw0, 
     if (more) load.fetch(rbuf);   // the next chunk's first half, in flight
     const float* xw = xs + (chunk & 1) * kXs + cwl * x_stride<float>();
     float* xn = xs + ((chunk + 1) & 1) * kXs;
-    // two groups a pass: the loop-invariant values the compiler makes
-    // again each pass (80 registers) are made once per 8 super-steps
-#pragma unroll 2
-    for (int g4 = 0; g4 < kStage; g4 += 4) {
-      if (g4 == kStage / 2 && more) {
+#pragma unroll 1
+    for (int h = 0; h < kStage; h += kStage / 2) {
+      if (h && more) {
         load.put(rbuf, xn, 0);
         load.fetch(rbuf);
       }
+#pragma unroll 1
+      for (int q0 = h; q0 < h + kStage / 2; q0 += kSteps) {
 #pragma unroll
-      for (int w = 0; w < kBfly; ++w) acc[w] = 0;
+        for (int s = 0; s < kSteps; ++s) {
+          const int q = q0 + s;
+          float lvl[kSoft];
+          tree_sums(xw + q * kSoft, u, lvl);
+          const float* rd = pm_own + (s & 1) * kBuf;
 #pragma unroll
-      for (int uq = 0; uq < 4; ++uq) {
-        const int q = g4 + uq;
-        float lvl[kSoft];
-        tree_sums(xw + q * kSoft, u, lvl);
-        const float* rd = pm_own + (uq & 1) * kBuf;
+          for (int w = 0; w < kBfly; ++w) {
+            const int k = k0 ^ coset_offset(w);
+            float p[4];
 #pragma unroll
-        for (int w = 0; w < kBfly; ++w) {
-          const int k = k0 ^ (kBflyStep * w);
-          float p[4];
+            for (int j = 0; j < 4; ++j) p[j] = rd[k + 16 * j];
+            uint32_t d = 0;
 #pragma unroll
-          for (int j = 0; j < 4; ++j) p[j] = rd[k + 16 * j];
-          uint32_t d = 0;
+            for (int i = 0; i < 4; ++i) {
+              float c[4];
 #pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            float c[4];
-#pragma unroll
-            for (int j = 0; j < 4; ++j)
-              c[j] = fmaf(kT.flip[w][i][j] ? -t0s : t0s, lvl[kT.mag[w][i][j]], p[j]);
-            // pairwise strict > (ties keep the lower j); fmaxf gives the
-            // selected value, as no candidate is -0 or NaN
-            const bool d01 = c[1] > c[0], d23 = c[3] > c[2];
-            const float m01 = fmaxf(c[0], c[1]), m23 = fmaxf(c[2], c[3]);
-            const bool dh = m23 > m01;
-            v[w][i] = fmaxf(m01, m23);
-            d |= (dh ? (d23 ? 3u : 2u) : (d01 ? 1u : 0u)) << (8 * i);
+              for (int j = 0; j < 4; ++j)
+                c[j] = fmaf(kT.flip[w][i][j] ? -t0s : t0s, lvl[kT.mag[w][i][j]], p[j]);
+              // pairwise strict > (ties keep the lower j); fmaxf gives the
+              // selected value, as no candidate is -0 or NaN
+              const bool d01 = c[1] > c[0], d23 = c[3] > c[2];
+              const float m01 = fmaxf(c[0], c[1]), m23 = fmaxf(c[2], c[3]);
+              const bool dh = m23 > m01;
+              v[w][i] = fmaxf(m01, m23);
+              d |= (dh ? (d23 ? 3u : 2u) : (d01 ? 1u : 0u)) << (8 * i);
+            }
+            // step q's decision in bits [6 - 2 (q & 3), 8 - 2 (q & 3)) of its byte
+            acc[w] = (s & 3 ? acc[w] * 4u : 0u) + d;
           }
-          acc[w] = acc[w] * 4u + d;   // step q's decision in bits [6 - 2q, 8 - 2q) of its byte
-        }
-        if (uq == 3 && g4 == kStage - 4) {
-          // rebase by state 0 (thread 0 of the codeword, butterfly 0, i = 0)
-          const float base = __shfl_sync(kAll, v[0][0], lane0);
+          if (s == kSteps - 1 && q == kStage - 1) {
+            // rebase by state 0 (thread 0 of the codeword, butterfly 0, i = 0)
+            const float base = __shfl_sync(kAll, v[0][0], lane0);
+#pragma unroll
+            for (int w = 0; w < kBfly; ++w)
+#pragma unroll
+              for (int i = 0; i < 4; ++i) v[w][i] = __fsub_rn(v[w][i], base);
+          }
+          // read at the next step behind this __syncwarp; every thread of the
+          // codeword read this buffer at the last step, before its __syncwarp
+          float* wr = pm_own + ((s + 1) & 1) * kBuf;
 #pragma unroll
           for (int w = 0; w < kBfly; ++w)
+            *reinterpret_cast<float4*>(wr + 4 * (k0 ^ coset_offset(w))) =
+                make_float4(v[w][0], v[w][1], v[w][2], v[w][3]);
+          __syncwarp();
+          if ((s & 3) == 3 && dcw) {
+            uint8_t* row = dcw + (size_t)((t0 + q) >> 2) * kStates;
 #pragma unroll
-            for (int i = 0; i < 4; ++i) v[w][i] = __fsub_rn(v[w][i], base);
+            for (int w = 0; w < kBfly; ++w)
+              *reinterpret_cast<uint32_t*>(row + 4 * (k0 ^ coset_offset(w))) = acc[w];
+          }
         }
-        // read at the next step behind this __syncwarp; every thread of the
-        // codeword read this buffer at the last step, before its __syncwarp
-        float* wr = pm_own + ((uq + 1) & 1) * kBuf;
-#pragma unroll
-        for (int w = 0; w < kBfly; ++w)
-          *reinterpret_cast<float4*>(wr + 4 * (k0 ^ (kBflyStep * w))) =
-              make_float4(v[w][0], v[w][1], v[w][2], v[w][3]);
-        __syncwarp();
-      }
-      if (dcw) {
-        uint8_t* row = dcw + (size_t)((t0 + g4) >> 2) * kStates;
-#pragma unroll
-        for (int w = 0; w < kBfly; ++w)
-          *reinterpret_cast<uint32_t*>(row + 4 * (k0 ^ (kBflyStep * w))) = acc[w];
       }
     }
     if (more) load.put(rbuf, xn, 1);
@@ -1034,20 +1075,31 @@ __device__ __noinline__ void walk_tree(const uint8_t* __restrict__ dcw, int grou
 }
 
 // viterbi_kernel's thread layouts (ops/viterbi_cuda.py::K12_LAYOUTS names
-// them, ::k12_layout picks one from the batch): kWarpLayout, one warp a codeword (forward_acs and
-// the warp's shuffle traceback), kBflyLayout, two butterflies a thread
-// (forward_butterflies, then traceback_tree by one thread a codeword).
-constexpr int kWarpLayout = 0, kBflyLayout = 2;
+// them, ::k12_layout picks one from the batch): kWarpLayout, one warp a
+// codeword (forward_acs and the warp's shuffle traceback); kBflyLayout and
+// kBfly4Layout, two and four butterflies a thread (forward_butterflies,
+// then traceback_tree by one thread a codeword). A butterfly layout's id is
+// its butterflies a thread.
+constexpr int kWarpLayout = 0, kBflyLayout = 2, kBfly4Layout = 4;
 __host__ __device__ constexpr int k12_codewords(int layout, int warps) {
   return layout == kWarpLayout ? warps : kBflyCw;
 }
 __host__ __device__ constexpr int k12_threads(int layout, int warps) {
-  return layout == kWarpLayout ? warps * kLanes : kBflyThreads;
+  return layout == kWarpLayout ? warps * kLanes : kBflyCw * 16 / layout;
 }
+// The four butterflies keep a batch of kWaveB codewords on kWaveSms SMs in
+// one wave: the MSC's coding group of 12288 on an H100 SXM's 132 SMs,
+// ceil(12288 / 132) = 94 codewords resident an SM.
+constexpr int kWaveB = 12288, kWaveSms = 132;
+__host__ __device__ constexpr int ceil_div(int a, int b) { return (a + b - 1) / b; }
 // resident blocks an SM: 32 warps (64 registers) for one warp a codeword,
-// 24 (80 registers) for the butterflies
+// 24 (80 registers) for two butterflies a thread, and for four the blocks
+// that hold ceil(kWaveB / kWaveSms) codewords (6 of 16: 12 warps, up to 168
+// registers)
 __host__ __device__ constexpr int k12_min_blocks(int layout, int warps) {
-  return layout == kWarpLayout ? 1024 / (warps * kLanes) : 768 / kBflyThreads;
+  return layout == kWarpLayout   ? 1024 / (warps * kLanes)
+         : layout == kBflyLayout ? 768 / k12_threads(layout, warps)
+                                 : ceil_div(ceil_div(kWaveB, kWaveSms), kBflyCw);
 }
 
 template <typename T, int kLayout>
@@ -1070,14 +1122,15 @@ viterbi_kernel(const T* __restrict__ soft, const int* __restrict__ table,
       traceback<false, kShuffle, decode_tb_stages(kWarps)>(
           dcw, t2p / 4, out + (size_t)cw * n_out, n_out, ring + (threadIdx.x >> 5) * kRing);
   } else {
+    constexpr int kBfly = kLayout;
     constexpr int kXs = kBflyCw * x_stride<float>();
     static_assert(kBflyCw * kTreeStride <= (int)sizeof(float) * 2 * kXs,
                   "the traceback's rings fit in the staging buffer");
     __shared__ __align__(16) float xs[2 * kXs];
-    __shared__ __align__(16) float pmx[2 * kBflyCw * kBflyPm];
-    const int cw0 = blockIdx.x * kBflyCw, cw = cw0 + (int)threadIdx.x / kBflyTpc;
-    forward_butterflies<T>(soft, b, cw0, t2p, cw < b ? dec + (size_t)cw * rows : nullptr, xs,
-                           pmx);
+    __shared__ __align__(16) float pmx[2 * kBflyCw * BflyMap<kBfly>::kPm];
+    const int cw0 = blockIdx.x * kBflyCw, cw = cw0 + BflyMap<kBfly>::cw((int)threadIdx.x);
+    forward_butterflies<T, kBfly>(
+        soft, b, cw0, t2p, cw < b ? dec + (size_t)cw * rows : nullptr, xs, pmx);
     // every warp's decision rows are written, and every warp is done with
     // the staging buffer, which holds the rings: thread c walks codeword
     // cw0 + c
@@ -1192,9 +1245,31 @@ cudaError_t launch_bytes_t(const void* soft, const int* table, uint8_t* dec, uin
     launch_layout<T, kWarpLayout>(soft, table, dec, out, t2p, b, n_out, st);
   else if (layout == kBflyLayout)
     launch_layout<T, kBflyLayout>(soft, table, dec, out, t2p, b, n_out, st);
+  else if (layout == kBfly4Layout)
+    launch_layout<T, kBfly4Layout>(soft, table, dec, out, t2p, b, n_out, st);
   else
     return cudaErrorInvalidValue;
   return cudaGetLastError();
+}
+
+// Blocks of viterbi_kernel in `layout` (see viterbi_kernel) resident an SM
+// of the current device, by the occupancy calculator; -1 for a layout it
+// does not have.
+template <typename T>
+int resident_blocks(int layout) {
+  int n = -1;
+  const int warps = transposed_warps<T>();
+  cudaError_t e = cudaErrorInvalidValue;
+  if (layout == kWarpLayout)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &n, viterbi_kernel<T, kWarpLayout>, k12_threads(kWarpLayout, warps), 0);
+  else if (layout == kBflyLayout)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &n, viterbi_kernel<T, kBflyLayout>, k12_threads(kBflyLayout, warps), 0);
+  else if (layout == kBfly4Layout)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &n, viterbi_kernel<T, kBfly4Layout>, k12_threads(kBfly4Layout, warps), 0);
+  return e == cudaSuccess ? n : -1;
 }
 
 }  // namespace
@@ -1214,6 +1289,12 @@ extern "C" int tpudab_viterbi_decode_bytes_t(const void* soft, int is_bf16,
   if (is_bf16)
     return (int)launch_bytes_t<__nv_bfloat16>(soft, tb, d, o, t2p, b, n_out, layout, st);
   return (int)launch_bytes_t<float>(soft, tb, d, o, t2p, b, n_out, layout, st);
+}
+
+// Blocks of viterbi_kernel's `layout` (bf16 soft when is_bf16, else f32)
+// resident an SM of the current device, or -1.
+extern "C" int tpudab_viterbi_resident_blocks(int layout, int is_bf16) {
+  return is_bf16 ? resident_blocks<__nv_bfloat16>(layout) : resident_blocks<float>(layout);
 }
 
 // soft: (b, t_mother, 4) bf16 (is_bf16=1) or f32; table: (2, 32) int32;

@@ -33,9 +33,11 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
-# C entry points: name -> argtypes. Each returns cudaGetLastError() as int.
+# C entry points: name -> argtypes. Each returns cudaGetLastError() as int,
+# but tpudab_viterbi_resident_blocks, a count of blocks.
 SIGNATURES = {
     "tpudab_viterbi_decode_bytes_t": (_P, _I, _P, _P, _P, _I, _I, _I, _I, _P),
+    "tpudab_viterbi_resident_blocks": (_I, _I),
     "tpudab_viterbi_decode_bits": (_P, _I, _P, _P, _P, _I, _I, _I, _I, _P),
     "tpudab_deinterleave": (_P, _P, _I, _I, _I, _I, _P),
     "tpudab_deinterleave_depuncture_t": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,

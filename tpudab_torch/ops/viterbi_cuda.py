@@ -29,6 +29,7 @@ from tpudab_torch.ops.viterbi import (N_STATES, RADIX, REBASE_STEPS, branch_metr
                                       viterbi_decode_bytes_t_ref, viterbi_decode_ref)
 
 __all__ = ["viterbi_decode_bytes_t", "viterbi_decode_bytes_t_cuda", "k12_layout", "K12_LAYOUTS",
+           "k12_resident_blocks",
            "viterbi_decode_bytes_t_ref", "viterbi_decode_best",
            "viterbi_decode_bytes_best", "viterbi_decode_bits_cuda",
            "viterbi_decode_ref", "signs_on", "kernel_table", "kernel_table_on"]
@@ -83,31 +84,50 @@ def _kernel_table_for(signs: torch.Tensor, device: torch.device) -> torch.Tensor
 
 
 # viterbi_kernel's thread layouts, id (csrc/viterbi.cu::kWarpLayout,
-# kBflyLayout) -> name
-WARP_LAYOUT, BFLY_LAYOUT = 0, 2
-K12_LAYOUTS = {WARP_LAYOUT: "warp", BFLY_LAYOUT: "bfly"}
-# codewords an SM up to which k12_layout keeps WARP_LAYOUT
+# kBflyLayout, kBfly4Layout: a butterfly layout's id is its butterflies a
+# thread) -> name
+WARP_LAYOUT, BFLY_LAYOUT, BFLY4_LAYOUT = 0, 2, 4
+K12_LAYOUTS = {WARP_LAYOUT: "warp", BFLY_LAYOUT: "bfly", BFLY4_LAYOUT: "bfly4"}
+# codewords an SM up to which k12_layout keeps WARP_LAYOUT, then BFLY_LAYOUT
 WARP_LAYOUT_CODEWORDS_PER_SM = 32
+BFLY_LAYOUT_CODEWORDS_PER_SM = 48
 
 
 def k12_layout(b: int, sm_count: int) -> int:
     """The thread layout of K1+K2 (csrc/viterbi.cu::viterbi_kernel) for b
     codewords on a card of sm_count SMs: one warp a codeword up to
     WARP_LAYOUT_CODEWORDS_PER_SM codewords an SM, two butterflies a thread
-    past them. The edge is the crossover measured at T2p 1744, the MSC's
-    length, on an H100 of 132 SMs (PERF.md section 6, device ms warp /
-    bfly): 2048 codewords 0.440 / 0.695, 3072 0.763 / 0.770, 4224
-    0.763 / 0.793, 5120 1.138 / 0.913. At T2p 400 the layouts are within
-    7% of each other from 3072 to 4224 (3072: 0.178 / 0.166; 4224:
-    0.180 / 0.183), one warp a codeword faster up to 2048 and the
-    butterflies from 5120 (0.266 / 0.209)."""
-    return BFLY_LAYOUT if b > WARP_LAYOUT_CODEWORDS_PER_SM * sm_count else WARP_LAYOUT
+    up to BFLY_LAYOUT_CODEWORDS_PER_SM, four past them. Each edge is a
+    crossover measured on an H100 of 132 SMs (PERF.md section 6).
+    - warp / bfly at T2p 1744, the MSC's length (device ms): 2048
+      codewords 0.440 / 0.695, 4224 0.763 / 0.793, 5120 1.138 / 0.913; at
+      T2p 400 within 7% of each other from 3072 to 4224. Measured before
+      the butterflies staged their soft values by raw loads; since then
+      bfly reads 0.311 / 0.074 ms at 2048 codewords and T2p 1744 / 400,
+      against warp's 0.443 / 0.098, so this edge waits on a measurement
+      of the FIC's launch in the step.
+    - bfly / bfly4 (both 16 codewords a block, so k blocks an SM; device
+      ms at T2p 1744 and 400): 4608 codewords (k 3) 0.678 / 0.751 and
+      0.160 / 0.177; 6656 (k 4) 0.880 / 0.780 and 0.207 / 0.185; 12288
+      (k 6) 1.274 / 1.124 and 0.296 / 0.265. A bfly4 block is 2 warps, so
+      an odd k leaves half the schedulers a warp short: at k 5 (8449 to
+      10560 codewords) bfly is 0.7-2% faster, which this rule gives up."""
+    if b <= WARP_LAYOUT_CODEWORDS_PER_SM * sm_count:
+        return WARP_LAYOUT
+    return BFLY_LAYOUT if b <= BFLY_LAYOUT_CODEWORDS_PER_SM * sm_count else BFLY4_LAYOUT
 
 
 @functools.lru_cache(maxsize=None)
 def sm_count_of(index: int) -> int:
     """The SMs of CUDA device `index`, read once."""
     return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def k12_resident_blocks(layout: int, bf16: bool) -> int:
+    """Blocks of viterbi_kernel in `layout` (bf16 or f32 soft) resident an
+    SM of the current CUDA device, by the occupancy calculator; each block
+    holds csrc/viterbi.cu::k12_codewords codewords."""
+    return _build.load_library().tpudab_viterbi_resident_blocks(layout, int(bf16))
 
 
 def viterbi_decode_bytes_t_cuda(soft_t: torch.Tensor, signs: torch.Tensor,
