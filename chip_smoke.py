@@ -226,7 +226,7 @@ from tpudab_torch.ofdm.sync_device import acquire_device, acquire_host
 from tpudab_torch.ofdm.sync_np import acquire_np
 from tpudab_torch.ops import _build, demod_tail
 from tpudab_torch.ops.carve import (_windows, carve_rotate_cuda, carve_rotate_ref,
-                                   carve_rotate_tables_ref, rotator_tables)
+                                   carve_rotate_tables_ref, rotator_tables, u8_frames_at)
 from tpudab_torch.ops.carve_exp import carve_variant_cuda, carve_variant_ref
 from tpudab_torch.ops.i16_probe import OPS as I16_OPS
 from tpudab_torch.ops.i16_probe import i16_probe_cuda, i16_probe_ref
@@ -925,7 +925,9 @@ def check_u8(dev, card):
     timed on the device alone (K5 by the profiler, kernel_ms; stats_kernel
     by device_ms, which holds only that kernel) beside its bound, whose
     read is 2 bytes a sample, and beside its plain twin. A time under its
-    bound fails."""
+    bound fails. K5 and stats_kernel also read the same frames at
+    per-frame starts (a tracked stream's), each bit-equal to its twin and
+    timed beside the aligned."""
     f = N_ENS * N_FRAMES
     n = get_ofdm_params(1).nb_frame_length
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
@@ -943,6 +945,21 @@ def check_u8(dev, card):
     carve_plain = cuda_ms(lambda: carve_rotate_tables_ref(u8, None, freq, with_sum=True), 5)
     carve_bnd = carve_bound(u8, xr, n_out=3)      # u8: 1-byte elements, I and Q
 
+    # a tracked stream's frames (ofdm/track.py): the same bytes as one
+    # segment buffer, frame j moved on by j % 8 pairs, K5 reading them there
+    seg = torch.cat([u8.reshape(-1, 2), u8.new_zeros((16, 2))])
+    starts = torch.arange(f, device=dev) * n + torch.arange(f, device=dev) % 8
+    at = carve_rotate_cuda(seg, None, freq, with_sum=True, starts=starts)
+    want = carve_rotate_tables_ref(u8_frames_at(seg, starts, n), None, freq, with_sum=True)
+    torch.cuda.synchronize()
+    require(all(same_bits(a, b) for a, b in zip(at, want)),
+            "K5 at per-frame starts differs from carve_rotate_tables_ref")
+    del want, at
+    carve_at_ms = kernel_ms(lambda: carve_rotate_cuda(seg, None, freq, with_sum=True,
+                                                      starts=starts), 20, "carve_kernel")
+    print(f"u8 frames at per-frame starts (j % 8 pairs on): K5 bit-equal to the tables twin; "
+          f"kernel {carve_at_ms:.4f} ms ({100 * carve_bnd[0] / carve_at_ms:.1f}% of the bound)")
+
     ops = tuple(w.to(dev) for w in demod_mod.dft_operands(1))
     m = demod_mod._spectra(u8, None, freq, ops, 1, 12, False)
     power, tap = demod_tail.stats_cuda(u8, None, *m)
@@ -955,19 +972,35 @@ def check_u8(dev, card):
     stats_ms = device_ms(lambda: demod_tail.stats_cuda(u8, None, *m), 20)
     stats_plain = cuda_ms(lambda: demod_tail.stats_ref(u8, None, *m), 5)
     stats_bnd = bound(u8.numel(), 0)               # the frames read once
-    require(carve_ms >= carve_bnd[0] / 1.05 and stats_ms >= stats_bnd[0] / 1.05,
-            f"a u8 kernel's time is under its bound: K5 {carve_ms:.4f} ms (bound "
-            f"{carve_bnd[0]:.4f}), stats_kernel {stats_ms:.4f} ms (bound {stats_bnd[0]:.4f})")
+    # the same frames at the per-frame starts K5 read above: the path a
+    # tracked stream's frames take (the second 16-byte load and the shifts)
+    power, tap = demod_tail.stats_cuda(seg, None, *m, starts=starts, frame_len=n)
+    torch.cuda.synchronize()
+    ref = demod_tail.stats_ref(seg.cpu(), None, *(x.cpu() for x in m), starts=starts.cpu(),
+                               frame_len=n)
+    require(same_bits(power.cpu(), ref[0]) and same_bits(tap.cpu(), ref[1]),
+            "stats_kernel's u8 instantiation at per-frame starts differs from stats_ref")
+    stats_at_ms = device_ms(lambda: demod_tail.stats_cuda(seg, None, *m, starts=starts,
+                                                          frame_len=n), 20)
+    require(min(carve_ms, carve_at_ms) >= carve_bnd[0] / 1.05
+            and min(stats_ms, stats_at_ms) >= stats_bnd[0] / 1.05,
+            f"a u8 kernel's time is under its bound: K5 {carve_ms:.4f} / {carve_at_ms:.4f} ms "
+            f"(bound {carve_bnd[0]:.4f}), stats_kernel {stats_ms:.4f} / {stats_at_ms:.4f} ms "
+            f"(bound {stats_bnd[0]:.4f})")
     print(f"u8 frames ({f}, {n}, 2): K5 carve_rotate xr, xi, xs bit-equal to the tables twin; "
           f"kernel {carve_ms:.4f} ms (a call {carve_call:.3f} ms; bound {carve_bnd[0]:.4f} ms, "
           f"{carve_bnd[1]}, {100 * carve_bnd[0] / carve_ms:.1f}%), plain {carve_plain:.3f} ms; "
           f"stats_kernel mean_power and tap bit-equal to stats_ref (CPU, all {f} frames); "
           f"kernel {stats_ms:.4f} ms (device_ms; bound {stats_bnd[0]:.4f} ms, {stats_bnd[1]}, "
-          f"{100 * stats_bnd[0] / stats_ms:.1f}%), plain {stats_plain:.3f} ms  [{card}]")
+          f"{100 * stats_bnd[0] / stats_ms:.1f}%), plain {stats_plain:.3f} ms; at per-frame "
+          f"starts bit-equal to stats_ref, kernel {stats_at_ms:.4f} ms "
+          f"({100 * stats_bnd[0] / stats_at_ms:.1f}% of the bound)  [{card}]")
     return {"carve_rotate_u8": {"ms": carve_ms, "call_ms": carve_call, "plain_ms": carve_plain,
-                                "bound_ms": carve_bnd[0], "bound_by": carve_bnd[1]},
+                                "bound_ms": carve_bnd[0], "bound_by": carve_bnd[1],
+                                "at_starts_ms": carve_at_ms},
             "stats_kernel_u8": {"ms": stats_ms, "plain_ms": stats_plain,
-                                "bound_ms": stats_bnd[0], "bound_by": stats_bnd[1]}}
+                                "bound_ms": stats_bnd[0], "bound_by": stats_bnd[1],
+                                "at_starts_ms": stats_at_ms}}
 
 
 def check_channelise(dev, card):

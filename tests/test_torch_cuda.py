@@ -977,3 +977,125 @@ def test_bench6_and_rtl6_paths_launch_no_channeliser(dev):
     step(step.init_carry(dev), u8, None, 0.0)
     torch.cuda.synchronize()
     assert channelise_cuda.launches == n_ch and carve_rotate_cuda.launches == n_k5 + 2
+
+
+def test_carve_and_stats_u8_at_starts_equal_twins(dev):
+    """A tracked stream's frames: K5 and stats_kernel on u8 segments at
+    per-frame starts, every start mod 8 among them (the frames' loads
+    shifted), bit-equal to their twins on the gathered frames, on the
+    card."""
+    from tpudab_torch.ops.carve import u8_frames_at
+
+    n = get_ofdm_params(1).nb_frame_length
+    e, f, seg = 3, 3, 3 * n + 1024
+    buf = torch.randint(0, 256, (e, seg, 2), dtype=torch.uint8, device=dev)
+    rel = torch.tensor([[0, n + 1, 2 * n + 515], [3, n + 6, 2 * n + 7],
+                        [500, n + 500 + 2, 2 * n + 999]], dtype=torch.int64)
+    starts = (rel + torch.arange(e)[:, None] * seg).reshape(-1).to(dev)
+    freq = torch.tensor([1999.0, -2000.0, 731.5, 5731.0, -5600.5, 0.0, 13.0, -13.0, 99.0],
+                        device=dev)
+    got = carve_rotate_cuda(buf, None, freq, 1, with_sum=True, starts=starts)
+    frames = u8_frames_at(buf, starts, n)
+    want = carve_rotate_tables_ref(frames, None, freq, 1, with_sum=True)
+    aligned = carve_rotate_cuda(frames, None, freq, 1, with_sum=True)
+    torch.cuda.synchronize()
+    for g, w, a in zip(got, want, aligned):
+        assert same_bits(g, w) and same_bits(g, a)
+    m = [x.reshape(e * f, 76, -1)[:, :, :1536].contiguous() for x in want]
+    mp, tap = demod_tail.stats_cuda(buf, None, *m, starts=starts, frame_len=n)
+    mp_a, tap_a = demod_tail.stats_cuda(frames, None, *m)
+    torch.cuda.synchronize()
+    mp_r, tap_r = demod_tail.stats_ref(buf.cpu(), None, *(x.cpu() for x in m),
+                                       starts=starts.cpu(), frame_len=n)
+    assert same_bits(mp, mp_a) and same_bits(tap, tap_a)
+    assert same_bits(mp.cpu(), mp_r) and same_bits(tap.cpu(), tap_r)
+
+
+def test_tracker_matches_track_ref_at_32x16(dev):
+    """The tracked step at the cell's shape, 32 dongles x 16 frames within
+    +-25 ppm: two steps of ReceiveStep.demod_stream on the card against
+    ofdm/track_ref.py from the same state on the same segments: the starts
+    and the consumed counts equal, the rate within 1e-9, the CFO within
+    0.05 Hz, every frame's mean power within 1e-6 and the tap within 0.02
+    RMS."""
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    from benchmark import harness
+    from tpudab_torch.ofdm import track_ref
+
+    cell = harness.load_cell("rtl6free.drift32x16")
+    drv = harness.driver_module(cell)
+    e, f = 32, 16
+    step = ReceiveStep(1, tuple(drv._step.subchannel_configs(cell.config)), n_ensembles=e,
+                       track_frames=f).to(dev)
+    seg_len = step.track.segment_len
+    streams = drv.drift_streams(cell.config, cell.traffic, 2 ** 31 + 5, dev, seg_len)
+    period = np.array([r.shape[0] - seg_len for r in streams.rings])
+    ptr = (period - streams.lead) % period
+
+    def segments():
+        return torch.stack([r[int(p):int(p) + seg_len] for r, p in zip(streams.rings, ptr)])
+    acq = step.track.acquire(segments().to(dev))
+    ptr = (ptr + acq["advance"].cpu().numpy()) % period
+    state = step.track.train(segments().to(dev), acq)
+    carry = {**step.init_carry(dev), "track": state}
+    owed = state["c_prev"].cpu().numpy()
+    for k in range(2):
+        seg = segments()
+        ref = track_ref.track_step(seg, carry["track"], f)
+        carry, soft, stats = step.demod_stream(carry, seg.to(dev))
+        torch.cuda.synchronize()
+        got = carry["track"]
+        assert torch.equal(step.track.starts.view(e, f).cpu() - torch.arange(e)[:, None] * seg_len,
+                           ref["starts"])
+        assert torch.equal(stats["consumed"].cpu(), ref["consumed"])
+        assert torch.equal(got["c_prev"].cpu(), ref["state"]["c_prev"])
+        assert bool(got["locked"].all()) and bool(ref["state"]["locked"].all())
+        assert torch.allclose(got["rate"].cpu(), ref["state"]["rate"], atol=1e-9, rtol=0)
+        assert torch.allclose(got["rs"].cpu(), ref["state"]["rs"], atol=1e-6, rtol=0)
+        assert torch.allclose((got["coarse_hz"] + got["fine_hz"]).cpu(),
+                              ref["state"]["coarse_hz"] + ref["state"]["fine_hz"], atol=0.05,
+                              rtol=0)
+        mp = stats["mean_power"].double().cpu().view(e, f)
+        assert ((mp - ref["mean_power"]).abs() / ref["mean_power"]).max() < 1e-6
+        tap = torch.stack([stats["const_re"], stats["const_im"]]).double().cpu()
+        assert ((tap - ref["tap"]) ** 2).sum(dim=0).mean().sqrt() < 0.02
+        ptr = (ptr + owed) % period
+        owed = stats["consumed"].cpu().numpy()
+
+
+def test_tracked_demod_graph_replays_the_eager_bits(dev):
+    """ReceiveStep.demod_stream on one segment buffer and one state: eager
+    at the buffer's first sighting, captured at its second, replayed
+    after, the tracker's cut and update inside the one demod graph; every
+    call gives the same soft bits, stats, next state and consumed counts
+    bit for bit, and the tracker's counters count the replays too."""
+    e, f = 4, 3
+    step = ReceiveStep(1, bench_subchannels(), n_ensembles=e, track_frames=f).to(dev)
+    track = step.track
+    seg = torch.randint(0, 256, (e, track.segment_len, 2), dtype=torch.uint8, device=dev)
+    state = {"rs": torch.tensor([512.0, 700.25, 9.5, 300.0], dtype=torch.float64, device=dev),
+             "rate": torch.full((e,), 1.0 + 20e-6, dtype=torch.float64, device=dev),
+             "coarse_hz": torch.tensor([2000.0, -5000.0, 0.0, 1000.0], dtype=torch.float64,
+                                       device=dev),
+             "fine_hz": torch.tensor([12.5, -3.0, 0.0, 400.0], dtype=torch.float64, device=dev),
+             "c_prev": torch.full((e,), f * track.frame_len, dtype=torch.int64, device=dev),
+             "quality": torch.ones(e, device=dev), "locked": torch.ones(e, dtype=torch.bool,
+                                                                           device=dev)}
+    carry = {**step.init_carry(dev), "track": state}
+    outs = []
+    for _ in range(4):
+        _, soft, stats = step.demod_stream(carry, seg)
+        outs.append((soft.clone(), stats))
+    torch.cuda.synchronize()
+    g = step.graphs
+    assert (g.eager, g.captures, g.replays) == (1, 1, 3)
+    assert track.counters()["calls"] == 4
+    want_soft, want = outs[0]
+    for soft, stats in outs[1:]:
+        assert torch.equal(soft.view(torch.int16), want_soft.view(torch.int16))
+        assert stats.keys() == want.keys()
+        for k, v in stats.items():
+            assert torch.equal(v.view(torch.int8), want[k].view(torch.int8)), k

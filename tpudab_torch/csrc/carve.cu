@@ -59,6 +59,16 @@
 // one, so the u8 kernel gives the f32 kernel's outputs on the converted
 // frames bit for bit (ops/carve.py::u8_parts). It reads 2 bytes a window
 // sample instead of bf16's 4.
+//
+// Frames at per-frame starts (a tracked stream, ofdm/track.py): K5 may be
+// handed `starts`, frame f's first sample as an offset into the buffer (any
+// sample, not only f * frame_len), so that it carves each frame where the
+// tracker put it inside one dongle's segment of the stream. The block
+// rounds its frame's start down to the 16-byte vector below it and adds the
+// rest to every window's start, which the loads shift into place as they
+// shift any window; without `starts` the start is f * frame_len, a
+// multiple of 128, the rest 0, and the loads and the arithmetic are those
+// of the aligned frames.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -170,7 +180,7 @@ __device__ __forceinline__ void carve_frame(
     const T* __restrict__ re, const T* __restrict__ im, const float* __restrict__ ca,
     const float* __restrict__ sa, const float* __restrict__ ci, const float* __restrict__ si,
     __nv_bfloat16* __restrict__ xr, __nv_bfloat16* __restrict__ xi,
-    __nv_bfloat16* __restrict__ xs, int f, int s0, int s1, int frame_len, int n_sym, int n_fft,
+    __nv_bfloat16* __restrict__ xs, int f, size_t base, int s0, int s1, int n_sym, int n_fft,
     int sym_stride, int first) {
   const int k0 = threadIdx.x * kPer;
   float c_i[kPer], s_i[kPer];
@@ -183,14 +193,18 @@ __device__ __forceinline__ void carve_frame(
 #pragma unroll
     for (int i = 0; i < kPer; ++i) { c_i[i] = cc[i]; s_i[i] = ss[i]; }
   }
-  // elements a sample: u8's I and Q interleaved, one of each split part
-  constexpr size_t kElems = std::is_same<T, uint8_t>::value ? 2 : 1;
-  const T* fr = re + (size_t)f * frame_len * kElems;
-  const T* fi = im + (size_t)f * frame_len * kElems;
+  // elements a sample: u8's I and Q interleaved, one of each split part;
+  // samples a 16-byte vector
+  constexpr bool kU8 = std::is_same<T, uint8_t>::value;
+  constexpr size_t kElems = kU8 ? 2 : 1;
+  constexpr size_t kVec = 16 / (sizeof(T) * kElems);
+  const int rest = kU8 ? (int)(base % kVec) : 0;     // the split parts' frames are aligned
+  const T* fr = re + (base - rest) * kElems;
+  const T* fi = im + (base - rest) * kElems;
 #pragma unroll 2
   for (int s = s0; s < s1; ++s) {
     const int a_s = first + s * sym_stride;
-    const int a = (kRoll ? a_s : a_s / 128 * 128) + k0;
+    const int a = (kRoll ? a_s : a_s / 128 * 128) + k0 + rest;
     float wr[kPer], wi[kPer];
     if constexpr (std::is_same<T, uint8_t>::value) {
       load8_u8<kRoll>(fr, a, wr, wi);
@@ -223,18 +237,23 @@ __device__ __forceinline__ void carve_frame(
   }
 }
 
-// K5: block (f, chunk), one frame and a share of its symbols.
+// K5: block (f, chunk), one frame and a share of its symbols; frame f
+// starts at sample starts[f] of the buffer (u8 frames), or at f * frame_len
+// where starts is null.
 template <typename T>
 __global__ void carve_kernel(const T* __restrict__ re, const T* __restrict__ im,
                              const float* __restrict__ ca, const float* __restrict__ sa,
                              const float* __restrict__ ci, const float* __restrict__ si,
                              __nv_bfloat16* __restrict__ xr, __nv_bfloat16* __restrict__ xi,
-                             __nv_bfloat16* __restrict__ xs, int frame_len, int n_sym,
-                             int n_fft, int sym_stride, int first) {
+                             __nv_bfloat16* __restrict__ xs, const long long* __restrict__ starts,
+                             int frame_len, int n_sym, int n_fft, int sym_stride, int first) {
   const int per = (n_sym + gridDim.y - 1) / gridDim.y;
   const int s0 = blockIdx.y * per;
-  carve_frame<T, true, true>(re, im, ca, sa, ci, si, xr, xi, xs, blockIdx.x, s0,
-                             min(n_sym, s0 + per), frame_len, n_sym, n_fft, sym_stride, first);
+  const int f = blockIdx.x;
+  const size_t base = std::is_same<T, uint8_t>::value && starts ? (size_t)starts[f]
+                                                                 : (size_t)f * frame_len;
+  carve_frame<T, true, true>(re, im, ca, sa, ci, si, xr, xi, xs, f, base, s0,
+                             min(n_sym, s0 + per), n_sym, n_fft, sym_stride, first);
 }
 
 // X7: block (x, y) carves frames fb * x .. fb * x + fb - 1 and symbols
@@ -252,8 +271,9 @@ __global__ void carve_tile_kernel(const T* __restrict__ re, const T* __restrict_
   const int s0 = blockIdx.y * per;
   const int s1 = min(n_sym, s0 + per);
   for (int f = f0; f < f1; ++f)
-    carve_frame<T, kRoll, kRotate>(re, im, ca, sa, ci, si, xr, xi, nullptr, f, s0, s1,
-                                   frame_len, n_sym, n_fft, sym_stride, first);
+    carve_frame<T, kRoll, kRotate>(re, im, ca, sa, ci, si, xr, xi, nullptr, f,
+                                   (size_t)f * frame_len, s0, s1, n_sym, n_fft, sym_stride,
+                                   first);
 }
 
 template <typename T, bool kRoll, bool kRotate>
@@ -271,12 +291,14 @@ void launch_tile(const void* re, const void* im, const float* ca, const float* s
 // K5. re, im: (f, frame_len) f32 (in_dtype 0) or bf16 (1), or re the
 // (f, frame_len, 2) interleaved u8 I/Q (2, im not read), 16-byte aligned; ca,
 // sa: (f, n_sym) f32; ci, si: (f, n_fft) f32; xr, xi and xs (null: not
-// written): (f, n_sym, n_fft) bf16. n_fft a multiple of 256.
+// written): (f, n_sym, n_fft) bf16. n_fft a multiple of 256. starts (null:
+// frame f at f * frame_len): (f,) int64, frame f's first sample in re and im,
+// every frame inside the buffers.
 extern "C" int tpudab_carve_rotate(const void* re, const void* im, int in_dtype,
                                    const void* ca, const void* sa,
                                    const void* ci, const void* si,
-                                   void* xr, void* xi, void* xs, int f, int frame_len,
-                                   int n_sym, int n_fft, int sym_stride,
+                                   void* xr, void* xi, void* xs, const void* starts, int f,
+                                   int frame_len, int n_sym, int n_fft, int sym_stride,
                                    int first, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const dim3 grid(f, kChunks < n_sym ? kChunks : n_sym);
@@ -288,18 +310,19 @@ extern "C" int tpudab_carve_rotate(const void* re, const void* im, int in_dtype,
   __nv_bfloat16* oxr = static_cast<__nv_bfloat16*>(xr);
   __nv_bfloat16* oxi = static_cast<__nv_bfloat16*>(xi);
   __nv_bfloat16* oxs = static_cast<__nv_bfloat16*>(xs);
+  const long long* st8 = static_cast<const long long*>(starts);
   if (in_dtype == 2)
     carve_kernel<uint8_t><<<grid, block, 0, st>>>(
         static_cast<const uint8_t*>(re), static_cast<const uint8_t*>(re),
-        fca, fsa, fci, fsi, oxr, oxi, oxs, frame_len, n_sym, n_fft, sym_stride, first);
+        fca, fsa, fci, fsi, oxr, oxi, oxs, st8, frame_len, n_sym, n_fft, sym_stride, first);
   else if (in_dtype == 1)
     carve_kernel<__nv_bfloat16><<<grid, block, 0, st>>>(
         static_cast<const __nv_bfloat16*>(re), static_cast<const __nv_bfloat16*>(im),
-        fca, fsa, fci, fsi, oxr, oxi, oxs, frame_len, n_sym, n_fft, sym_stride, first);
+        fca, fsa, fci, fsi, oxr, oxi, oxs, st8, frame_len, n_sym, n_fft, sym_stride, first);
   else
     carve_kernel<float><<<grid, block, 0, st>>>(
         static_cast<const float*>(re), static_cast<const float*>(im),
-        fca, fsa, fci, fsi, oxr, oxi, oxs, frame_len, n_sym, n_fft, sym_stride, first);
+        fca, fsa, fci, fsi, oxr, oxi, oxs, st8, frame_len, n_sym, n_fft, sym_stride, first);
   return (int)cudaGetLastError();
 }
 

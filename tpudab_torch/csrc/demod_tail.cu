@@ -84,11 +84,28 @@ __device__ __forceinline__ float u8_sample(uint32_t x) {
   return __fmul_rn(__fsub_rn(__uint2float_rn(x & 0xFFu), 127.5f), 0.0078125f);
 }
 
-// 8 interleaved u8 pairs (I, Q) at p, 16-byte aligned -> their re and im parts
-__device__ __forceinline__ void load8_u8(const uint8_t* p, float (&re)[kPer],
+// 8 interleaved u8 pairs (I, Q) at p, 16-byte aligned -> their re and im
+// parts: one 16-byte load; with kShift, the 8 pairs start `sh` pairs (1..7)
+// past p, from two loads shifted into place (a 2-byte word a pair, as K5's
+// load8_u8 shifts)
+template <bool kShift>
+__device__ __forceinline__ void load8_u8(const uint8_t* p, int sh, float (&re)[kPer],
                                          float (&im)[kPer]) {
   const uint4 v = *reinterpret_cast<const uint4*>(p);
-  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+  uint32_t w[4] = {v.x, v.y, v.z, v.w};
+  if constexpr (kShift) {
+    const uint4 hi = reinterpret_cast<const uint4*>(p)[1];
+    uint32_t x[5];
+    switch (sh >> 1) {
+      case 0: x[0] = v.x; x[1] = v.y; x[2] = v.z; x[3] = v.w; x[4] = hi.x; break;
+      case 1: x[0] = v.y; x[1] = v.z; x[2] = v.w; x[3] = hi.x; x[4] = hi.y; break;
+      case 2: x[0] = v.z; x[1] = v.w; x[2] = hi.x; x[3] = hi.y; x[4] = hi.z; break;
+      default: x[0] = v.w; x[1] = hi.x; x[2] = hi.y; x[3] = hi.z; x[4] = hi.w; break;
+    }
+    const int b = (sh & 1) * 16;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) w[i] = __funnelshift_r(x[i], x[i + 1], b);
+  }
 #pragma unroll
   for (int i = 0; i < 4; ++i) {   // bytes I, Q of sample 2i, then of 2i + 1
     re[2 * i] = u8_sample(w[i]);
@@ -288,30 +305,16 @@ __device__ void tap(const __nv_bfloat16* __restrict__ m1, const __nv_bfloat16* _
   }
 }
 
-// mean_power of frame f = blockIdx.x: thread t sums samples 8v .. 8v + 7
-// for v = t, t + 256, ... into 8 lane sums, then lanes and block in a fixed
-// tree, then / frame_len. T = uint8_t: re is the interleaved u8 I/Q (im
-// not read), 2 frame_len bytes a frame.
-template <typename T>
-__global__ void __launch_bounds__(kStatsThreads) stats_kernel(
-    const T* __restrict__ re, const T* __restrict__ im, const __nv_bfloat16* __restrict__ m1,
-    const __nv_bfloat16* __restrict__ m2, const __nv_bfloat16* __restrict__ m3,
-    float* __restrict__ mean_power, float* __restrict__ tap_out, int frame_len, int n_sym, int k,
-    int stride, int n_tap) {
-  __shared__ float s[kStatsThreads];
-  const int f = blockIdx.x;
-  constexpr size_t kElems = std::is_same<T, uint8_t>::value ? 2 : 1;
-  const T* fr = re + (size_t)f * frame_len * kElems;
-  const T* fi = im + (size_t)f * frame_len * kElems;
-  float acc[kPer];
-#pragma unroll
-  for (int i = 0; i < kPer; ++i) acc[i] = 0.f;
-  const int n_vec = frame_len / kPer;
+// Thread t's 8 lane sums of re^2 + im^2 over a frame's samples 8v .. 8v + 7,
+// v = t, t + 256, ...; kShift: u8 pairs starting sh pairs past fr.
+template <typename T, bool kShift>
+__device__ __forceinline__ void frame_sums(const T* __restrict__ fr, const T* __restrict__ fi,
+                                           int sh, int n_vec, float (&acc)[kPer]) {
 #pragma unroll 4
   for (int v = threadIdx.x; v < n_vec; v += kStatsThreads) {
     float a[kPer], b[kPer];
     if constexpr (std::is_same<T, uint8_t>::value) {
-      load8_u8(fr + (size_t)v * kPer * 2, a, b);
+      load8_u8<kShift>(fr + (size_t)v * kPer * 2, sh, a, b);
     } else {
       load8(fr + (size_t)v * kPer, a);
       load8(fi + (size_t)v * kPer, b);
@@ -319,6 +322,40 @@ __global__ void __launch_bounds__(kStatsThreads) stats_kernel(
 #pragma unroll
     for (int i = 0; i < kPer; ++i) acc[i] = __fadd_rn(acc[i], sq_sum(a[i], b[i]));
   }
+}
+
+// mean_power of frame f = blockIdx.x: thread t sums samples 8v .. 8v + 7
+// for v = t, t + 256, ... into 8 lane sums, then lanes and block in a fixed
+// tree, then / frame_len. T = uint8_t: re is the interleaved u8 I/Q (im
+// not read), 2 frame_len bytes a frame, frame f starting at pair starts[f]
+// of the buffer (any pair: a tracked stream's frames, as K5 carves them)
+// or, where starts is null, at f * frame_len; the split parts' frames are
+// always at f * frame_len.
+template <typename T>
+__global__ void __launch_bounds__(kStatsThreads) stats_kernel(
+    const T* __restrict__ re, const T* __restrict__ im, const __nv_bfloat16* __restrict__ m1,
+    const __nv_bfloat16* __restrict__ m2, const __nv_bfloat16* __restrict__ m3,
+    float* __restrict__ mean_power, float* __restrict__ tap_out,
+    const long long* __restrict__ starts, int frame_len, int n_sym, int k, int stride,
+    int n_tap) {
+  __shared__ float s[kStatsThreads];
+  const int f = blockIdx.x;
+  constexpr bool kU8 = std::is_same<T, uint8_t>::value;
+  constexpr size_t kElems = kU8 ? 2 : 1;
+  const size_t base = kU8 && starts ? (size_t)starts[f] : (size_t)f * frame_len;
+  const int sh = kU8 ? (int)(base % kPer) : 0;
+  const T* fr = re + (base - sh) * kElems;
+  const T* fi = im + (base - sh) * kElems;
+  float acc[kPer];
+#pragma unroll
+  for (int i = 0; i < kPer; ++i) acc[i] = 0.f;
+  const int n_vec = frame_len / kPer;
+  // the loop for aligned frames is the one without starts, its loads not
+  // held back by a branch on the shift
+  if (kU8 && sh)
+    frame_sums<T, true>(fr, fi, sh, n_vec, acc);
+  else
+    frame_sums<T, false>(fr, fi, sh, n_vec, acc);
   const float sum = block_sum(lane_sum(acc), s);
   if (threadIdx.x == 0) mean_power[f] = __fdiv_rn(sum, (float)frame_len);
   if (f == 0) tap(m1, m2, m3, tap_out, gridDim.x, n_sym, k, stride, n_tap);
@@ -361,24 +398,29 @@ int tpudab_demod_norm(const void* m1, const void* m2, const void* m3, const void
 // (F, frame_len, 2) interleaved u8 I/Q (2, im not read); contiguous, 16-byte
 // aligned, frame_len % 8 == 0. mean_power: (F,) f32; tap: (2, 480) f32,
 // rows 0 and 1 the tap's real and imaginary parts (n_tap <= 480 points).
+// starts (null: frame f at f * frame_len; u8 frames only): (F,) int64,
+// frame f's first I/Q pair in re, every frame inside the buffer.
 int tpudab_demod_stats(const void* re, const void* im, int frames_dtype, const void* m1,
-                       const void* m2, const void* m3, void* mean_power, void* tap, int f,
-                       int frame_len, int n_sym, int k, int stride, int n_tap, void* stream) {
+                       const void* m2, const void* m3, void* mean_power, void* tap,
+                       const void* starts, int f, int frame_len, int n_sym, int k, int stride,
+                       int n_tap, void* stream) {
+  const long long* st8 = (const long long*)starts;
   const cudaStream_t st = (cudaStream_t)stream;
   const __nv_bfloat16 *a = (const __nv_bfloat16*)m1, *b = (const __nv_bfloat16*)m2,
                       *c = (const __nv_bfloat16*)m3;
   if (frames_dtype == 2)
     stats_kernel<uint8_t><<<f, kStatsThreads, 0, st>>>(
-        (const uint8_t*)re, (const uint8_t*)re, a, b, c, (float*)mean_power, (float*)tap,
+        (const uint8_t*)re, (const uint8_t*)re, a, b, c, (float*)mean_power, (float*)tap, st8,
         frame_len, n_sym, k, stride, n_tap);
   else if (frames_dtype == 1)
     stats_kernel<__nv_bfloat16><<<f, kStatsThreads, 0, st>>>(
         (const __nv_bfloat16*)re, (const __nv_bfloat16*)im, a, b, c, (float*)mean_power,
-        (float*)tap, frame_len, n_sym, k, stride, n_tap);
+        (float*)tap, nullptr, frame_len, n_sym, k, stride, n_tap);
   else
     stats_kernel<float><<<f, kStatsThreads, 0, st>>>((const float*)re, (const float*)im, a, b,
                                                      c, (float*)mean_power, (float*)tap,
-                                                     frame_len, n_sym, k, stride, n_tap);
+                                                     nullptr, frame_len, n_sym, k, stride,
+                                                     n_tap);
   return (int)cudaGetLastError();
 }
 

@@ -14,6 +14,9 @@
 // on the H100's Gen5 x16 link), on the feed's own stream beside the step's
 // kernels. Sources in pinned memory make the copies asynchronous; a
 // pageable source is copied as the CUDA runtime copies one, synchronously.
+// A source may start at any byte of its region: a free-running dongle's
+// segment is read from its ring at its read pointer (HostFeed.feed's
+// offsets).
 
 #include <cuda_runtime.h>
 

@@ -24,12 +24,16 @@ Inputs. A graph reads whatever lies at its frames' address when it
 replays, so frames rewritten in place (a HostFeed's buffers) or a new
 batch in a reused block are read afresh. freq_hz is copied into the
 graph's own f32 input before each replay (fill_ from a number, copy_
-from anything else), so it is not part of the key. The graph keeps the
-DFT operands it read alive.
+from anything else), so it is not part of the key; a tracked stream hands
+a dict of tensors in its place, its Tracker's state (ofdm/track.py), each
+copied into the graph's own. The graph keeps the DFT operands it read
+alive.
 
 Outputs. mean_power and the tap are copied out into one tensor the
-caller owns (one torch.cat a call). soft stays the graph's buffer: valid
-until the step's next demod on the same frames; with two graphs in one
+caller owns (one torch.cat a call); any other output of the chain (a
+tracked stream's next state and consumed counts) is cloned. soft stays
+the graph's buffer: valid until the step's next demod on the same
+frames; with two graphs in one
 pool, a replay of either may reuse the other's memory, so until the
 step's next demod. Stream order keeps decode_soft, enqueued before that,
 correct.
@@ -99,25 +103,41 @@ class GraphRule:
         return EAGER
 
 
+STATS = ("mean_power", "const_re", "const_im")
+
+
+def _clone(x):
+    return {k: v.clone() for k, v in x.items()} if isinstance(x, dict) else x.clone()
+
+
 class _Graph:
-    """One captured demod chain: its f32 frequency input, its outputs and
-    the launches its capture counted."""
+    """One captured demod chain: its f32 frequency input (or a tracked
+    stream's state), its outputs and the launches its capture counted."""
 
     def __init__(self, chain, operands, frames_re, frames_im, freq_shape, pool):
+        """freq_shape: the f32 frequency input's shape, or a dict of
+        tensors (a tracked stream's state) whose copies are the inputs."""
         self.operands = operands
-        self.freq = torch.zeros(freq_shape, dtype=torch.float32, device=frames_re.device)
+        if isinstance(freq_shape, dict):
+            self.freq = _clone(freq_shape)
+        else:
+            self.freq = torch.zeros(freq_shape, dtype=torch.float32, device=frames_re.device)
         wrappers = counted()
         before = [w.launches for w in wrappers]
         self.graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(self.graph, pool=pool, capture_error_mode="thread_local"):
             self.soft, stats = chain(frames_re, frames_im, self.freq)
-        self.stats = (stats["mean_power"], stats["const_re"], stats["const_im"])
+        self.stats = tuple(stats[k] for k in STATS)
+        self.extra = {k: v for k, v in stats.items() if k not in STATS}
         self.launches = [(w, w.launches - n) for w, n in zip(wrappers, before)]
         for w, n in zip(wrappers, before):
             w.launches = n
 
     def replay(self, freq_hz):
-        if isinstance(freq_hz, (int, float)):    # no copy from the host
+        if isinstance(freq_hz, dict):
+            for k, v in freq_hz.items():
+                self.freq[k].copy_(v)
+        elif isinstance(freq_hz, (int, float)):    # no copy from the host
             self.freq.fill_(freq_hz)
         else:
             self.freq.copy_(torch.as_tensor(freq_hz, dtype=torch.float32))
@@ -127,7 +147,8 @@ class _Graph:
         out = torch.cat(self.stats)
         n_mp, n_tap = self.stats[0].numel(), self.stats[1].numel()
         return self.soft, {"mean_power": out[:n_mp], "const_re": out[n_mp:n_mp + n_tap],
-                           "const_im": out[n_mp + n_tap:]}
+                           "const_im": out[n_mp + n_tap:],
+                           **{k: _clone(v) for k, v in self.extra.items()}}
 
 
 class DemodGraphs:
@@ -143,7 +164,8 @@ class DemodGraphs:
     def run(self, chain, operands, frames_re, frames_im, freq_hz, freq_shape):
         """chain(frames_re, frames_im, freq_hz) -> (soft, stats), eagerly
         or as a graph whose f32 frequency input has freq_shape (the shape
-        the chain's freq_hz broadcasts to)."""
+        the chain's freq_hz broadcasts to), or, freq_hz a dict of tensors,
+        copies of them."""
         way = EAGER
         if engages(frames_re.device, operands):
             key = frames_key(frames_re, frames_im)
@@ -154,8 +176,8 @@ class DemodGraphs:
         if way == CAPTURE:
             if self.pool is None:
                 self.pool = torch.cuda.graph_pool_handle()
-            self.graphs[key] = _Graph(chain, operands, frames_re, frames_im, freq_shape,
-                                      self.pool)
+            inputs = freq_hz if isinstance(freq_hz, dict) else freq_shape
+            self.graphs[key] = _Graph(chain, operands, frames_re, frames_im, inputs, self.pool)
             self.captures += 1
         self.replays += 1
         return self.graphs[key].replay(freq_hz)

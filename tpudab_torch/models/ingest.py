@@ -26,6 +26,12 @@ A HostFeed owns two device buffers of the step's frames, shape
   block); release() records, on the step's stream, the event after the
   last kernel that reads it (ReceiveStep.demod calls both).
 
+A tracked stream (a ReceiveStep with a Tracker, ofdm/track.py) is fed
+from each dongle's ring: feed(rings, offsets) copies row e of the buffer,
+shape (E, L, 2), from ring e at sample offsets[e], the dongle's read
+pointer, which the host advances by the samples the step reports it
+consumed.
+
 Fed before step k is enqueued, step k + 1's copy runs under step k's
 kernels. `started` is the event recorded on the copy
 stream just before the last copy began (None on the CPU, where a feed is
@@ -69,34 +75,43 @@ class HostFeed:
         self._taken: Optional[int] = None
         self._next = 0
 
-    def feed(self, host: Union[torch.Tensor, Sequence[torch.Tensor]]) -> None:
+    def feed(self, host: Union[torch.Tensor, Sequence[torch.Tensor]],
+             offsets: Optional[Sequence[int]] = None) -> None:
         """Enqueue the copy of one step's frames to the next buffer: `host`
         a uint8 tensor of the buffers' size, or a sequence of them, one for
         each row of the leading axis (one host region an ensemble), in
-        pinned memory for the copy to overlap the card's work. Returns once
-        the copy is enqueued; the host memory stays as it is, and alive,
-        until the step that takes them has run or synchronize() returns."""
+        pinned memory for the copy to overlap the card's work. With
+        `offsets`, host is one region a row, each a dongle's ring of I/Q
+        pairs at least offsets[e] + a row's pairs long, and row e is copied
+        from its pair offsets[e] on. Returns once the copy is enqueued; the
+        host memory stays as it is, and alive, until the step that takes
+        them has run or synchronize() returns."""
         i = self._next
         if i in self._fed or i == self._taken:
             raise RuntimeError("both buffers hold frames that no step has taken and released")
         parts = [host] if isinstance(host, torch.Tensor) else list(host)
         dst = self.buffers[i].view(len(parts), -1) if len(parts) in (1, self.shape[0]) else None
-        if dst is None or any(p.dtype != torch.uint8 or p.device.type != "cpu"
-                              or not p.is_contiguous() or p.numel() != dst.shape[1]
-                              for p in parts):
+        skip = [0] * len(parts) if offsets is None else [2 * int(o) for o in offsets]
+        if dst is None or len(skip) != len(parts) or any(
+                p.dtype != torch.uint8 or p.device.type != "cpu" or not p.is_contiguous()
+                or (p.numel() != dst.shape[1] if offsets is None
+                    else not 0 <= k <= p.numel() - dst.shape[1])
+                for p, k in zip(parts, skip)):
             raise ValueError(f"feed takes contiguous host uint8 frames of {tuple(self.shape)}, "
-                             f"whole or as {self.shape[0]} rows; got "
-                             f"{[(tuple(p.shape), p.dtype, str(p.device)) for p in parts]}")
+                             f"whole or as {self.shape[0]} rows, or {self.shape[0]} rings "
+                             f"holding a row from each offset; got "
+                             f"{[(tuple(p.shape), p.dtype, str(p.device)) for p in parts]}, "
+                             f"offsets {offsets}")
         n_bytes = dst.numel()
         if self.stream is None:
             with span("ingest", n_bytes, self.device):
-                for row, p in zip(dst, parts):
-                    row.copy_(p.reshape(-1))
+                for row, p, k in zip(dst, parts, skip):
+                    row.copy_(p.reshape(-1)[k:k + dst.shape[1]])
         else:
             n = len(parts)
             dst_ptrs = (ctypes.c_void_p * n)(*(dst.data_ptr() + j * dst.shape[1]
                                                for j in range(n)))
-            src_ptrs = (ctypes.c_void_p * n)(*(p.data_ptr() for p in parts))
+            src_ptrs = (ctypes.c_void_p * n)(*(p.data_ptr() + k for p, k in zip(parts, skip)))
             sizes = (ctypes.c_longlong * n)(*([dst.shape[1]] * n))
             with torch.cuda.stream(self.stream):
                 if self._free[i] is not None:

@@ -24,6 +24,18 @@ receivers' s8 streams instead of frames and channelises them first (span
 demod.ddc inside demod; its Channeliser is `step.ddc`, with its counters),
 the carry holding each receiver's tail; the channelised frames then take
 the same demod (and graph) and FEC.
+
+Built with track_frames (a tracked stream, ofdm/track.py), the step takes
+free-running rtl_sdr dongles' streams: a segment of each dongle's u8 I/Q
+at its read pointer, (E, L, 2), or a HostFeed fed them. No CFO and no
+frame boundary is handed in: the carry's "track" state says where each
+ensemble's F frames start and what CFO to take out; K5 and stats_kernel
+read the frames where they start (the starts sit in the tracker's fixed
+buffer), and after the demod the tracker (span demod.track inside demod)
+updates the state from the same frames; the cut, the demod and the update
+are one chain, which the demod graph replays as one, the state copied in
+as an aligned step's CFO is.
+The outputs add each ensemble's consumed samples and its lock.
 """
 
 from __future__ import annotations
@@ -47,6 +59,7 @@ from tpudab_torch.msc.interleave import (TIME_INTERLEAVE_DEPTH, SoftRows,
 from tpudab_torch.msc.subchannel import SubchannelConfig
 from tpudab_torch.ofdm.channelise import ChannelPlan, Channeliser
 from tpudab_torch.ofdm.demod import demod_frames_split, dft_operands
+from tpudab_torch.ofdm.track import Tracker
 from tpudab_torch.ops.viterbi_cuda import signs_on, viterbi_decode_bytes_t
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -91,11 +104,22 @@ class ReceiveStep(nn.Module):
     (Channeliser, `self.ddc`) and decodes the frames, frame_offset the (E,)
     ensembles' frame offsets (None: all 0). The carry then also holds
     "ddc", the receivers' tails (S, T, 2) int8.
+
+    With `track_frames` (F frames a step of a tracked stream, the step's
+    Tracker `self.track`), frames_re is instead the dongles' segments,
+    uint8 (E, L, 2) with L = self.track.segment_len, or a HostFeed fed
+    them, frames_im and freq_hz None: forward(carry, segments, None, None),
+    the carry also holding "track", the tracker's state (self.track.train
+    gives the first). outputs then also hold consumed (E,) int64, the
+    samples each dongle's read pointer moves (the feed of the step after
+    next moves by it), and locked (E,) bool, False where an ensemble lost
+    its lock and its bytes are not to be trusted.
     """
 
     def __init__(self, mode: int, subchannels: Tuple[SubchannelConfig, ...],
                  window_offset: int = 12, n_ensembles: int = 1,
-                 soft_dtype: str = "bfloat16", channels: Optional[ChannelPlan] = None):
+                 soft_dtype: str = "bfloat16", channels: Optional[ChannelPlan] = None,
+                 track_frames: Optional[int] = None):
         super().__init__()
         self.mode = mode
         self.subchannels = tuple(subchannels)
@@ -113,6 +137,11 @@ class ReceiveStep(nn.Module):
                 raise ValueError(f"the plan's {channels.n_ensembles} ensembles are not the "
                                  f"step's {n_ensembles}")
             self.ddc = Channeliser(channels, mode)
+        self.track = None
+        if track_frames is not None:
+            if channels is not None:
+                raise ValueError("a tracked stream is one dongle an ensemble, not a ChannelPlan")
+            self.track = Tracker(mode, n_ensembles, track_frames)
 
         for name, w in zip(("dft_re", "dft_sum", "dft_diff"),
                            dft_operands(mode, "bfloat16")):
@@ -264,6 +293,47 @@ class ReceiveStep(nn.Module):
             soft, stats = self._demod_graph(frames_re, frames_im, freq_hz)
         return {**carry, "ddc": tail}, soft, stats
 
+    def demod_stream(self, carry, segments):
+        """The demod half on a tracked stream (a step built with
+        track_frames): segments (E, L, 2) uint8 or a HostFeed fed them, the
+        carry's "track" state -> (new carry, soft, stats), stats also
+        holding consumed and locked. The tracker cuts the frames, the demod
+        (and its graph) reads them there, then the tracker updates the
+        state from them (span demod.track): one chain, so that one demod
+        graph a segment buffer replays all three. A HostFeed's buffer is
+        taken and released as demod does."""
+        if isinstance(segments, HostFeed):
+            feed = segments
+            try:
+                return self.demod_stream(carry, feed.take())
+            finally:
+                feed.release()
+        e, f = self.n_ensembles, self.track.n_frames
+        if segments.dtype != torch.uint8 or tuple(segments.shape) != (
+                e, self.track.segment_len, 2):
+            raise ValueError(f"a tracked step takes (E, L, 2) = {(e, self.track.segment_len, 2)} "
+                             f"uint8 segments; got {tuple(segments.shape)} {segments.dtype}")
+        with span("demod", e * f, segments.device):
+            soft, stats = self.graphs.run(self._stream_chain,
+                                          (self.dft_re, self.dft_sum, self.dft_diff),
+                                          segments, None, carry["track"], None)
+        state = stats.pop("track")
+        return {**carry, "track": state}, soft, {**stats, "locked": state["locked"]}
+
+    def _stream_chain(self, segments, frames_im, state):
+        """demod's work on a tracked stream, eager: the tracker's cut, the
+        demod of the frames where its `starts` buffer says they start, and
+        the tracker's update from them (span demod.track); stats also hold
+        the next state ("track") and consumed."""
+        e, f = self.n_ensembles, self.track.n_frames
+        freq = self.track.cut(state).repeat_interleave(f)
+        soft, stats = demod_frames_split(
+            segments, None, freq, (self.dft_re, self.dft_sum, self.dft_diff), self.mode,
+            self.window_offset, out_dtype=self.soft_dtype, starts=self.track.starts)
+        with span("demod.track", e * f, segments.device):
+            state, consumed = self.track.update(segments, state)
+        return soft, {**stats, "track": state, "consumed": consumed}
+
     def _demod_chain(self, frames_re, frames_im, freq_hz):
         """demod's work on the frames, eager: K5 and its tables, the DFT
         products and the demod tail (ofdm/demod.py::demod_frames_split)."""
@@ -283,14 +353,21 @@ class ReceiveStep(nn.Module):
             self.mode, self.window_offset, out_dtype=self.soft_dtype)
 
     def forward(self, carry, frames_re, frames_im, freq_hz, frame_offset=None):
-        if self.ddc is not None:
+        if self.track is not None:
+            if frames_im is not None or freq_hz is not None:
+                raise ValueError("a tracked stream's CFO and frames are the tracker's: pass "
+                                 "frames_im and freq_hz None")
+            n_frames = self.n_ensembles * self.track.n_frames
+        elif self.ddc is not None:
             if frames_im is not None:
                 raise ValueError("wideband streams hold I and Q interleaved: pass frames_im None")
             n_frames = self.n_ensembles * self.wide_frames(frames_re)
         else:
             n_frames = frames_re.shape[0] * (frames_re.shape[1] if self.n_ensembles > 1 else 1)
         with span("step", n_frames, frames_re.device):
-            if self.ddc is not None:
+            if self.track is not None:
+                carry, soft, stats = self.demod_stream(carry, frames_re)
+            elif self.ddc is not None:
                 carry, soft, stats = self.demod_wide(carry, frames_re, freq_hz, frame_offset)
             else:
                 soft, stats = self.demod(frames_re, frames_im, freq_hz)
@@ -298,6 +375,8 @@ class ReceiveStep(nn.Module):
         outputs = {"fic_bytes": fic_bytes, "subch": subch,
                    "mean_power": stats["mean_power"],
                    "const_re": stats["const_re"], "const_im": stats["const_im"]}
+        if self.track is not None:
+            outputs.update(consumed=stats["consumed"], locked=stats["locked"])
         return new_carry, outputs
 
     def tile_frames(self, frames_flat: np.ndarray) -> np.ndarray:

@@ -33,7 +33,10 @@ interleaved offset-binary I/Q with frames_im None, is chosen by the
 frames' dtype: on the kernels' path K5 and stats_kernel read the bytes and
 convert them in registers; elsewhere the frames are converted first, to
 (x - 127.5) / 128 in f32 (ops/carve.py::u8_parts). Either way the soft
-bits are those of the f32 frames so converted.
+bits are those of the f32 frames so converted. A tracked stream's u8
+frames come as one buffer of I/Q pairs with `starts`, each frame's first
+pair in it (ofdm/track.py): K5 and stats_kernel read them in place, the
+other path gathers them first (ops/carve.py::u8_frames_at).
 
 Under a profiler the stages record spans (host/profiling.py): demod.carve
 (K5 and its tables; items: window samples), demod.dft (the products, and
@@ -53,7 +56,7 @@ from tpudab_torch.constants.interleaver import get_carrier_map_positions
 from tpudab_torch.constants.ofdm_params import SAMPLING_RATE, get_ofdm_params
 from tpudab_torch.host.profiling import span
 from tpudab_torch.ops import demod_tail
-from tpudab_torch.ops.carve import carve_rotate, carve_windows, u8_parts
+from tpudab_torch.ops.carve import carve_rotate, carve_windows, u8_frames_at, u8_parts
 
 N_CONST_POINTS = 480  # constellation tap size
 
@@ -130,19 +133,22 @@ def spectra_split(frames_re, frames_im, freq_hz, operands, mode: int = 1,
     return _spectra(frames_re, frames_im, freq_hz, operands, mode, window_offset, True)
 
 
-def _spectra(frames_re, frames_im, freq_hz, operands, mode, window_offset, combine):
+def _spectra(frames_re, frames_im, freq_hz, operands, mode, window_offset, combine,
+             starts=None):
     """spectra_split; with bf16 operands and combine False, the three
-    Karatsuba products (m1, m2, m3) instead of (m1 - m2, m3 + m1)."""
+    Karatsuba products (m1, m2, m3) instead of (m1 - m2, m3 + m1); starts
+    as demod_frames_split takes them (bf16 operands only)."""
     p = get_ofdm_params(mode)
     n_sym, n_fft = p.nb_symbols, p.nb_fft
-    f = frames_re.shape[0]
+    f = frames_re.shape[0] if starts is None else starts.numel()
     dev = frames_re.device
+    at = {} if starts is None else {"starts": starts}    # an aligned call as it was
 
     if operands[0].dtype == torch.bfloat16:
         wc, wcd, wdc = operands
         with span("demod.carve", f * n_sym * n_fft, dev):
             xr, xi, xs = carve_rotate(frames_re, frames_im, freq_hz, mode, window_offset,
-                                      with_sum=True)
+                                      with_sum=True, **at)
         with span("demod.dft", 0, dev):
             ar = xr.view(f, n_sym, n_fft)
             ai = xi.view(f, n_sym, n_fft)
@@ -177,26 +183,32 @@ def _tail_kernels(operands, device) -> bool:
 
 
 def demod_frames_split(frames_re, frames_im, freq_hz, operands, mode: int = 1,
-                       window_offset: int = 12, out_dtype=torch.float32):
+                       window_offset: int = 12, out_dtype=torch.float32, starts=None):
     """frames (F, frame_len//128, 128) or (F, frame_len), bf16 or f32, or
-    u8 frames (F, frame_len, 2) or (F, 2 frame_len) with frames_im None;
-    freq_hz scalar or (F,); operands from dft_operands. Returns
-    (soft (F, nb_frame_bits) out_dtype, stats) with stats holding
-    mean_power (F,) and the const_re/const_im constellation tap (480,)."""
+    u8 frames (F, frame_len, 2) or (F, 2 frame_len) with frames_im None,
+    or a u8 buffer (..., 2) of I/Q pairs with frames_im None and starts (F,)
+    int64, frame f's first pair in the flattened buffer; freq_hz scalar or
+    (F,); operands from dft_operands. Returns (soft (F, nb_frame_bits)
+    out_dtype, stats) with stats holding mean_power (F,) and the
+    const_re/const_im constellation tap (480,)."""
     dev = frames_re.device
+    frame_len = get_ofdm_params(mode).nb_frame_length
     if not _tail_kernels(operands, dev):
+        if starts is not None:
+            frames_re = u8_frames_at(frames_re, starts, frame_len)
         if frames_re.dtype == torch.uint8:
             frames_re, frames_im = u8_parts(frames_re, get_ofdm_params(mode).nb_frame_length,
                                             frames_im)
         return eager_tail(spectra_split(frames_re, frames_im, freq_hz, operands, mode,
                                         window_offset), frames_re, frames_im, out_dtype)
-    m = _spectra(frames_re, frames_im, freq_hz, operands, mode, window_offset, False)
+    m = _spectra(frames_re, frames_im, freq_hz, operands, mode, window_offset, False, starts)
+    at = {} if starts is None else {"starts": starts, "frame_len": frame_len}
     with span("demod.demap", 0, dev):
         partials = demod_tail.demap(*m)
     with span("demod.norm", m[0].shape[0] * get_ofdm_params(mode).nb_frame_bits, dev):
         soft = demod_tail.norm(*m, partials, out_dtype)
     with span("demod.stats", 0, dev):
-        mean_power, tap = demod_tail.stats(frames_re, frames_im, *m)
+        mean_power, tap = demod_tail.stats(frames_re, frames_im, *m, **at)
     return soft, {"mean_power": mean_power, "const_re": tap[0], "const_im": tap[1]}
 
 

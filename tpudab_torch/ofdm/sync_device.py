@@ -10,7 +10,9 @@ CFO on the aligned frame. The control flow does not depend on the data, and
 one call acquires a batch of B buffers. tpudab computes its FFTs as matmuls
 (tpudab.ops.matfft) because the TPU it was written for has no fast FFT;
 here they are torch.fft (cuFFT on the card), and the inverse transforms are
-left unnormalised as matfft's are.
+left unnormalised as matfft's are. Nothing inside makes a tensor on the
+host, so a caller may capture the tracking taps in a CUDA graph
+(ofdm/track.py).
 """
 
 from __future__ import annotations
@@ -77,8 +79,8 @@ def _coarse_split(win_re, win_im, mode: int, max_bins: int):
     s = torch.fft.fft(torch.complex(win_re, win_im))
     d = s * torch.roll(s, 1, dims=-1).conj()
     mag = _ifft_mag(torch.fft.fft(d) * _coarse_tables(mode, s.device))
-    lags = torch.cat([torch.arange(0, max_bins + 1),
-                      torch.arange(p.nb_fft - max_bins, p.nb_fft)]).to(mag.device)
+    lags = torch.cat([torch.arange(0, max_bins + 1, device=mag.device),
+                      torch.arange(p.nb_fft - max_bins, p.nb_fft, device=mag.device)])
     vals = mag[:, lags]
     best = torch.argmax(vals, dim=-1)
     lag = lags[best]
@@ -91,7 +93,10 @@ def _prs_search_split(seg_re, seg_im, mode: int, length: int,
                       peak_threshold_db: float = 15.0,
                       peak_distance_prob: float = 0.15):
     """Global PRS matched filter over (B, n) CFO-corrected segments
-    (n >= length + nb_fft). Returns (peak (B,) int32, quality (B,)).
+    (n >= length + nb_fft). Returns (peak (B,) int32, quality (B,), the
+    peak's fraction (B,) in [-0.5, 0.5]): the fraction is the vertex of the
+    parabola through the magnitudes at peak - 1, peak and peak + 1 (0 where
+    they make no peak), which the tracker (ofdm/track.py) reads.
 
     First-path detection under multipath: among lags up to one cyclic
     prefix ahead of the strongest peak, each candidate's magnitude is
@@ -109,14 +114,16 @@ def _prs_search_split(seg_re, seg_im, mode: int, length: int,
         cp = float(p.nb_cyclic_prefix)
         d = (max_lag[:, None] - torch.arange(length, device=mag.device)[None, :]).float()
         in_win = (d >= 0.0) & (d <= cp)
-        boost = torch.pow(torch.tensor(peak_distance_prob, dtype=torch.float32,
-                                       device=mag.device), -d / cp)
+        boost = torch.pow(torch.full_like(d, peak_distance_prob), -d / cp)
         thresh = max_mag * 10.0 ** (-peak_threshold_db / 20.0)
         score = torch.where(in_win & (mag >= thresh), mag * boost, -1.0)
         peak = torch.argmax(score, dim=-1)
     else:
         peak = max_lag
-    return peak.to(torch.int32), q
+    a, b, c = (mag.gather(-1, (peak + d).clamp(0, length - 1)[:, None])[:, 0] for d in (-1, 0, 1))
+    den = a - 2.0 * b + c
+    frac = torch.where(den < 0, 0.5 * (a - c) / den.clamp_max(-1e-30), 0.0).clamp(-0.5, 0.5)
+    return peak.to(torch.int32), q, frac
 
 
 def _cp_autocorr_split(fr_re, fr_im, mode: int):
@@ -196,8 +203,8 @@ def acquire_device(re: torch.Tensor, im: torch.Tensor, mode: int = 1,
     # 4. exact timing: PRS matched filter over one frame of lags
     n_corr = p.nb_frame_length + p.nb_fft
     s_re, s_im = _rotate(re[:, :n_corr], im[:, :n_corr], net_hz)
-    peak, time_q = _prs_search_split(s_re, s_im, mode, p.nb_frame_length,
-                                     peak_threshold_db, peak_distance_prob)
+    peak, time_q, _ = _prs_search_split(s_re, s_im, mode, p.nb_frame_length,
+                                        peak_threshold_db, peak_distance_prob)
     frame_start = _frame_start(peak, p)
 
     # 5. refinement, unconditional: coarse again at the exact PRS body, the
@@ -209,8 +216,8 @@ def acquire_device(re: torch.Tensor, im: torch.Tensor, mode: int = 1,
     coarse2, coarse_q2 = _coarse_split(w2_re, w2_im, mode, max_coarse_bins)
     net_hz = coarse2.float() * spacing + fine_hz
     s_re, s_im = _rotate(re[:, :n_corr], im[:, :n_corr], net_hz)
-    peak, time_q = _prs_search_split(s_re, s_im, mode, p.nb_frame_length,
-                                     peak_threshold_db, peak_distance_prob)
+    peak, time_q, _ = _prs_search_split(s_re, s_im, mode, p.nb_frame_length,
+                                        peak_threshold_db, peak_distance_prob)
     frame_start = _frame_start(peak, p)
 
     safe_start = frame_start.clamp_max(n - p.nb_frame_length)
@@ -239,7 +246,7 @@ def fine_time_sync_device(seg_re, seg_im, freq_hz, mode: int = 1, search: int = 
     (peak (B,), quality (B,))."""
     seg_re, seg_im = _rotate(seg_re, seg_im, _freq(freq_hz, seg_re.shape[0], seg_re.device))
     return _prs_search_split(seg_re, seg_im, mode, 2 * search + 1,
-                             peak_threshold_db, peak_distance_prob)
+                             peak_threshold_db, peak_distance_prob)[:2]
 
 
 def coarse_freq_device(seg_re, seg_im, freq_hz, mode: int = 1, max_bins: int = 100):

@@ -42,7 +42,7 @@ SIGNATURES = {
     "tpudab_deinterleave": (_P, _P, _I, _I, _I, _I, _P),
     "tpudab_deinterleave_depuncture_t": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                                          _I, _I, _I, _I, _I, _I, _P),
-    "tpudab_carve_rotate": (_P, _P, _I, _P, _P, _P, _P, _P, _P, _P,
+    "tpudab_carve_rotate": (_P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P,
                             _I, _I, _I, _I, _I, _I, _P),
     "tpudab_viterbi_fwd_variant": (_P, _I, _P, _P, _P, _I, _I, _I, _I, _P),
     "tpudab_viterbi_traceback": (_P, _P, _I, _I, _I, _I, _P),
@@ -51,7 +51,8 @@ SIGNATURES = {
                              _I, _I, _I, _I, _I, _I, _I, _P),
     "tpudab_demod_demap": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     "tpudab_demod_norm": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
-    "tpudab_demod_stats": (_P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "tpudab_demod_stats": (_P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                           _P),
     "tpudab_copy_h2d": (_P, _P, _P, _I, _P),
     "tpudab_channelise": (_P, _L, _L, _P, _L, _L, _P, _P, _P, _P, _P, _P, _L, _P, _L, _I, _L,
                           _P),

@@ -17,6 +17,11 @@ rtl_sdr's raw IQ: frames_re may instead be (F, frame_len, 2) or flat
 The plain twins convert it with u8_parts, (x - 127.5) / 128, exact in f32;
 the kernel's u8 instantiation does the same conversion in registers, so it
 gives the f32 kernel's outputs on the converted frames bit for bit.
+
+A tracked stream's frames (ofdm/track.py): u8 frames may also be handed as
+one buffer of I/Q pairs (one dongle's segment a row) with `starts`, each
+frame's first pair as an offset into the flattened buffer. The plain twins
+gather the frames first (u8_frames_at); the kernel reads them in place.
 """
 
 from __future__ import annotations
@@ -56,6 +61,17 @@ def u8_flat(frames: torch.Tensor, frame_len: int, frames_im=None) -> torch.Tenso
         raise ValueError(f"u8 frames {tuple(frames.shape)} {frames.dtype} are not "
                          f"(F, {frame_len}, 2) or (F, {2 * frame_len}) uint8")
     return frames.reshape(frames.shape[0], 2 * frame_len)
+
+
+def u8_frames_at(buffer: torch.Tensor, starts: torch.Tensor, frame_len: int) -> torch.Tensor:
+    """A tracked stream's u8 frames: buffer (..., 2) uint8 I/Q pairs, any
+    leading shape (flattened), and starts (F,) int64, each frame's first
+    pair there -> (F, frame_len, 2) uint8, gathered."""
+    if buffer.dtype != torch.uint8 or buffer.shape[-1] != 2 or starts.dtype != torch.int64:
+        raise ValueError(f"frames at starts take a uint8 (..., 2) buffer and int64 starts; got "
+                         f"{tuple(buffer.shape)} {buffer.dtype}, {starts.dtype}")
+    pairs = buffer.reshape(-1, 2)
+    return pairs[starts.reshape(-1, 1) + torch.arange(frame_len, device=pairs.device)]
 
 
 def u8_parts(frames: torch.Tensor, frame_len: int, frames_im=None):
@@ -140,13 +156,16 @@ def rotator_tables(freq: torch.Tensor, mode: int, window_offset: int):
 
 
 def carve_rotate_tables_ref(frames_re, frames_im, freq_hz, mode: int = 1,
-                            window_offset: int = 12, with_sum: bool = False):
+                            window_offset: int = 12, with_sum: bool = False, starts=None):
     """The kernel's own arithmetic in plain torch f32, one op per rounding:
     the rotator by angle addition of rotator_tables, then the rotation,
     each product and sum rounded to f32, then bf16. On the same device as
     the kernel it gives the kernel's outputs bit for bit; it is within one
-    bf16 ulp of carve_rotate_ref. Same contract as carve_rotate_ref."""
+    bf16 ulp of carve_rotate_ref. Same contract as carve_rotate_ref, and
+    carve_rotate's `starts`."""
     p = get_ofdm_params(mode)
+    if starts is not None:
+        frames_re = u8_frames_at(frames_re, starts, p.nb_frame_length)
     fr, fi = (x.float() for x in _parts(frames_re, frames_im, p.nb_frame_length))
     ca, sa, ci, si = rotator_tables(_freq(freq_hz, fr.shape[0], fr.device), mode,
                                     window_offset)
@@ -160,11 +179,18 @@ def carve_rotate_tables_ref(frames_re, frames_im, freq_hz, mode: int = 1,
 
 
 def carve_rotate_cuda(frames_re, frames_im, freq_hz, mode: int = 1,
-                      window_offset: int = 12, with_sum: bool = False):
-    """Kernel K5 on CUDA tensors; same contract as carve_rotate_ref. The
-    frames must be 16-byte aligned."""
+                      window_offset: int = 12, with_sum: bool = False, starts=None):
+    """Kernel K5 on CUDA tensors; same contract as carve_rotate_ref, and
+    carve_rotate's `starts`. The frames must be 16-byte aligned."""
     p, first, stride = _geometry(mode, window_offset)
-    if frames_re.dtype == torch.uint8:
+    if starts is not None:
+        if frames_im is not None or frames_re.dtype != torch.uint8 or frames_re.shape[-1] != 2 \
+                or starts.dtype != torch.int64 or not starts.is_cuda \
+                or not starts.is_contiguous():
+            raise ValueError("frames at starts are a u8 (..., 2) buffer alone and contiguous "
+                             "int64 starts on the card")
+        fr = fi = frames_re.reshape(-1, 2)
+    elif frames_re.dtype == torch.uint8:
         fr = fi = u8_flat(frames_re, p.nb_frame_length, frames_im)
     else:
         fr = _flat(frames_re, p.nb_frame_length)
@@ -176,7 +202,7 @@ def carve_rotate_cuda(frames_re, frames_im, freq_hz, mode: int = 1,
         raise ValueError(f"carve_rotate_cuda takes contiguous, 16-byte aligned "
                          f"CUDA bf16 or f32 frames, or u8 frames alone, got {fr.device} "
                          f"{fr.dtype}, {fi.device} {fi.dtype}")
-    f = fr.shape[0]
+    f = fr.shape[0] if starts is None else starts.numel()
     freq = _freq(freq_hz, f, fr.device).contiguous()
     ca, sa, ci, si = rotator_tables(freq, mode, window_offset)
     rows = p.nb_symbols * (p.nb_fft // 128)
@@ -187,6 +213,7 @@ def carve_rotate_cuda(frames_re, frames_im, freq_hz, mode: int = 1,
                   fr.data_ptr(), fi.data_ptr(), IN_DTYPE[fr.dtype],
                   ca.data_ptr(), sa.data_ptr(), ci.data_ptr(), si.data_ptr(), xr.data_ptr(),
                   xi.data_ptr(), xs.data_ptr() if with_sum else None,
+                  None if starts is None else starts.data_ptr(),
                   f, p.nb_frame_length, p.nb_symbols, p.nb_fft, stride, first)
     carve_rotate_cuda.launches += 1
     return (xr, xi, xs) if with_sum else (xr, xi)
@@ -196,10 +223,15 @@ carve_rotate_cuda.launches = 0
 
 
 def carve_rotate(frames_re, frames_im, freq_hz, mode: int = 1,
-                 window_offset: int = 12, with_sum: bool = False):
-    """Dispatch on the frames' device: CPU -> plain torch, CUDA -> K5."""
+                 window_offset: int = 12, with_sum: bool = False, starts=None):
+    """Dispatch on the frames' device: CPU -> plain torch, CUDA -> K5.
+    starts: (F,) int64 with frames_re a u8 (..., 2) buffer of I/Q pairs and
+    frames_im None, frame f's first pair at starts[f] of the flattened
+    buffer (a tracked stream's frames), every frame inside it."""
     if frames_re.device.type == "cpu":
+        if starts is not None:
+            frames_re = u8_frames_at(frames_re, starts, get_ofdm_params(mode).nb_frame_length)
         return carve_rotate_ref(frames_re, frames_im, freq_hz, mode,
                                 window_offset, with_sum)
     return carve_rotate_cuda(frames_re, frames_im, freq_hz, mode,
-                             window_offset, with_sum)
+                             window_offset, with_sum, starts)

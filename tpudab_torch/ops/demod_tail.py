@@ -23,7 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from tpudab_torch.ops import _build
-from tpudab_torch.ops.carve import IN_DTYPE, u8_flat, u8_parts
+from tpudab_torch.ops.carve import IN_DTYPE, u8_flat, u8_frames_at, u8_parts
 
 ROWS = 19             # demapped rows a block of either pass walks
 STATS_THREADS = 256   # stats_kernel's block
@@ -126,11 +126,14 @@ def norm_ref(m1, m2, m3, partials, out_dtype=torch.bfloat16):
     return soft.reshape(f, -1)
 
 
-def stats_ref(frames_re, frames_im, m1, m2, m3):
+def stats_ref(frames_re, frames_im, m1, m2, m3, starts=None, frame_len=None):
     """Twin of stats_kernel: frames (F, ...) bf16 or f32, any tiling, or u8
-    frames with frames_im None, and the products -> (mean_power (F,) f32,
-    tap (2, points) f32)."""
+    frames with frames_im None (or a u8 buffer of pairs with starts, each
+    frame's first pair, and frame_len), and the products -> (mean_power
+    (F,) f32, tap (2, points) f32)."""
     f = m1.shape[0]
+    if starts is not None:
+        frames_re = u8_frames_at(frames_re, starts, frame_len)
     if frames_re.dtype == torch.uint8:
         frames_re, frames_im = u8_parts(frames_re, frames_re[0].numel() // 2, frames_im)
     fr = frames_re.reshape(f, -1).float()
@@ -197,33 +200,46 @@ def norm_cuda(m1, m2, m3, partials, out_dtype=torch.bfloat16):
     return soft
 
 
-def stats_cuda(frames_re, frames_im, m1, m2, m3):
+def stats_cuda(frames_re, frames_im, m1, m2, m3, starts=None, frame_len=None):
     """stats_kernel on CUDA; same contract as stats_ref. The frames must be
-    contiguous and 16-byte aligned, as K5 takes them."""
+    contiguous and 16-byte aligned, as K5 takes them; with starts, a u8
+    buffer of I/Q pairs alone, frame f's first pair at starts[f] of it."""
     f, n_sym, k = _products(m1, m2, m3)
-    if frames_re.dtype == torch.uint8:
-        frame_len = frames_re[0].numel() // 2
-        fr = fi = u8_flat(frames_re, frame_len, frames_im)
+    if starts is not None:
+        fr = fi = frames_re
+        if frames_im is not None or fr.dtype != torch.uint8 or fr.shape[-1] != 2 \
+                or starts.dtype != torch.int64 or starts.numel() != f \
+                or not starts.is_contiguous() or starts.device != m1.device \
+                or fr.device != m1.device or not fr.is_contiguous() or fr.data_ptr() % 16 \
+                or frame_len is None or frame_len % LANES:
+            raise ValueError("frames at starts are a contiguous, 16-byte aligned u8 (..., 2) "
+                             "buffer alone, frame_len a multiple of 8, and one contiguous "
+                             "int64 start a frame on the products' device")
     else:
-        fr, fi = frames_re.reshape(f, -1), frames_im.reshape(f, -1)
-        frame_len = fr.shape[1]
-    if fr.device != m1.device or fr.dtype != fi.dtype or fr.shape[0] != f \
-            or fr.dtype not in (torch.bfloat16, torch.float32, torch.uint8) \
-            or fr.shape != fi.shape or frame_len % LANES \
-            or not (fr.is_contiguous() and fi.is_contiguous()) \
-            or fr.data_ptr() % 16 or fi.data_ptr() % 16:
-        raise ValueError(f"stats_cuda takes contiguous, 16-byte aligned bf16 or f32 frames, "
-                         f"or u8 frames alone, on the products' device, (F, n) with n a "
-                         f"multiple of 8; got "
-                         f"{tuple(fr.shape)} {fr.dtype} {fr.device}, {tuple(fi.shape)} "
-                         f"{fi.dtype}")
+        if frames_re.dtype == torch.uint8:
+            frame_len = frames_re[0].numel() // 2
+            fr = fi = u8_flat(frames_re, frame_len, frames_im)
+        else:
+            fr, fi = frames_re.reshape(f, -1), frames_im.reshape(f, -1)
+            frame_len = fr.shape[1]
+        if fr.device != m1.device or fr.dtype != fi.dtype or fr.shape[0] != f \
+                or fr.dtype not in (torch.bfloat16, torch.float32, torch.uint8) \
+                or fr.shape != fi.shape or frame_len % LANES \
+                or not (fr.is_contiguous() and fi.is_contiguous()) \
+                or fr.data_ptr() % 16 or fi.data_ptr() % 16:
+            raise ValueError(f"stats_cuda takes contiguous, 16-byte aligned bf16 or f32 "
+                             f"frames, or u8 frames alone, on the products' device, (F, n) "
+                             f"with n a multiple of 8; got "
+                             f"{tuple(fr.shape)} {fr.dtype} {fr.device}, {tuple(fi.shape)} "
+                             f"{fi.dtype}")
     stride, n_tap = tap_geometry(n_sym, k)
     mean_power = torch.empty((f,), dtype=torch.float32, device=m1.device)
     tap = torch.empty((2, N_TAP), dtype=torch.float32, device=m1.device)
     _build.launch(_build.load_library().tpudab_demod_stats, m1.get_device(), "demod_stats",
                   fr.data_ptr(), fi.data_ptr(), IN_DTYPE[fr.dtype],
                   m1.data_ptr(), m2.data_ptr(), m3.data_ptr(), mean_power.data_ptr(),
-                  tap.data_ptr(), f, frame_len, n_sym, k, stride, n_tap)
+                  tap.data_ptr(), None if starts is None else starts.data_ptr(), f, frame_len,
+                  n_sym, k, stride, n_tap)
     stats_cuda.launches += 1
     return mean_power, tap[:, :n_tap]
 
@@ -245,7 +261,8 @@ def norm(m1, m2, m3, partials, out_dtype=torch.bfloat16):
     return (norm_ref if m1.device.type == "cpu" else norm_cuda)(m1, m2, m3, partials, out_dtype)
 
 
-def stats(frames_re, frames_im, m1, m2, m3):
-    """CPU -> stats_ref, CUDA -> stats_kernel."""
-    return (stats_ref if m1.device.type == "cpu" else stats_cuda)(frames_re, frames_im,
-                                                                  m1, m2, m3)
+def stats(frames_re, frames_im, m1, m2, m3, starts=None, frame_len=None):
+    """CPU -> stats_ref, CUDA -> stats_kernel. starts, frame_len: a tracked
+    stream's frames, as carve.carve_rotate takes them."""
+    return (stats_ref if m1.device.type == "cpu" else stats_cuda)(
+        frames_re, frames_im, m1, m2, m3, starts, frame_len)
